@@ -1,0 +1,186 @@
+"""K1: exact windowed top-K neighbour search (``csrc/knn.cu``) and its
+plain PyTorch version.
+
+Replaces ``myria3d_tpu/ops/pallas_knn.py::knn_topk_pallas`` (kernels
+``_knn_kernel_vpu_win_packed``, ``_knn_kernel_vpu_win``,
+``_knn_kernel_vpu``). Inputs are the centred, pad-augmented clouds built
+by ``ops.knn``: queries ``(B, Nq, 4)`` with w = 0, keys ``(B, Nk, 4)`` with
+w = 0 (valid) or 1e4 (pad), so a pad key sits 1e8 away in squared
+distance and no mask enters the kernel.
+
+Windows (x-sorted clouds only): queries are cut into tiles of 256; each
+tile scans a contiguous run of ``window_chunks * 512`` sorted key
+positions starting at its base chunk (``window_bases``, a searchsorted of
+the tile's mid x into the key x's). Keys are padded to a multiple of 512
+with pad rows. When the window would cover every key chunk the search is a
+full scan. Selection is EXACT within the scanned keys: the K smallest
+squared distances, ties to the lower key index; distances are full f32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from myria3d_tpu_torch import _ext
+
+TILE_Q = 256    # queries per window tile (one CUDA block)
+BINS = 512      # window base granularity and key padding multiple
+PAD_W = 1e4     # 4th coordinate of pad keys
+MAX_K = 32
+# elements of the (B, tiles, 256, window) key tensor the plain version
+# materializes per step
+_PLAIN_ELEMS = 1 << 26
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def window_chunks(window: int, nk_pad: int) -> int:
+    """Chunks a ``window``-position scan covers: +1 chunk absorbs the
+    base's rounding down to a chunk (``pallas_knn.py:554``)."""
+    return min(nk_pad // BINS, window // BINS + 1)
+
+
+def stage_window(window: int, n_keys: int) -> int:
+    """Density-scaled window for a search into ``n_keys`` sorted keys
+    (``pallas_knn.py:560``): about ``n_keys / 4`` rounded up to a chunk, at
+    least 5 chunks, at most ``window``, and clamped to the largest window
+    the key count can honour."""
+    if not window:
+        return 0
+    nk_pad = _ceil_to(n_keys, BINS)
+    density_cap = max(5 * BINS, _ceil_to(n_keys // 4, BINS))
+    w = min(window, density_cap)
+    max_win = (nk_pad // BINS - 2) * BINS
+    if max_win >= 2 * BINS:
+        w = min(w, max_win)
+    return w
+
+
+def window_bases(q4: torch.Tensor, k4: torch.Tensor, w_chunks: int,
+                 query_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, n_tiles) int32 window base CHUNK per query tile
+    (``pallas_knn.py:587``).
+
+    The tile's mid x is searchsorted into the keys' x column (pad keys
+    replaced by +inf so the valid sorted prefix stays monotone). With
+    ``query_mask``, the probe row is clamped to the last valid query, so a
+    tile that straddles the valid/pad boundary keeps the window of its real
+    queries. Rows past ``Nq`` are the zero padding of the last tile.
+    """
+    b, nq, _ = q4.shape
+    nk_pad = _ceil_to(k4.shape[1], BINS)
+    n_tiles = -(-nq // TILE_Q)
+    mid = torch.arange(n_tiles, device=q4.device) * TILE_Q + TILE_Q // 2
+    if query_mask is not None:
+        last_valid = (query_mask.sum(dim=1) - 1).clamp(min=0)
+        probe = torch.minimum(mid[None, :], last_valid[:, None])
+    else:
+        probe = mid[None, :].expand(b, n_tiles)
+    qx = torch.gather(q4[..., 0], 1, probe.clamp(max=nq - 1))
+    qx = torch.where(probe < nq, qx, 0.0)
+    kx = torch.where(k4[..., 3] == 0.0, k4[..., 0], float("inf"))
+    pos = torch.searchsorted(kx.contiguous(), qx.contiguous())
+    half = (w_chunks * BINS) // 2
+    base = torch.div(pos - half, BINS, rounding_mode="floor")
+    return base.clamp(0, nk_pad // BINS - w_chunks).to(torch.int32)
+
+
+def _windows(q4: torch.Tensor, k4: torch.Tensor, window: int,
+             query_mask: torch.Tensor | None):
+    """(bases or None for a full scan, window length in key positions)."""
+    nk_pad = _ceil_to(k4.shape[1], BINS)
+    w_chunks = window_chunks(window, nk_pad) if window else 0
+    if 0 < w_chunks < nk_pad // BINS:
+        return window_bases(q4, k4, w_chunks, query_mask), w_chunks * BINS
+    return None, nk_pad
+
+
+def _check(q4: torch.Tensor, k4: torch.Tensor, k: int) -> None:
+    if q4.dim() != 3 or q4.shape[-1] != 4 or k4.dim() != 3 or k4.shape[-1] != 4:
+        raise ValueError("queries and keys must be (B, N, 4)")
+    if q4.shape[0] != k4.shape[0]:
+        raise ValueError("queries and keys must share the batch size")
+    if not 1 <= k <= min(MAX_K, k4.shape[1]):
+        raise ValueError(f"k={k} must be in [1, min({MAX_K}, Nk)]")
+    if q4.dtype != torch.float32 or k4.dtype != torch.float32:
+        raise ValueError("queries and keys must be float32")
+
+
+def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
+                   query_mask: torch.Tensor | None = None):
+    """Plain PyTorch version of K1: same windows, same exact selection.
+
+    Distances are summed in the kernel's association (w², then dx², dy²,
+    dz², each op rounded); ranking is on int64 keys (distance bits << 32 |
+    window position), so ties go to the lower key index exactly as in the
+    kernel.
+    """
+    _check(q4, k4, k)
+    b, nq, _ = q4.shape
+    nk = k4.shape[1]
+    bases, win_len = _windows(q4, k4, window, query_mask)
+    nk_pad = _ceil_to(nk, BINS)
+    pad_rows = torch.zeros((b, nk_pad - nk, 4), dtype=k4.dtype, device=k4.device)
+    pad_rows[..., 3] = PAD_W
+    k4p = torch.cat([k4, pad_rows], dim=1)
+    n_tiles = -(-nq // TILE_Q)
+    start = (bases.long() * BINS if bases is not None
+             else torch.zeros((b, n_tiles), dtype=torch.long, device=q4.device))
+    qt = F.pad(q4, (0, 0, 0, n_tiles * TILE_Q - nq)).view(b, n_tiles, TILE_Q, 4)
+    ar = torch.arange(win_len, device=q4.device)
+    step = max(1, _PLAIN_ELEMS // (b * TILE_Q * win_len))
+    idx_parts, d2_parts = [], []
+    for t0 in range(0, n_tiles, step):
+        st = start[:, t0:t0 + step]                                # (B, T)
+        t = st.shape[1]
+        kpos = (st[..., None] + ar).reshape(b, -1, 1).expand(-1, -1, 4)
+        kw = torch.gather(k4p, 1, kpos).view(b, t, 1, win_len, 4)
+        qq = qt[:, t0:t0 + t, :, None, :]                          # (B,T,256,1,4)
+        s = kw[..., 3] * kw[..., 3]
+        for c in range(3):
+            d = qq[..., c] - kw[..., c]
+            s = s + d * d
+        key = (s.view(torch.int32).to(torch.int64) << 32) | ar
+        top = key.topk(k, dim=-1, largest=False, sorted=True).values
+        idx_parts.append((top & 0xFFFFFFFF) + st[..., None, None])
+        d2_parts.append((top >> 32).to(torch.int32).view(torch.float32))
+    idx = torch.cat(idx_parts, dim=1).view(b, n_tiles * TILE_Q, k)[:, :nq]
+    d2 = torch.cat(d2_parts, dim=1).view(b, n_tiles * TILE_Q, k)[:, :nq]
+    return idx.to(torch.int32).contiguous(), d2.contiguous()
+
+
+def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
+             query_mask: torch.Tensor | None = None):
+    """K nearest keys of every query: ``(idx (B, Nq, k) int32,
+    d2 (B, Nq, k) float32)``, ascending.
+
+    CPU tensors take :func:`knn_topk_plain`; CUDA tensors launch the
+    kernel (or raise). ``window > 0`` requires x-sorted clouds.
+    """
+    if q4.device.type == "cpu":
+        return knn_topk_plain(q4, k4, k, window, query_mask)
+    _check(q4, k4, k)
+    _ext.require_cuda("knn_topk", q4, k4)
+    b, nq, _ = q4.shape
+    nk = k4.shape[1]
+    idx = torch.empty((b, nq, k), dtype=torch.int32, device=q4.device)
+    d2 = torch.empty((b, nq, k), dtype=torch.float32, device=q4.device)
+    if b * nq == 0:
+        return idx, d2
+    bases, win_len = _windows(q4, k4, window, query_mask)
+    with torch.cuda.device(q4.device):
+        code = _ext.lib().m3d_knn_topk(
+            q4.data_ptr(), k4.data_ptr(),
+            None if bases is None else bases.data_ptr(),
+            b, nq, nk, -(-nq // TILE_Q), win_len, k,
+            idx.data_ptr(), d2.data_ptr(), _ext.stream_of(q4),
+        )
+    _ext.check(code, "m3d_knn_topk")
+    knn_topk.launches += 1
+    return idx, d2
+
+
+knn_topk.launches = 0

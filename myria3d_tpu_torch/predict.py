@@ -1,0 +1,205 @@
+"""Tile inference pipeline — port of ``myria3d_tpu/predict.py:25``.
+
+``predict(config) -> str``: reads one LAS tile once, cooks its 50 m
+subtiles on the host (``myria3d_tpu.pctl``: the predict transforms, with
+``SortPointsByX`` appended when ``predict.sorted_window > 0``), runs
+``Model.interp_step`` on the device for each padded batch, merges the f16
+full-cloud logits into the ``Interpolator`` by original point index, and
+writes the output LAS (PredictedClassification, per-class probabilities,
+entropy).
+
+The device is ``predict.gpus`` as in the reference: 0 is the CPU (the
+kernels' plain versions), 1 the first CUDA device, ``[i]`` device i. A
+requested CUDA device that is missing is an error, never a CPU fallback.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import sys
+import time
+from collections import deque
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from myria3d_tpu.pctl.batching import DEFAULT_BUCKETS, pad_full_cloud, pad_sampled_pos
+from myria3d_tpu.pctl.dataset.iterable import InferenceDataset
+from myria3d_tpu.pctl.dataset.utils import read_las_array
+from myria3d_tpu.pctl.loader import BackgroundIterator, PaddedBatchLoader
+from myria3d_tpu.pctl.transforms.compose import CustomCompose
+from myria3d_tpu.pctl.transforms.transforms import SortPointsByX
+from myria3d_tpu.utils.config import instantiate
+from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
+
+log = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def _jax_hidden():
+    """``myria3d_tpu.utils.utils.get_logger`` probes ``jax`` inside a
+    ``try`` (process-rank gating); hide it while the reused Interpolator
+    module imports, so the port never loads JAX where it is installed."""
+    if "jax" in sys.modules:
+        yield
+        return
+    sys.modules["jax"] = None
+    try:
+        yield
+    finally:
+        if sys.modules.get("jax", 0) is None:
+            del sys.modules["jax"]
+
+
+with _jax_hidden():
+    from myria3d_tpu.models.interpolation import Interpolator
+
+
+def device_from_gpus(gpus: Any) -> torch.device:
+    """Reference ``define_device_from_config_param``: 0 -> CPU,
+    n > 0 -> cuda:0, [i] -> cuda:i."""
+    if isinstance(gpus, (list, tuple)):
+        if len(gpus) != 1:
+            raise ValueError(f"predict.gpus={gpus}: one device per process")
+        device = torch.device(f"cuda:{int(gpus[0])}")
+    elif not gpus:
+        return torch.device("cpu")
+    else:
+        device = torch.device("cuda:0")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"predict.gpus={gpus} asks for CUDA, but none is available")
+    return device
+
+
+def _buckets(dm: dict, stages: list) -> tuple:
+    """Padded point-count ladder (``HDF5LidarDataModule._build_buckets``):
+    the MaximumNumNodes cap rounded up to 128 tops the default ladder."""
+    cap = dm.get("padded_num_points")
+    if not cap:
+        cap = next((int(t.num) for t in stages
+                    if type(t).__name__ in ("MaximumNumNodes", "FixedPoints")),
+                   DEFAULT_BUCKETS[-1])
+    top = -(-int(cap) // 128) * 128
+    if not dm.get("bucketing", True):
+        return (top,)
+    return tuple(b for b in DEFAULT_BUCKETS if b < top) + (top,)
+
+
+def predict(config: dict, phases: Optional[dict] = None, preread=None) -> str:
+    """Predict one LAS file (``config["predict"]["src_las"]``) and return
+    the output path. ``phases``, when given, receives wall-clock phase
+    timings in seconds. ``preread`` optionally hands over the tile's
+    ``(points, header)``, or a Future of it, read ahead by the caller."""
+    pcfg, dm = config["predict"], config["datamodule"]
+    if pcfg.get("compute_dtype"):
+        raise NotImplementedError("predict.compute_dtype is not ported yet")
+    device = device_from_gpus(pcfg.get("gpus", 0))
+    src_las = pcfg["src_las"]
+
+    t0 = time.perf_counter()
+    if preread is not None:
+        tile_points, tile_header = (
+            preread.result() if hasattr(preread, "result") else preread
+        )
+    else:
+        tile_points, tile_header = read_las_array(src_las, dm.get("epsg"))
+    t_read = time.perf_counter() - t0
+
+    # the sort and the kernels' window are switched on together, so an
+    # unsorted cloud never meets a window
+    sorted_window = int(pcfg.get("sorted_window", 0) or 0)
+    transforms = dm["transforms"]
+    stages = [instantiate(t) for t in transforms["preparations_predict_list"]]
+    if sorted_window > 0:
+        stages.append(SortPointsByX())
+    stages += [instantiate(t) for t in transforms["normalizations_list"]]
+    dataset = InferenceDataset(
+        src_las, dm.get("epsg"),
+        points_pre_transform=instantiate(dm["points_pre_transform"]),
+        pre_filter=instantiate(dm.get("pre_filter")),
+        transform=CustomCompose(stages),
+        tile_width=dm.get("tile_width", 1000),
+        subtile_width=dm.get("subtile_width", 50),
+        subtile_overlap=dm.get("subtile_overlap_predict", 0),
+        points=tile_points,
+    )
+    loader = PaddedBatchLoader(
+        dataset, batch_size=dm["batch_size"], num_workers=1,
+        prefetch_factor=dm.get("prefetch_factor", 2), buckets=_buckets(dm, stages),
+        process_index=0, process_count=1,
+    )
+
+    model = load_checkpoint(pcfg["ckpt_path"], device)
+    # predict.exact_knn: every search a full scan (selection is exact
+    # within a window either way)
+    model.set_sorted_window(0 if pcfg.get("exact_knn") else sorted_window)
+    generator = torch.Generator(device=device).manual_seed(int(config.get("seed", 12345)))
+
+    itp = instantiate(pcfg["interpolator"])
+    if not isinstance(itp, Interpolator):
+        raise TypeError(f"predict.interpolator built {type(itp).__name__}")
+    itp.prepare(len(tile_points), points=tile_points, header=tile_header)
+
+    # depth-2 pending queue: batch i's logits are fetched only after batch
+    # i+1's step is queued, so the device computes while the host prepares
+    # the next batch and merges the previous one; the D2H copy lands in a
+    # pinned buffer without blocking the queue
+    pending: deque = deque()
+    t_fetch = t_merge = 0.0
+    n_batches = 0
+
+    def drain() -> None:
+        nonlocal t_fetch, t_merge
+        host, done, idx = pending.popleft()
+        ta = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+        tb = time.perf_counter()
+        itp.store_predictions(host.numpy(), idx)
+        t_fetch += tb - ta
+        t_merge += time.perf_counter() - tb
+
+    def to_dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
+    t_stream0 = time.perf_counter()
+    for batch in BackgroundIterator(loader, max_prefetch=2):
+        full = pad_full_cloud(batch.copies)
+        sampled_pos = pad_sampled_pos(batch.copies, batch.num_points)
+        if full is None or sampled_pos is None:
+            log.warning("Batch without full-cloud copies; skipping.")
+            continue
+        logits = model.interp_step(
+            to_dev(batch.x), to_dev(batch.pos), to_dev(batch.mask),
+            to_dev(sampled_pos), to_dev(full["full_pos"]),
+            to_dev(full["full_mask"]), generator,
+        )
+        if device.type == "cuda":
+            host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+            host.copy_(logits, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = logits, None
+        pending.append((host, done, batch.idx_in_original_cloud))
+        n_batches += 1
+        if len(pending) > 1:
+            drain()
+    while pending:
+        drain()
+    t_stream = time.perf_counter() - t_stream0
+
+    t0 = time.perf_counter()
+    out_path = itp.reduce_predictions_and_save(src_las, pcfg["output_dir"], dm.get("epsg"))
+    t_reduce = time.perf_counter() - t0
+    log.info(
+        "predict phases: tile read %.1fs; streaming %.1fs over %d batches "
+        "(%.1fs blocked on the logits fetch, %.1fs merging); finalize+write %.1fs",
+        t_read, t_stream, n_batches, t_fetch, t_merge, t_reduce,
+    )
+    if phases is not None:
+        phases.update(tile_read_s=t_read, streaming_s=t_stream, fetch_blocked_s=t_fetch,
+                      merge_s=t_merge, n_batches=n_batches, finalize_write_s=t_reduce)
+    return out_path
