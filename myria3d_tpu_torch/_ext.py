@@ -1,10 +1,11 @@
 """Build and bind the package's CUDA kernels (``csrc/*.cu``).
 
 The kernels are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
-``build/myria3d_tpu_torch/`` beside the package, and loaded with
-``ctypes``. The library name carries a hash of the sources, so an edited
-source triggers a rebuild and a stale library is never loaded. Nothing
+(``sm_90a``), one process per source, all started together, and linked
+into one shared library with a plain C interface under
+``build/myria3d_tpu_torch/`` beside the package, loaded with ``ctypes``.
+The library name carries a hash of the sources, so an edited source
+triggers a rebuild and a stale library is never loaded. Nothing
 is built or loaded at import time: the CPU code paths never need it.
 
 Every C entry point launches on the stream it is given and returns
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "myria3d_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "m3d_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "m3d_knn_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "m3d_lfa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "m3d_gather_bwd": [_P, _P, _P, _I, _I, _P, _P],
+    "m3d_relstats": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "m3d_reduce_chunks": [_P, _I, _I, _I, _P, _P],
+    "m3d_lfa_bwd": [_P] * 11 + [_I] * 7 + [_P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -76,24 +81,29 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # compile to a private name, then publish atomically: concurrent
-    # builders never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    # one nvcc per source, all at once, into a private directory; then link
+    # to a private name and publish atomically: concurrent builds never
+    # load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp_dir, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib_tmp = os.path.join(tmp_dir, out.name)
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
+        os.replace(lib_tmp, out)
     return out
 
 

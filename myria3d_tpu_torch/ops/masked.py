@@ -1,8 +1,9 @@
-"""Masked softmax over a dense neighbour axis.
+"""Masked softmax over a dense neighbour axis and masked moments.
 
-Port of ``myria3d_tpu/ops/masked.py:17``: the reference's scatter softmax
+Port of ``myria3d_tpu/ops/masked.py``: the reference's scatter softmax
 over ragged neighbourhoods becomes a softmax over the dense K axis that
-only counts valid entries.
+only counts valid entries, and torch BatchNorm statistics over the
+concatenated valid points become masked moments over the padded batch.
 """
 
 from __future__ import annotations
@@ -22,3 +23,22 @@ def masked_softmax(scores: torch.Tensor, valid: torch.Tensor, dim: int) -> torch
     e = torch.where(valid, torch.exp(masked - m), 0.0)
     s = e.sum(dim=dim, keepdim=True)
     return e / s.clamp(min=1e-16)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:
+    """Mean of ``x`` over ``dim`` counting only mask-True entries."""
+    m = mask.to(x.dtype)
+    num = (x * m).sum(dim=dim, keepdim=keepdim)
+    return num / m.sum(dim=dim, keepdim=keepdim).clamp(min=1.0)
+
+
+def masked_var(x: torch.Tensor, mask: torch.Tensor, dim, keepdim: bool = False,
+               mean: torch.Tensor | None = None) -> torch.Tensor:
+    """Biased variance over mask-True entries (torch BatchNorm normalizes
+    with the biased batch variance); a given ``mean`` must broadcast
+    against ``x``."""
+    if mean is None:
+        mean = masked_mean(x, mask, dim, keepdim=True)
+    m = mask.to(x.dtype)
+    num = (((x - mean) ** 2) * m).sum(dim=dim, keepdim=keepdim)
+    return num / m.sum(dim=dim, keepdim=keepdim).clamp(min=1.0)

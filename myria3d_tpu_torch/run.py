@@ -1,13 +1,17 @@
-"""CLI of the port — ``python -m myria3d_tpu_torch.run task.task_name=predict
+"""CLI of the port — ``python -m myria3d_tpu_torch.run task.task_name={fit,predict}
 [--config-path DIR] [--config-name NAME] [a.b=value ...]``.
 
-Mirrors ``run.py:92`` (``launch_predict``): the config tree under
-``configs/`` is composed with ``experiment=predict`` (unless a frozen
-config is given), ``predict.src_las`` may be a glob, the next tile is read
-in the background while the current one streams through the device, and
-``predict.resume`` skips inputs whose output already exists. Set
-``predict.gpus=1`` to run on the first CUDA device. The other tasks
-(fit, test, finetune, create_hdf5) are not ported yet.
+Mirrors ``run.py``. ``fit`` (the default task) composes the config tree
+under ``configs/`` (default experiment ``RandLaNetDebug``), enters the
+per-run directory ``hydra.run.dir`` like hydra, and runs
+``myria3d_tpu_torch.train.train``; ``trainer.accelerator`` picks the
+device. ``predict`` (``launch_predict``, ``run.py:92``) composes with
+``experiment=predict`` (unless a frozen config is given),
+``predict.src_las`` may be a glob, the next tile is read in the background
+while the current one streams through the device, and ``predict.resume``
+skips inputs whose output already exists; ``predict.gpus=1`` runs on the
+first CUDA device. The other tasks (test, finetune, create_hdf5) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ def parse_cli(argv: List[str]):
 
 
 def compose_config(config_dir: str, config_name: str, overrides: List[str]):
-    """Compose the predict config: the ``configs/`` tree with
-    ``experiment=predict``, or a frozen full config plus overrides."""
+    """Compose the config: the ``configs/`` tree (with ``experiment=predict``
+    for the predict task), or a frozen full config plus overrides."""
     import yaml
 
     from myria3d_tpu.utils.config import compose, load_config, resolve_interpolations, update
@@ -54,7 +58,9 @@ def compose_config(config_dir: str, config_name: str, overrides: List[str]):
     with open(path) as f:
         layered = "defaults:" in f.read()
     if layered:
-        if config_dir == CONFIG_DIR and not any(o.startswith("experiment=") for o in overrides):
+        predict = TASK_PREFIX + "predict" in overrides
+        if predict and config_dir == CONFIG_DIR and not any(
+                o.startswith("experiment=") for o in overrides):
             overrides = ["experiment=predict"] + overrides
         return compose(config_dir, config_name, overrides)
     cfg = load_config(path)
@@ -95,16 +101,37 @@ def launch_predict(config) -> List[str]:
     return outs
 
 
+def enter_run_dir(config) -> None:
+    """Hydra's job directory, as ``run.py:182-205``: freeze the invoking
+    cwd for ``${hydra:runtime.cwd}`` and chdir to ``hydra.run.dir`` (unless
+    the config has no ``hydra`` node or sets ``hydra.job.chdir=false``)."""
+    from myria3d_tpu.utils.config import set_runtime_info
+
+    set_runtime_info(runtime_cwd=os.getcwd())
+    hydra_cfg = config.get("hydra") or {}
+    if str((hydra_cfg.get("job") or {}).get("chdir", True)).lower() in ("false", "0"):
+        return
+    run_dir = (hydra_cfg.get("run") or {}).get("dir")
+    if run_dir:
+        os.makedirs(run_dir, exist_ok=True)
+        set_runtime_info(run_dir=os.path.abspath(run_dir))
+        os.chdir(run_dir)
+
+
 def main(argv: List[str]):
     if "--help" in argv or "-h" in argv:
         print(__doc__)
         return None
     config_dir, config_name, overrides, task = parse_cli(argv)
-    if task != "predict":
-        raise NotImplementedError(
-            f"task.task_name={task} is not ported yet (predict only)"
-        )
-    return launch_predict(compose_config(config_dir, config_name, overrides))
+    if task == "predict":
+        return launch_predict(compose_config(config_dir, config_name, overrides))
+    if task == "fit":
+        from myria3d_tpu_torch.train import train
+
+        config = compose_config(config_dir, config_name, overrides)
+        enter_run_dir(config)
+        return train(config)
+    raise NotImplementedError(f"task.task_name={task} is not ported yet (fit, predict)")
 
 
 if __name__ == "__main__":

@@ -62,9 +62,10 @@ def test_predict_phases_and_resume(small_tile, tmp_path):
     assert run.launch_predict(cfg) == [out] and os.path.getmtime(out) == mtime
 
 
-def test_other_tasks_are_not_ported():
+@pytest.mark.parametrize("task", ["test", "finetune", "create_hdf5"])
+def test_other_tasks_are_not_ported(task):
     with pytest.raises(NotImplementedError):
-        run.main(["task.task_name=fit"])
+        run.main([f"task.task_name={task}"])
 
 
 def test_device_from_gpus(monkeypatch):
