@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's predict and train paths (one
-NVIDIA GPU).
+"""On-card smoke test of the PyTorch port's predict, train and test paths
+(one NVIDIA GPU).
 
     python3 chip_smoke.py
 
@@ -38,10 +38,30 @@ PyTorch built for CUDA. Phases, one line each:
    default), with the plain path beside the kernel path at B=16 and 10:
    ms/step (updated parameters consumed), Mpts/s, peak memory, and the
    cosine of the whole-model gradient between the routes and between the
-   paths (>= 0.999).
+   paths (>= 0.999);
+9. K7 (``knn_topk(variant="mxu")``, the expanded-score full scan): its path
+   run at the full-scan shapes of the predict step (self 768 and self 192,
+   B=48) and at a full-scan self 12288 (B=48); indices bit-equal to its
+   plain version and d2 within 1e-6 relative; against K1's full scan on the
+   same clouds, equal index sets wherever the gap between the k-th and
+   (k+1)-th distances exceeds twice the expanded form's rounding bound
+   (16 eps (|q|^2 + max |k|^2)) and d2 within that bound there; K7 and K1
+   timed side by side;
+10. the full-cloud test path: ``Trainer.test`` on the toy-tile subtiles
+   (with their full-cloud copies) and phase 7's B=32 checkpoint; K1, K2 and
+   K3 launched, ``test/loss_epoch`` and the mean IoU printed, and held
+   against the same test on the plain versions (loss within 1e-3 relative,
+   IoU within 0.01).
 
-Then one JSON line with the kernels and, last, the device JSON line. Any
-failure, and a missing CUDA device, exits nonzero without a result.
+Every kernel line of phases 3, 6 and 9 carries ``bound_ms``: the larger of
+the bytes its call must move (inputs read once, outputs written once) over
+3.35 TB/s and its FP32 instructions over 33.5 T/s (the H100 SXM's 67
+TFLOP/s FP32 counting an FMA as two), with the instructions counted from
+this run's data (valid queries or points, the keys each window scans).
+K4's carries ``library_ms``, the time of ``index_add_`` of the cotangent
+rows. Then one JSON line with the kernels and, last, the device JSON line.
+Any failure, a missing CUDA device, or a module of JAX or of the JAX
+package loaded during the run exits nonzero without a result.
 """
 
 from __future__ import annotations
@@ -69,6 +89,11 @@ TOL = {"K1": 1e-6, "K2": 1e-4, "K3": 1e-5, "K4": 1e-5, "K5": 1e-5, "K6": 1e-4, "
        "var": 1e-4}
 TRAIN_N = 12_288                             # bench.py --train
 FIT_STEPS = 20
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and FP32 instructions/s
+# (67 TFLOP/s with an FMA counted as two flops)
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 67e12 / 2
+PAIR_INSTR = 8                               # per (query, key) pair of a search
 
 
 class PhaseError(RuntimeError):
@@ -78,6 +103,17 @@ class PhaseError(RuntimeError):
 def need(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(instr: float, n_bytes: float):
+    """(bound_ms, bound_by): the least time for ``instr`` FP32 instructions
+    and ``n_bytes`` of device memory traffic on the H100 SXM."""
+    t_ops, t_bytes = instr / FP32_INSTR_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -100,7 +136,7 @@ def bench_subtiles(seed: int = 0):
     """Synthetic subtiles built as bench.py builds them: 30 000 raw points
     per 50 m subtile, GridSampling(0.25) on the host, x-sorted sampled and
     full clouds padded to N and M."""
-    from myria3d_tpu.pctl.transforms.transforms import CopyFullPos, GridSampling
+    from myria3d_tpu_torch.pctl.transforms.transforms import CopyFullPos, GridSampling
 
     rng = np.random.default_rng(seed)
     x = np.zeros((B, N, 9), np.float32)
@@ -216,7 +252,7 @@ def phase_kernels(model, dev):
     import torch
 
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp, knn_interp_plain
-    from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_plain, stage_window
+    from myria3d_tpu_torch.ops.cuda_knn import _windows, knn_topk, knn_topk_plain, stage_window
     from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention, lfa_attention_plain
     from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows, knn_graph
     from myria3d_tpu_torch.ops.sampling import random_decimation
@@ -231,10 +267,11 @@ def phase_kernels(model, dev):
 
     stats = {"K1": [], "K2": [], "K3": []}
 
-    def record(name, label, err, fn_k, fn_p, reps_p=2):
+    def record(name, label, err, fn_k, fn_p, bnd, reps_p=2):
         ms, plain_ms = cuda_ms(fn_k, 5), cuda_ms(fn_p, reps_p)
-        stats[name].append((err, ms, plain_ms))
-        print(f"phase 3 {name} {label}: max_abs_err {err:.3g}, {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        stats[name].append((err, ms, plain_ms, bnd, None))
+        print(f"phase 3 {name} {label}: max_abs_err {err:.3g}, {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound_ms {bnd[0]:.4f} ({bnd[1]})")
 
     k1_cases = [("K=16 self 12288", stages[0], stages[0], 16),
                 ("K=16 self 3072", stages[1], stages[1], 16),
@@ -246,9 +283,11 @@ def phase_kernels(model, dev):
         idx_k, d2_k = knn_topk(q4, k4, k, window=w, query_mask=qm)
         idx_p, d2_p = knn_topk_plain(q4, k4, k + 1, window=w, query_mask=qm)
         err = check_k1(idx_k, d2_k, idx_p, d2_p, TOL["K1"])
+        scanned = _windows(q4, k4, w, qm)[1]
+        bnd = bound(PAIR_INSTR * float(qm.sum()) * scanned, nbytes(q4, k4, idx_k, d2_k))
         record("K1", f"{label} (window {w})", err,
                lambda: knn_topk(q4, k4, k, window=w, query_mask=qm),
-               lambda: knn_topk_plain(q4, k4, k, window=w, query_mask=qm))
+               lambda: knn_topk_plain(q4, k4, k, window=w, query_mask=qm), bnd)
 
     net = model.net
     for blk, (p, m) in zip((net.block1, net.block2, net.block3, net.block4), stages):
@@ -260,36 +299,51 @@ def phase_kernels(model, dev):
             feats = torch.rand((B, p.shape[1], c_in), generator=gen, device=dev) * 2 - 1
             args = (feats, p, idx, nv, enc_a, enc_c, att_w)
             with torch.inference_mode():
-                err = scale_err(lfa_attention(*args), lfa_attention_plain(*args),
+                got = lfa_attention(*args)
+                err = scale_err(got, lfa_attention_plain(*args),
                                 TOL["K2"], f"K2 ({c_in},{2 * c_in})")
+                # per valid point and slot: the attention product (C^2), the
+                # encoder (10 per encoder channel) and the masked softmax
+                # and pooling (~4 per channel), C = 2 c_in
+                c = 2 * c_in
+                bnd = bound(float(m.sum()) * 16 * (c * c + 10 * c_in + 4 * c),
+                            nbytes(*args, got))
                 record("K2", f"({c_in},{2 * c_in}) N={p.shape[1]}", err,
-                       lambda: lfa_attention(*args), lambda: lfa_attention_plain(*args))
+                       lambda: lfa_attention(*args), lambda: lfa_attention_plain(*args), bnd)
 
     logits = torch.randn((B, N, 7), generator=gen, device=dev) * 3
     q4, k4 = centred_clouds(full_pos, pos, mask)
-    w = stage_window(WINDOW, N)
     args = (logits, q4, k4, 10)
-    kw = dict(window=w, query_mask=full_mask)
-    err = scale_err(knn_interp(*args, **kw), knn_interp_plain(*args, **kw), TOL["K3"], "K3")
-    record("K3", f"k=10 32768<-12288 (window {w})", err,
-           lambda: knn_interp(*args, **kw), lambda: knn_interp_plain(*args, **kw))
+    # the windowed search of the shipped config, then the full scan that
+    # predict.sorted_window=0 takes
+    for w in (stage_window(WINDOW, N), 0):
+        kw = dict(window=w, query_mask=full_mask)
+        got = knn_interp(*args, **kw)
+        err = scale_err(got, knn_interp_plain(*args, **kw), TOL["K3"], "K3")
+        # the scan's pairs, plus the weighting of k payload rows per query
+        n_q = float(full_mask.sum())
+        bnd = bound(PAIR_INSTR * n_q * _windows(q4, k4, w, full_mask)[1] + n_q * 10 * (2 * 7 + 4),
+                    nbytes(logits, q4, k4, full_mask, got))
+        record("K3", f"k=10 32768<-12288 ({f'window {w}' if w else 'full scan'})", err,
+               lambda: knn_interp(*args, **kw), lambda: knn_interp_plain(*args, **kw), bnd,
+               reps_p=2 if w else 1)
     return stats
 
 
 def launch_counters():
     from myria3d_tpu_torch.ops.cuda_gather import gather_bwd
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp
-    from myria3d_tpu_torch.ops.cuda_knn import knn_topk
+    from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu
     from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention
     from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train_bwd, rel_stats
 
     return {"K1": knn_topk, "K2": lfa_attention, "K3": knn_interp, "K4": gather_bwd,
-            "K5": rel_stats, "K6": lfa_train_bwd}
+            "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu}
 
 
 def phase_main_path(dev):
     """The port's predict() on the toy tile, through the kernels."""
-    from myria3d_tpu.pctl.io.las import read_las
+    from myria3d_tpu_torch.pctl.io.las import read_las
     from myria3d_tpu_torch.predict import predict
     from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
 
@@ -297,8 +351,7 @@ def phase_main_path(dev):
     with tempfile.TemporaryDirectory(prefix="m3d_predict_") as out_dir:
         cfg = compose_config(CONFIG_DIR, "config.yaml", [
             "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={ASSETS}",
-            f"predict.output_dir={out_dir}", f"predict.gpus={int(dev.type == 'cuda')}",
-            "datamodule.batch_size=4",
+            f"predict.output_dir={out_dir}", "datamodule.batch_size=4",
         ])
         counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K2", "K3")}
         for fn in counters.values():
@@ -351,8 +404,10 @@ def phase_step(model, dev):
         return (time.perf_counter() - t0) * 1e3 / reps, out
 
     counters = launch_counters()
+    start = {n: fn.launches for n, fn in counters.items()}
     ms, out_k = wall_ms(5)
     before = {n: fn.launches for n, fn in counters.items()}
+    per_step = {n: (before[n] - start[n]) / 6 for n in counters if before[n] > start[n]}
     with plain_versions():
         plain_ms, out_p = wall_ms(2)
     need(before == {n: fn.launches for n, fn in counters.items()}, "plain path launched a kernel")
@@ -363,7 +418,7 @@ def phase_step(model, dev):
     mpts = B * RAW / ms / 1e3
     print(f"phase 5 predict step B={B} N={N} M={M}: kernels {ms:.1f} ms/batch "
           f"({mpts:.3f} Mpts/s), plain {plain_ms:.1f} ms/batch ({B * RAW / plain_ms / 1e3:.3f} Mpts/s), "
-          f"argmax agreement {agree:.6f}")
+          f"argmax agreement {agree:.6f}, launches per step {per_step}")
 
 
 def train_batch(b: int, seed: int = 0):
@@ -407,10 +462,13 @@ def phase_train_kernels(dev):
 
     stats = {"K4": [], "K5": [], "K6": []}
 
-    def record(name, label, err, fn_k, fn_p, reps=5, reps_p=2):
+    def record(name, label, err, fn_k, fn_p, bnd, reps=5, reps_p=2, fn_lib=None):
         ms, plain_ms = cuda_ms(fn_k, reps), cuda_ms(fn_p, reps_p)
-        stats[name].append((err, ms, plain_ms))
-        print(f"phase 6 {name} {label}: max_abs_err {err:.3g}, {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        lib_ms = cuda_ms(fn_lib, reps) if fn_lib is not None else None
+        stats[name].append((err, ms, plain_ms, bnd, lib_ms))
+        print(f"phase 6 {name} {label}: max_abs_err {err:.3g}, {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound_ms {bnd[0]:.4f} ({bnd[1]})"
+              + (f", library_ms {lib_ms:.3f} (index_add_)" if lib_ms is not None else ""))
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -420,12 +478,19 @@ def phase_train_kernels(dev):
         w = stage_window(WINDOW, n)
         idx, _, nv = knn_graph(p, m, 16, window=w)
         inv = inverse_map(idx, nv, n)
+        # index_add_'s operands: the cotangent rows of the valid slots and
+        # their global key rows (built outside its timing)
+        rows_key = (idx.long() + torch.arange(idx.shape[0], device=dev)[:, None, None] * n).reshape(-1)
         for width in (3 + d_out // 8, d_out // 4):      # the wide gather, lfa2's gather
             dout = rnd(16, n, 16, width)
-            err = scale_err(gather_bwd(dout, idx, nv, inv, n),
-                            gather_bwd_plain(dout, idx, nv, n), TOL["K4"], f"K4 P={width}")
+            got = gather_bwd(dout, idx, nv, inv, n)
+            err = scale_err(got, gather_bwd_plain(dout, idx, nv, n), TOL["K4"], f"K4 P={width}")
+            rows = torch.where(nv[..., None], dout, 0.0).reshape(-1, width)
+            target = torch.zeros((16 * n, width), device=dev)
+            bnd = bound(float(nv.sum()) * width, nbytes(dout, idx, nv, inv.perm, inv.offsets, got))
             record("K4", f"P={width} N={n}", err, lambda: gather_bwd(dout, idx, nv, inv, n),
-                   lambda: gather_bwd_plain(dout, idx, nv, n))
+                   lambda: gather_bwd_plain(dout, idx, nv, n), bnd,
+                   fn_lib=lambda: target.index_add_(0, rows_key, rows))
 
         got = rel_stats(p, idx, nv)
         err = scale_err(got, rel_stats_plain(p.double(), idx, nv), TOL["K5"], "K5")
@@ -436,9 +501,11 @@ def phase_train_kernels(dev):
         e = locse(p, gather_rows(p, idx)) @ w_e.T + b_e
         two_pass = masked_var(e, nv[..., None], dim=(0, 1, 2))
         var_err = scale_err(var, two_pass, TOL["var"], "K5 variance vs two-pass")
+        # per valid slot: the 10 rel features (~20) and 66 product sums
+        bnd = bound(float(nv.sum()) * (20 + 66), nbytes(p, idx, nv, got))
         record("K5", f"N={n} (window {w}; variance vs two-pass {var_err:.3g} of "
                f"{float(two_pass.abs().max()):.3g})", err,
-               lambda: rel_stats(p, idx, nv), lambda: rel_stats_plain(p, idx, nv))
+               lambda: rel_stats(p, idx, nv), lambda: rel_stats_plain(p, idx, nv), bnd)
 
         for c_in in (d_out // 8, d_out // 4):           # lfa1, lfa2
             args = (rnd(16, n, c_in), p, idx, nv, rnd(c_in, 10, scale=0.3), rnd(c_in, scale=0.3),
@@ -448,37 +515,41 @@ def phase_train_kernels(dev):
             want = lfa_train_bwd_plain(*(a.double() if a.is_floating_point() else a for a in args))
             errs = [scale_err(a, b.float(), tol, f"K6 C_in={c_in} {what}") for a, b, tol, what in
                     zip(got, want, (TOL["K6"], TOL["K6sum"], TOL["K6sum"]), ("dx", "d_att_w", "sums"))]
+            # per valid point and slot: the forward's attention product, its
+            # transpose and d(att_w) (3 C^2, C = 2 c_in), plus the encoder,
+            # softmax and BN-sum terms (~40 per channel)
+            c = 2 * c_in
+            bnd = bound(float(m.sum()) * 16 * (3 * c * c + 40 * c), nbytes(*args, *got))
             record("K6", f"C_in={c_in} N={n} (dx/d_att_w/sums errs "
                    + "/".join(f"{e:.3g}" for e in errs) + ")", errs[0],
                    lambda: lfa_train_bwd(*args[:4], inv, *args[4:]),
-                   lambda: lfa_train_bwd_plain(*args), reps_p=1)
+                   lambda: lfa_train_bwd_plain(*args), bnd, reps_p=1)
     return stats
 
 
 class TileDataModule:
-    """Toy-tile subtiles for ``Trainer.fit``, read straight from the LAS
-    file: the card has no ``h5py`` for the HDF5 sample cache, so the train
-    and eval transforms of the config run on ``TileSampleStream`` samples
-    of the committed tile."""
+    """Toy-tile subtiles for ``Trainer.fit`` and ``Trainer.test``, read
+    straight from the LAS file: the card has no ``h5py`` for the HDF5
+    sample cache, so the train and eval transforms of the config run on
+    ``TileSampleStream`` samples of the committed tile (the test split is
+    the tile again, with its full-cloud copies)."""
 
     def __init__(self, cfg: dict):
-        from myria3d_tpu.pctl.transforms.compose import CustomCompose
-        from myria3d_tpu.utils.config import instantiate
+        from myria3d_tpu_torch.train import port_targets
+        from myria3d_tpu_torch.utils.config import instantiate
 
-        dm = cfg["datamodule"]
-        t = dm["transforms"]
-        stages = {k: [instantiate(x) for x in t[k]] for k in (
-            "preparations_train_list", "preparations_eval_list", "normalizations_list",
-            "augmentations_list")}
-        self.train_transform = CustomCompose(stages["preparations_train_list"]
-                                             + stages["normalizations_list"]
-                                             + stages["augmentations_list"])
-        self.eval_transform = CustomCompose(stages["preparations_eval_list"]
-                                            + stages["normalizations_list"])
+        dm = cfg["datamodule"]        # its own target needs h5py: not redirected
+        t = port_targets(dm["transforms"])
+        # the layout of HDF5LidarDataModule._stages, which Trainer.test
+        # extends with the x-sort
+        self._stages = {phase: [instantiate(x) for x in t[key]] for phase, key in (
+            ("train", "preparations_train_list"), ("eval", "preparations_eval_list"),
+            ("normalize", "normalizations_list"), ("augment", "augmentations_list"))}
+        self._dataset = None
         self.dm = dm
         self.batch_size = int(dm["batch_size"])
-        self.pre_transform = instantiate(dm["points_pre_transform"])
-        self.pre_filter = instantiate(dm.get("pre_filter"))
+        self.pre_transform = instantiate(port_targets(dm["points_pre_transform"]))
+        self.pre_filter = instantiate(port_targets(dm.get("pre_filter")))
 
     def prepare_data(self, stage=None):
         pass
@@ -486,29 +557,37 @@ class TileDataModule:
     def setup(self, stage=None):
         pass
 
-    def _loader(self, transform, seed=None):
-        from myria3d_tpu.pctl.dataset.tile_stream import TileSampleStream
-        from myria3d_tpu.pctl.loader import PaddedBatchLoader
+    def _loader(self, phase, seed=None):
+        from myria3d_tpu_torch.pctl.dataset.tile_stream import TileSampleStream
+        from myria3d_tpu_torch.pctl.loader import PaddedBatchLoader
+        from myria3d_tpu_torch.pctl.transforms.compose import CustomCompose
 
+        stages = self._stages[phase] + self._stages["normalize"]
+        if phase == "train":
+            stages += self._stages["augment"]
         stream = TileSampleStream(
             os.path.join(ASSETS, "toy_tile.las"), self.dm.get("epsg"),
             self.dm["tile_width"], self.dm["subtile_width"], 0, self.pre_transform,
-            pre_filter=self.pre_filter, transform=transform)
+            pre_filter=self.pre_filter, transform=CustomCompose(stages))
         return PaddedBatchLoader(stream, batch_size=self.batch_size, num_workers=1,
                                  seed=seed, process_index=0, process_count=1)
 
     def train_dataloader(self, seed=None):
-        return self._loader(self.train_transform, seed)
+        return self._loader("train", seed)
 
     def val_dataloader(self):
-        return self._loader(self.eval_transform)
+        return self._loader("eval")
+
+    def test_dataloader(self):
+        return self._loader("eval")
 
 
-def phase_fit(dev):
+def phase_fit(dev, work: str):
     """The port's Trainer.fit on toy-tile subtiles under each auto route,
-    then predict() with the checkpoint it wrote."""
-    from myria3d_tpu.pctl.io.las import read_las
+    then predict() with the checkpoint it wrote. Returns the launches and
+    the (config, last checkpoint) of each fit."""
     from myria3d_tpu_torch.models.modules.randla_net import FUSED_TRAIN_MIN_BATCH
+    from myria3d_tpu_torch.pctl.io.las import read_las
     from myria3d_tpu_torch.predict import predict
     from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
     from myria3d_tpu_torch.train import build_trainer
@@ -517,52 +596,49 @@ def phase_fit(dev):
     for fn in counters.values():
         fn.launches = 0
     runs = []
-    with tempfile.TemporaryDirectory(prefix="m3d_fit_") as work:
-        # 16 m subtiles: the 100 m toy tile gives 49 of up to ~1.5k points
-        for batch in (4, FUSED_TRAIN_MIN_BATCH):
-            run_dir = os.path.join(work, f"b{batch}")
-            cfg = compose_config(CONFIG_DIR, "config.yaml", [
-                "task.task_name=fit", "dataset_description=toy_synthetic", "logger=csv",
-                f"hydra.run.dir={run_dir}", "trainer.overfit_batches=1",
-                f"trainer.max_epochs={FIT_STEPS}", f"trainer.min_epochs={FIT_STEPS}",
-                f"datamodule.batch_size={batch}", "datamodule.subtile_width=16",
-                f"trainer.accelerator={'gpu' if dev.type == 'cuda' else 'cpu'}",
-                f"callbacks.model_checkpoint.dirpath={run_dir}/checkpoints",
-            ])
-            trainer, model = build_trainer(cfg)
-            route = "fused" if batch >= FUSED_TRAIN_MIN_BATCH else "unfused"
-            before = {n: fn.launches for n, fn in counters.items()}
-            t0 = time.perf_counter()
-            trainer.fit(model, TileDataModule(cfg))
-            dt = time.perf_counter() - t0
-            used = {n: fn.launches - before[n] for n, fn in counters.items()}
-            losses = trainer.train_losses
-            need(len(losses) == FIT_STEPS and all(np.isfinite(losses)), f"fit losses {losses}")
-            first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-            need(last < first, f"B={batch} loss did not fall: first five {first:.4f}, "
-                 f"last five {last:.4f}")
-            want = ("K4",) if route == "unfused" else ("K5", "K6")
-            need(all(used[k] > 0 for k in want), f"B={batch} {route}: launches {used}")
-            print(f"phase 7 fit B={batch} ({route} route): {FIT_STEPS} steps in {dt:.1f} s, "
-                  f"loss first five {first:.4f} -> last five {last:.4f}, launches {used}")
-            runs.append((cfg, trainer.checkpoint_cb.last_model_path))
-        launches = {n: fn.launches for n, fn in counters.items()}
+    # 16 m subtiles: the 100 m toy tile gives 49 of up to ~1.5k points
+    for batch in (4, FUSED_TRAIN_MIN_BATCH):
+        run_dir = os.path.join(work, f"b{batch}")
+        cfg = compose_config(CONFIG_DIR, "config.yaml", [
+            "task.task_name=fit", "dataset_description=toy_synthetic", "logger=csv",
+            f"hydra.run.dir={run_dir}", "trainer.overfit_batches=1",
+            f"trainer.max_epochs={FIT_STEPS}", f"trainer.min_epochs={FIT_STEPS}",
+            f"datamodule.batch_size={batch}", "datamodule.subtile_width=16",
+            f"callbacks.model_checkpoint.dirpath={run_dir}/checkpoints",
+        ])
+        trainer, model = build_trainer(cfg)
+        route = "fused" if batch >= FUSED_TRAIN_MIN_BATCH else "unfused"
+        before = {n: fn.launches for n, fn in counters.items()}
+        t0 = time.perf_counter()
+        trainer.fit(model, TileDataModule(cfg))
+        dt = time.perf_counter() - t0
+        used = {n: fn.launches - before[n] for n, fn in counters.items()}
+        losses = trainer.train_losses
+        need(len(losses) == FIT_STEPS and all(np.isfinite(losses)), f"fit losses {losses}")
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        need(last < first, f"B={batch} loss did not fall: first five {first:.4f}, "
+             f"last five {last:.4f}")
+        want = ("K4",) if route == "unfused" else ("K5", "K6")
+        need(all(used[k] > 0 for k in want), f"B={batch} {route}: launches {used}")
+        print(f"phase 7 fit B={batch} ({route} route): {FIT_STEPS} steps in {dt:.1f} s, "
+              f"loss first five {first:.4f} -> last five {last:.4f}, launches {used}")
+        runs.append((cfg, trainer.checkpoint_cb.last_model_path))
+    launches = {n: fn.launches for n, fn in counters.items()}
 
-        cfg, ckpt = runs[-1]
-        tile = os.path.join(ASSETS, "toy_tile.las")
-        pcfg = compose_config(CONFIG_DIR, "config.yaml", [
-            "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={ckpt}",
-            f"predict.output_dir={work}/pred", f"predict.gpus={int(dev.type == 'cuda')}",
-            "datamodule.batch_size=4"])
-        out = predict(pcfg)
-        res = read_las(out).points
-        names = list(pcfg["predict"]["interpolator"]["classification_dict"].values())
-        probas = np.stack([np.asarray(res[n], np.float64) for n in names], axis=1)
-        need(len(res) == len(read_las(tile).points), "predict output point count")
-        need(bool(np.isfinite(probas).all()), "NaN in the predicted probabilities")
-        acc = float((np.asarray(res["PredictedClassification"]) == np.asarray(res["Classification"])).mean())
-        print(f"phase 7 predict with the fit checkpoint: {len(res)} points, GT accuracy {acc:.4f}")
-    return launches
+    cfg, ckpt = runs[-1]
+    tile = os.path.join(ASSETS, "toy_tile.las")
+    pcfg = compose_config(CONFIG_DIR, "config.yaml", [
+        "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={ckpt}",
+        f"predict.output_dir={work}/pred", "datamodule.batch_size=4"])
+    out = predict(pcfg)
+    res = read_las(out).points
+    names = list(pcfg["predict"]["interpolator"]["classification_dict"].values())
+    probas = np.stack([np.asarray(res[n], np.float64) for n in names], axis=1)
+    need(len(res) == len(read_las(tile).points), "predict output point count")
+    need(bool(np.isfinite(probas).all()), "NaN in the predicted probabilities")
+    acc = float((np.asarray(res["PredictedClassification"]) == np.asarray(res["Classification"])).mean())
+    print(f"phase 7 predict with the fit checkpoint: {len(res)} points, GT accuracy {acc:.4f}")
+    return launches, runs
 
 
 def phase_train_step(dev):
@@ -591,12 +667,15 @@ def phase_train_step(dev):
         loss.backward()
         return torch.cat([p.grad.flatten() for p in model.net.parameters()])
 
+    counters = launch_counters()
+
     def timed(model, batch, reps):
         """ms per step over ``reps`` steps, each reading the parameters the
         last one wrote (the sync comes after the last update), and the peak
-        memory."""
+        memory; the kernel launches per step land in ``per_step``."""
         def step(i):
             return model.train_step(*batch, torch.Generator(device=dev).manual_seed(i))
+        start = {n: fn.launches for n, fn in counters.items()}
         step(0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -606,21 +685,27 @@ def phase_train_step(dev):
         chk = sum(float(p.detach().sum()) for p in model.net.parameters())
         dt = (time.perf_counter() - t0) * 1e3 / reps
         need(np.isfinite(float(loss)) and np.isfinite(chk), "non-finite train step")
+        per_step.clear()
+        per_step.update({n: (fn.launches - start[n]) / (reps + 1) for n, fn in counters.items()
+                         if fn.launches > start[n]})
         return dt, torch.cuda.max_memory_allocated(dev) / 2**30
 
     def cos(a, b):
         return float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
 
     rows = []
+    per_step: dict = {}
     for b in (4, 8, 10, 16, 32):
         batch = [torch.from_numpy(a).to(dev) for a in train_batch(b)]
         models = {True: make(True), False: make(False)}
         grad = {f: grads(m, batch) for f, m in models.items()}
         ms = {True: [], False: []}
         mem = {}
+        launches = {}
         for fused in (True, False, False, True):
             dt, mem[fused] = timed(models[fused], batch, 5)
             ms[fused].append(dt)
+            launches[fused] = dict(per_step)
         c = cos(grad[True], grad[False])
         need(c >= 0.999, f"B={b}: fused/unfused gradient cosine {c:.6f}")
         for fused in (True, False):
@@ -629,6 +714,8 @@ def phase_train_step(dev):
             line = (f"phase 8 train step B={b} N={TRAIN_N} {'fused' if fused else 'unfused'}: "
                     f"kernels {t:.1f} ms/step (turns {ms[fused][0]:.1f}, {ms[fused][1]:.1f}; "
                     f"{b * TRAIN_N / t / 1e3:.3f} Mpts/s, peak {mem[fused]:.2f} GiB)")
+            if b == 16:
+                line += f", launches per step {launches[fused]}"
             if b in (10, 16):
                 model = make(fused)
                 with plain_versions():
@@ -646,6 +733,107 @@ def phase_train_step(dev):
         del models, grad
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_knn_mxu(dev):
+    """K7: its path run, then held against its plain version and K1's full
+    scan, and timed beside K1."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_knn import BINS, knn_topk, knn_topk_mxu, knn_topk_plain
+    from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows
+    from myria3d_tpu_torch.ops.sampling import random_decimation
+
+    _, pos, mask, _, _ = (torch.from_numpy(a).to(dev) for a in bench_subtiles(2))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stages = [(pos, mask)]
+    for _ in range(3):
+        p, m = stages[-1]
+        idx, m2 = random_decimation(m, 4, gen)
+        stages.append((gather_rows(p, idx), m2))
+    cases = [(f"K=16 self {stages[i][0].shape[1]}", *centred_clouds(stages[i][0], stages[i][0],
+                                                                      stages[i][1]), stages[i][1])
+             for i in (2, 3, 0)]
+
+    knn_topk_mxu.launches = 0
+    for _, q4, k4, _ in cases:        # the path: the wrapper, variant="mxu"
+        knn_topk(q4, k4, 16, variant="mxu")
+    torch.cuda.synchronize()
+    launches = knn_topk_mxu.launches
+    need(launches == len(cases), f"K7 launched {launches} times for {len(cases)} searches")
+
+    eps = float(torch.finfo(torch.float32).eps)
+    stats = []
+    for label, q4, k4, qm in cases:
+        idx7, d7 = knn_topk(q4, k4, 16, variant="mxu")
+        idx_p, d_p = knn_topk_plain(q4, k4, 16, variant="mxu")
+        need(bool(torch.equal(idx7, idx_p)), f"K7 {label}: indices differ from the plain version")
+        err = float((d7 - d_p).abs().max())
+        need(bool(((d7 - d_p).abs() <= 1e-6 * d_p.abs().clamp(min=1.0)).all()),
+             f"K7 {label}: d2 differs from the plain version by {err:.3g}")
+        # against K1's exact difference form: where the k-th and (k+1)-th
+        # true distances are further apart than twice the expanded form's
+        # rounding, the index sets agree and d2 is within the bound
+        idx1, d1 = knn_topk(q4, k4, 17)
+        kmax = torch.where(k4[..., 3:] == 0, k4[..., :3], 0.0).square().sum(-1).amax(1)
+        tol = 16 * eps * (q4[..., :3].square().sum(-1) + kmax[:, None])
+        clear = ((d1[..., 16] - d1[..., 15]) > 2 * tol) & qm
+        same = (idx7.sort(-1).values == idx1[..., :16].sort(-1).values).all(-1)
+        need(bool(same[clear].all()), f"K7 {label}: {int((~same & clear).sum())} index sets "
+             "differ from K1's outside the rounding bound")
+        d_err = ((d7 - d1[..., :16]).abs() - tol[..., None])[clear]
+        need(bool((d_err <= 0).all()), f"K7 {label}: d2 off K1's by more than the bound")
+        ms = cuda_ms(lambda: knn_topk(q4, k4, 16, variant="mxu"), 5)
+        k1_ms = cuda_ms(lambda: knn_topk(q4, k4, 16), 5)
+        plain_ms = cuda_ms(lambda: knn_topk_plain(q4, k4, 16, variant="mxu"), 1)
+        pairs = q4.shape[0] * q4.shape[1] * (-(-k4.shape[1] // BINS) * BINS)
+        bnd = bound(PAIR_INSTR * pairs, nbytes(q4, k4, idx7, d7))
+        stats.append((err, ms, plain_ms, bnd, None))
+        print(f"phase 9 K7 {label} B={q4.shape[0]} (full scan): max_abs_err {err:.3g}, "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound_ms {bnd[0]:.4f} ({bnd[1]}); "
+              f"K1 full scan {k1_ms:.3f} ms; vs K1: {int(clear.sum())} of {int(qm.sum())} valid "
+              f"queries checked (k-th gap above twice the bound, max {float(tol.max()):.3g})")
+    return stats, launches
+
+
+def phase_test(dev, cfg: dict, ckpt: str):
+    """``Trainer.test`` on the toy-tile subtiles with the fit checkpoint,
+    through K1-K3, held against the same test on the plain versions."""
+    from myria3d_tpu_torch.train import build_trainer
+
+    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K2", "K3")}
+    # every subtile of the tile (the debug experiment tests one batch)
+    cfg = {**cfg, "trainer": {**cfg["trainer"], "limit_test_batches": None}}
+
+    def run():
+        trainer, model = build_trainer(cfg)
+        t0 = time.perf_counter()
+        out = trainer.test(model, TileDataModule(cfg), ckpt_path=ckpt)
+        return out, time.perf_counter() - t0
+
+    for fn in counters.values():
+        fn.launches = 0
+    out, dt = run()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    need(all(v > 0 for v in launches.values()), f"test: kernels not launched: {launches}")
+    with plain_versions():
+        ref, _ = run()
+    loss, iou = out["test/loss_epoch"], out["test/iou"]
+    need(np.isfinite(loss) and 0.0 < iou <= 1.0, f"test: loss {loss}, IoU {iou}")
+    need(abs(loss - ref["test/loss_epoch"]) <= 1e-3 * abs(ref["test/loss_epoch"]),
+         f"test loss {loss:.6f} vs plain {ref['test/loss_epoch']:.6f}")
+    need(abs(iou - ref["test/iou"]) <= 0.01, f"test IoU {iou:.4f} vs plain {ref['test/iou']:.4f}")
+    per_class = " ".join(f"{k.split('/')[-1]}={v:.3f}" for k, v in out.items()
+                         if k.startswith("test/iou/"))
+    print(f"phase 10 test (full cloud): {dt:.1f} s, test/loss_epoch {loss:.6f} (plain "
+          f"{ref['test/loss_epoch']:.6f}), mean IoU {iou:.4f} (plain {ref['test/iou']:.4f}), "
+          f"per class {per_class}, launches {launches}")
+
+
+def foreign_modules() -> list:
+    """Modules of JAX, flax or the JAX package loaded in this process."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "myria3d_tpu"))
 
 
 def main() -> int:
@@ -681,11 +869,20 @@ def main() -> int:
         del model
         train_stats = phase_train_kernels(dev)
         stats.update(train_stats)
-        launches.update({k: v for k, v in phase_fit(dev).items() if k in train_stats})
-        phase_train_step(dev)
+        with tempfile.TemporaryDirectory(prefix="m3d_fit_") as work:
+            fit_launches, runs = phase_fit(dev, work)
+            launches.update({k: v for k, v in fit_launches.items() if k in train_stats})
+            phase_train_step(dev)
+            with torch.inference_mode():
+                stats["K7"], launches["K7"] = phase_knn_mxu(dev)
+            phase_test(dev, *runs[-1])
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")
+        return 1
+    foreign = foreign_modules()
+    if foreign:
+        print(f"FAIL: modules of JAX or of the JAX package were loaded: {foreign}")
         return 1
     sources = {"K1": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:238"),
                "K2": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
@@ -694,14 +891,24 @@ def main() -> int:
                "K5": ("myria3d_tpu_torch/csrc/lfa_train.cu",
                       "myria3d_tpu/ops/pallas_lfa_train.py:162"),
                "K6": ("myria3d_tpu_torch/csrc/lfa_train.cu",
-                      "myria3d_tpu/ops/pallas_lfa_train.py:192")}
-    kernels = [{
-        "name": name, "route": "cuda", "source": src, "replaces": rep,
-        "launches": launches[name],
-        "max_abs_err": max(s[0] for s in stats[name]),
-        "ms": sum(s[1] for s in stats[name]),
-        "plain_ms": sum(s[2] for s in stats[name]),
-    } for name, (src, rep) in sources.items()]
+                      "myria3d_tpu/ops/pallas_lfa_train.py:192"),
+               "K7": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:115")}
+    kernels = []
+    for name, (src, rep) in sources.items():
+        rows = stats[name]
+        bounds = [s[3] for s in rows]
+        libs = [s[4] for s in rows]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name],
+            "max_abs_err": max(s[0] for s in rows),
+            "ms": sum(s[1] for s in rows),
+            "plain_ms": sum(s[2] for s in rows),
+            "bound_ms": sum(b[0] for b in bounds),
+            # what bounds the largest share of the summed bound
+            "bound_by": max(bounds, key=lambda b: b[0])[1],
+            "library_ms": sum(libs) if all(v is not None for v in libs) else None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,7 @@ _I = ctypes.c_int
 # entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "m3d_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "m3d_knn_topk_mxu": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "m3d_knn_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "m3d_lfa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "m3d_gather_bwd": [_P, _P, _P, _I, _I, _P, _P],

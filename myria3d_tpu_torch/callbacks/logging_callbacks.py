@@ -41,7 +41,7 @@ class CSVLogger:
             writer.writerows(self._rows)
 
     def log_hyperparams(self, params: dict) -> None:
-        from myria3d_tpu.utils.config import to_yaml
+        from myria3d_tpu_torch.utils.config import to_yaml
 
         with open(os.path.join(self.log_dir, "hparams.yaml"), "w") as f:
             f.write(to_yaml(params))

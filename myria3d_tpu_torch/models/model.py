@@ -11,9 +11,9 @@ buffers, the ``torch.optim`` optimizer and the step count.
   ``accumulate_grad_batches`` batches on the mean of their gradients (optax
   ``MultiSteps``); BN running stats move every batch.
 - ``eval_step`` (``model.py:354-363``): eval-mode forward and loss.
-- ``interp_step`` (``model.py:366-398``): the predict step, forward on the
-  sampled points then the k-NN interpolation of the logits to every raw
-  point of each subtile, shipped as f16.
+- ``interp_step`` (``model.py:366-398``): the predict and test step,
+  forward on the sampled points then the k-NN interpolation of the logits
+  to every raw point of each subtile, shipped as f16.
 
 Checkpoints are ``state_dict.npz`` + ``hparams.json`` (which the
 predict path reads) plus ``train_state.pt`` with the optimizer state and
@@ -117,14 +117,17 @@ class Model(nn.Module):
 
     @torch.inference_mode()
     def interp_step(self, x, pos, mask, sampled_pos, full_pos, full_mask,
-                    generator: torch.Generator | None = None) -> torch.Tensor:
+                    generator: torch.Generator | None = None, fused: bool = True) -> torch.Tensor:
         """Forward on the sampled points, then k-NN interpolation of the
-        logits onto the full clouds: ``(B, M, num_classes)`` float16."""
+        logits onto the full clouds: ``(B, M, num_classes)`` float16.
+        ``fused=False`` takes the two-op f32 interpolation (K1, then the
+        weighting in torch) instead of K3 (``exact_interp_step``,
+        ``predict.exact_interpolation``)."""
         self.net.eval()
         logits = self.net(x, pos, mask, generator)
         full = knn_interpolate(
             logits, sampled_pos, mask, full_pos, full_mask,
-            k=self.interpolation_k, fused_payload=True,
+            k=self.interpolation_k, fused_payload=fused,
             # density-scaled by the sampled (key) cloud's count
             window=stage_window(self.net.knn_window, sampled_pos.shape[1]),
         )

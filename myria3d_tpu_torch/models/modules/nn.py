@@ -2,7 +2,7 @@
 
 Port of ``myria3d_tpu/models/modules/nn.py:32-280`` with the reference's
 pyg parameter names (``lins.{i}``, ``norms.{i}``), so the state dict that
-``myria3d_tpu.utils.torch_ckpt.flax_to_torch_state_dict`` emits loads with
+``utils.checkpoint.flax_to_torch_state_dict`` emits loads with
 ``strict=True``:
 
 - LeakyReLU negative slope 0.2;

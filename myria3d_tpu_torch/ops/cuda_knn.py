@@ -1,5 +1,6 @@
 """K1: exact windowed top-K neighbour search (``csrc/knn.cu``) and its
-plain PyTorch version.
+plain PyTorch version; K7, the full scan ranked by the expanded score
+``|k|^2 - 2 q.k`` (``variant="mxu"``), and its plain version.
 
 Replaces ``myria3d_tpu/ops/pallas_knn.py::knn_topk_pallas`` (kernels
 ``_knn_kernel_vpu_win_packed``, ``_knn_kernel_vpu_win``,
@@ -15,6 +16,13 @@ the tile's mid x into the key x's). Keys are padded to a multiple of 512
 with pad rows. When the window would cover every key chunk the search is a
 full scan. Selection is EXACT within the scanned keys: the K smallest
 squared distances, ties to the lower key index; distances are full f32.
+
+``variant="mxu"`` is the JAX package's ``_knn_kernel``
+(``pallas_knn.py:115``): a full scan (a window raises, as there) that ranks
+keys by ``|k|^2 - 2 q.k`` in f32 and adds ``|q|^2`` back afterwards,
+clamped at 0 (``pallas_knn.py:857-858``). The expanded form cancels: its
+d2 carries an error of about ``eps * (|q|^2 + |k|^2)``, so it may order
+near-equal neighbours otherwise than K1's difference form.
 """
 
 from __future__ import annotations
@@ -110,14 +118,18 @@ def _check(q4: torch.Tensor, k4: torch.Tensor, k: int) -> None:
 
 
 def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
-                   query_mask: torch.Tensor | None = None):
-    """Plain PyTorch version of K1: same windows, same exact selection.
+                   query_mask: torch.Tensor | None = None, variant: str = "vpu"):
+    """Plain PyTorch version of K1: same windows, same exact selection
+    (of K7 for ``variant="mxu"``: :func:`knn_topk_mxu_plain`).
 
     Distances are summed in the kernel's association (w², then dx², dy²,
     dz², each op rounded); ranking is on int64 keys (distance bits << 32 |
     window position), so ties go to the lower key index exactly as in the
     kernel.
     """
+    _check_variant(variant, window)
+    if variant == "mxu":
+        return knn_topk_mxu_plain(q4, k4, k)
     _check(q4, k4, k)
     b, nq, _ = q4.shape
     nk = k4.shape[1]
@@ -152,16 +164,102 @@ def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
     return idx.to(torch.int32).contiguous(), d2.contiguous()
 
 
+def _flip_negative(bits: torch.Tensor) -> torch.Tensor:
+    """The int32 bits of f32 scores mapped so that signed int order is
+    float order, negatives included (the low 31 bits of a negative float
+    flipped); the map is its own inverse. No score is -0.0 (``|k|^2 >= +0``
+    plus anything is never -0), so float and key equality agree."""
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def _expanded_d2(q4: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
+    """d2 from the expanded score: ``max(score + |q|^2, 0)``."""
+    return (score + (q4 * q4).sum(dim=-1, keepdim=True)).clamp(min=0.0)
+
+
+def knn_topk_mxu_plain(q4: torch.Tensor, k4: torch.Tensor, k: int):
+    """Plain PyTorch version of K7: every key of the cloud (padded to a
+    multiple of 512 with pad rows) scored ``kn + (-2q).k`` in the kernel's
+    association (``kn = ((x*x + y*y) + z*z) + w*w``; the products summed
+    x, y, z, w; each op rounded), ranked on int64 keys (order-preserving
+    score bits << 32 | key position), so ties go to the lower index.
+    Scores are mostly negative (``d2 - |q|^2``): K1's unsigned ranking of
+    the raw bits would reverse them.
+    Returns ``(idx, d2)`` as :func:`knn_topk`."""
+    _check(q4, k4, k)
+    b, nq, _ = q4.shape
+    nk = k4.shape[1]
+    nk_pad = _ceil_to(nk, BINS)
+    pad_rows = torch.zeros((b, nk_pad - nk, 4), dtype=k4.dtype, device=k4.device)
+    pad_rows[..., 3] = PAD_W
+    kp = torch.cat([k4, pad_rows], dim=1)
+    kn = kp[..., 0] * kp[..., 0]
+    for c in range(1, 4):
+        kn = kn + kp[..., c] * kp[..., c]
+    q2 = q4 * -2.0
+    ar = torch.arange(nk_pad, device=q4.device)
+    step = max(1, _PLAIN_ELEMS // (b * nk_pad))
+    idx_parts, score_parts = [], []
+    for q0 in range(0, nq, step):
+        qq = q2[:, q0:q0 + step, None, :]                        # (B, T, 1, 4)
+        c = qq[..., 0] * kp[:, None, :, 0]
+        for d in range(1, 4):
+            c = c + qq[..., d] * kp[:, None, :, d]
+        s = kn[:, None, :] + c
+        key = (_flip_negative(s.view(torch.int32)).to(torch.int64) << 32) | ar
+        top = key.topk(k, dim=-1, largest=False, sorted=True).values
+        idx_parts.append(top & 0xFFFFFFFF)
+        score_parts.append(_flip_negative((top >> 32).to(torch.int32)).view(torch.float32))
+    idx = torch.cat(idx_parts, dim=1).to(torch.int32).contiguous()
+    return idx, _expanded_d2(q4, torch.cat(score_parts, dim=1)).contiguous()
+
+
+def knn_topk_mxu(q4: torch.Tensor, k4: torch.Tensor, k: int):
+    """K7 on CUDA tensors (the wrapper :func:`knn_topk` calls for
+    ``variant="mxu"``): ``(idx (B, Nq, k) int32, d2 (B, Nq, k) float32)``,
+    ascending by the expanded score."""
+    _check(q4, k4, k)
+    _ext.require_cuda("knn_topk_mxu", q4, k4)
+    b, nq, _ = q4.shape
+    nk = k4.shape[1]
+    idx = torch.empty((b, nq, k), dtype=torch.int32, device=q4.device)
+    score = torch.empty((b, nq, k), dtype=torch.float32, device=q4.device)
+    if b * nq == 0:
+        return idx, score
+    with torch.cuda.device(q4.device):
+        code = _ext.lib().m3d_knn_topk_mxu(
+            q4.data_ptr(), k4.data_ptr(), b, nq, nk, _ceil_to(nk, BINS), k,
+            idx.data_ptr(), score.data_ptr(), _ext.stream_of(q4),
+        )
+    _ext.check(code, "m3d_knn_topk_mxu")
+    knn_topk_mxu.launches += 1
+    return idx, _expanded_d2(q4, score)
+
+
+knn_topk_mxu.launches = 0
+
+
+def _check_variant(variant: str, window: int) -> None:
+    if variant not in ("vpu", "mxu"):
+        raise ValueError(f"unknown kNN kernel variant {variant!r}")
+    if window and variant != "vpu":
+        raise ValueError("windowed kNN requires the vpu variant")
+
+
 def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
-             query_mask: torch.Tensor | None = None):
+             query_mask: torch.Tensor | None = None, variant: str = "vpu"):
     """K nearest keys of every query: ``(idx (B, Nq, k) int32,
     d2 (B, Nq, k) float32)``, ascending.
 
     CPU tensors take :func:`knn_topk_plain`; CUDA tensors launch the
-    kernel (or raise). ``window > 0`` requires x-sorted clouds.
+    kernel (or raise): K1, or K7 for ``variant="mxu"`` (full scan only).
+    ``window > 0`` requires x-sorted clouds.
     """
+    _check_variant(variant, window)
     if q4.device.type == "cpu":
-        return knn_topk_plain(q4, k4, k, window, query_mask)
+        return knn_topk_plain(q4, k4, k, window, query_mask, variant)
+    if variant == "mxu":
+        return knn_topk_mxu(q4, k4, k)
     _check(q4, k4, k)
     _ext.require_cuda("knn_topk", q4, k4)
     b, nq, _ = q4.shape

@@ -1,23 +1,23 @@
 """Tile inference pipeline — port of ``myria3d_tpu/predict.py:25``.
 
 ``predict(config) -> str``: reads one LAS tile once, cooks its 50 m
-subtiles on the host (``myria3d_tpu.pctl``: the predict transforms, with
+subtiles on the host (the port's ``pctl``: the predict transforms, with
 ``SortPointsByX`` appended when ``predict.sorted_window > 0``), runs
 ``Model.interp_step`` on the device for each padded batch, merges the f16
 full-cloud logits into the ``Interpolator`` by original point index, and
 writes the output LAS (PredictedClassification, per-class probabilities,
 entropy).
 
-The device is ``predict.gpus`` as in the reference: 0 is the CPU (the
-kernels' plain versions), 1 the first CUDA device, ``[i]`` device i. A
-requested CUDA device that is missing is an error, never a CPU fallback.
+The device is CUDA: ``cuda:0``, or ``cuda:i`` for ``predict.gpus=[i]``; a
+missing CUDA device is an error, never a CPU fallback. The CPU is taken
+only when the caller asks, with ``predict(config, device="cpu")`` or
+``trainer.accelerator=cpu`` in the config (the JAX package, too, ignores
+``predict.gpus: 0``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import sys
 import time
 from collections import deque
 from typing import Any, Optional
@@ -25,52 +25,40 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from myria3d_tpu.pctl.batching import DEFAULT_BUCKETS, pad_full_cloud, pad_sampled_pos
-from myria3d_tpu.pctl.dataset.iterable import InferenceDataset
-from myria3d_tpu.pctl.dataset.utils import read_las_array
-from myria3d_tpu.pctl.loader import BackgroundIterator, PaddedBatchLoader
-from myria3d_tpu.pctl.transforms.compose import CustomCompose
-from myria3d_tpu.pctl.transforms.transforms import SortPointsByX
-from myria3d_tpu.utils.config import instantiate
+from myria3d_tpu_torch.models.interpolation import Interpolator
+from myria3d_tpu_torch.pctl.batching import DEFAULT_BUCKETS, pad_full_cloud, pad_sampled_pos
+from myria3d_tpu_torch.pctl.dataset.iterable import InferenceDataset
+from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
+from myria3d_tpu_torch.pctl.loader import BackgroundIterator, PaddedBatchLoader
+from myria3d_tpu_torch.pctl.transforms.compose import CustomCompose
+from myria3d_tpu_torch.pctl.transforms.transforms import SortPointsByX
+from myria3d_tpu_torch.train import port_targets
 from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
+from myria3d_tpu_torch.utils.config import instantiate
 
 log = logging.getLogger(__name__)
 
 
-@contextlib.contextmanager
-def _jax_hidden():
-    """``myria3d_tpu.utils.utils.get_logger`` probes ``jax`` inside a
-    ``try`` (process-rank gating); hide it while the reused Interpolator
-    module imports, so the port never loads JAX where it is installed."""
-    if "jax" in sys.modules:
-        yield
-        return
-    sys.modules["jax"] = None
-    try:
-        yield
-    finally:
-        if sys.modules.get("jax", 0) is None:
-            del sys.modules["jax"]
-
-
-with _jax_hidden():
-    from myria3d_tpu.models.interpolation import Interpolator
-
-
-def device_from_gpus(gpus: Any) -> torch.device:
-    """Reference ``define_device_from_config_param``: 0 -> CPU,
-    n > 0 -> cuda:0, [i] -> cuda:i."""
+def predict_device(config: dict, device: Any = None) -> torch.device:
+    """The device predict runs on: ``device`` when the caller names one;
+    else the CPU for ``trainer.accelerator=cpu``; else the CUDA device of
+    ``predict.gpus`` (``[i]`` -> ``cuda:i``, anything else ``cuda:0``),
+    which must exist."""
+    if device is not None:
+        return torch.device(device)
+    if str((config.get("trainer") or {}).get("accelerator", "auto")).lower() == "cpu":
+        return torch.device("cpu")
+    gpus = (config.get("predict") or {}).get("gpus", 0)
     if isinstance(gpus, (list, tuple)):
         if len(gpus) != 1:
             raise ValueError(f"predict.gpus={gpus}: one device per process")
-        device = torch.device(f"cuda:{int(gpus[0])}")
-    elif not gpus:
-        return torch.device("cpu")
+        dev = torch.device(f"cuda:{int(gpus[0])}")
     else:
-        device = torch.device("cuda:0")
+        dev = torch.device("cuda:0")
     if not torch.cuda.is_available():
-        raise RuntimeError(f"predict.gpus={gpus} asks for CUDA, but none is available")
-    return device
+        raise RuntimeError("predict runs on CUDA, but none is available (trainer.accelerator=cpu "
+                           "or predict(config, device='cpu') runs on the CPU)")
+    return dev
 
 
 def _buckets(dm: dict, stages: list) -> tuple:
@@ -87,15 +75,17 @@ def _buckets(dm: dict, stages: list) -> tuple:
     return tuple(b for b in DEFAULT_BUCKETS if b < top) + (top,)
 
 
-def predict(config: dict, phases: Optional[dict] = None, preread=None) -> str:
+def predict(config: dict, phases: Optional[dict] = None, preread=None,
+            device: Any = None) -> str:
     """Predict one LAS file (``config["predict"]["src_las"]``) and return
     the output path. ``phases``, when given, receives wall-clock phase
     timings in seconds. ``preread`` optionally hands over the tile's
-    ``(points, header)``, or a Future of it, read ahead by the caller."""
+    ``(points, header)``, or a Future of it, read ahead by the caller.
+    ``device`` overrides the device rule of :func:`predict_device`."""
     pcfg, dm = config["predict"], config["datamodule"]
     if pcfg.get("compute_dtype"):
         raise NotImplementedError("predict.compute_dtype is not ported yet")
-    device = device_from_gpus(pcfg.get("gpus", 0))
+    device = predict_device(config, device)
     src_las = pcfg["src_las"]
 
     t0 = time.perf_counter()
@@ -110,15 +100,15 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None) -> str:
     # the sort and the kernels' window are switched on together, so an
     # unsorted cloud never meets a window
     sorted_window = int(pcfg.get("sorted_window", 0) or 0)
-    transforms = dm["transforms"]
+    transforms = port_targets(dm["transforms"])
     stages = [instantiate(t) for t in transforms["preparations_predict_list"]]
     if sorted_window > 0:
         stages.append(SortPointsByX())
     stages += [instantiate(t) for t in transforms["normalizations_list"]]
     dataset = InferenceDataset(
         src_las, dm.get("epsg"),
-        points_pre_transform=instantiate(dm["points_pre_transform"]),
-        pre_filter=instantiate(dm.get("pre_filter")),
+        points_pre_transform=instantiate(port_targets(dm["points_pre_transform"])),
+        pre_filter=instantiate(port_targets(dm.get("pre_filter"))),
         transform=CustomCompose(stages),
         tile_width=dm.get("tile_width", 1000),
         subtile_width=dm.get("subtile_width", 50),
@@ -137,7 +127,7 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None) -> str:
     model.set_sorted_window(0 if pcfg.get("exact_knn") else sorted_window)
     generator = torch.Generator(device=device).manual_seed(int(config.get("seed", 12345)))
 
-    itp = instantiate(pcfg["interpolator"])
+    itp = instantiate(port_targets(pcfg["interpolator"]))
     if not isinstance(itp, Interpolator):
         raise TypeError(f"predict.interpolator built {type(itp).__name__}")
     itp.prepare(len(tile_points), points=tile_points, header=tile_header)

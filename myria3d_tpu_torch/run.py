@@ -1,17 +1,21 @@
-"""CLI of the port — ``python -m myria3d_tpu_torch.run task.task_name={fit,predict}
-[--config-path DIR] [--config-name NAME] [a.b=value ...]``.
+"""CLI of the port — ``python -m myria3d_tpu_torch.run
+task.task_name={fit,fit+test,test,predict,create_hdf5} [--config-path DIR]
+[--config-name NAME] [a.b=value ...]``.
 
 Mirrors ``run.py``. ``fit`` (the default task) composes the config tree
 under ``configs/`` (default experiment ``RandLaNetDebug``), enters the
 per-run directory ``hydra.run.dir`` like hydra, and runs
-``myria3d_tpu_torch.train.train``; ``trainer.accelerator`` picks the
-device. ``predict`` (``launch_predict``, ``run.py:92``) composes with
-``experiment=predict`` (unless a frozen config is given),
+``myria3d_tpu_torch.train.train``: fit, then the full-cloud test on the
+best checkpoint. ``test`` evaluates the checkpoint ``model.ckpt_path`` on
+the test split, full-cloud. ``predict`` (``launch_predict``, ``run.py:92``)
+composes with ``experiment=predict`` (unless a frozen config is given),
 ``predict.src_las`` may be a glob, the next tile is read in the background
 while the current one streams through the device, and ``predict.resume``
-skips inputs whose output already exists; ``predict.gpus=1`` runs on the
-first CUDA device. The other tasks (test, finetune, create_hdf5) are not
-ported yet.
+skips inputs whose output already exists. ``create_hdf5`` builds the HDF5
+sample cache of ``datamodule.hdf5_file_path`` from the LAS corpus
+(``launch_hdf5``, ``run.py:157``). Every task runs on the first CUDA
+device, and raises when there is none; ``trainer.accelerator=cpu`` runs it
+on the CPU. ``finetune`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def compose_config(config_dir: str, config_name: str, overrides: List[str]):
     for the predict task), or a frozen full config plus overrides."""
     import yaml
 
-    from myria3d_tpu.utils.config import compose, load_config, resolve_interpolations, update
+    from myria3d_tpu_torch.utils.config import compose, load_config, resolve_interpolations, update
 
     path = os.path.join(config_dir, config_name)
     with open(path) as f:
@@ -72,7 +76,7 @@ def compose_config(config_dir: str, config_name: str, overrides: List[str]):
 
 def launch_predict(config) -> List[str]:
     """Predict every LAS file of ``predict.src_las`` (a path or a glob)."""
-    from myria3d_tpu.pctl.dataset.utils import read_las_array
+    from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
     from myria3d_tpu_torch.predict import predict
 
     src = config["predict"]["src_las"]
@@ -105,7 +109,7 @@ def enter_run_dir(config) -> None:
     """Hydra's job directory, as ``run.py:182-205``: freeze the invoking
     cwd for ``${hydra:runtime.cwd}`` and chdir to ``hydra.run.dir`` (unless
     the config has no ``hydra`` node or sets ``hydra.job.chdir=false``)."""
-    from myria3d_tpu.utils.config import set_runtime_info
+    from myria3d_tpu_torch.utils.config import set_runtime_info
 
     set_runtime_info(runtime_cwd=os.getcwd())
     hydra_cfg = config.get("hydra") or {}
@@ -118,6 +122,25 @@ def enter_run_dir(config) -> None:
         os.chdir(run_dir)
 
 
+def launch_hdf5(config) -> None:
+    """Build the HDF5 sample cache from the LAS corpus of the datamodule
+    section (``launch_hdf5``, ``run.py:157-180``)."""
+    from myria3d_tpu_torch.pctl.dataset.hdf5 import create_hdf5
+    from myria3d_tpu_torch.pctl.dataset.utils import get_las_paths_by_split_dict
+    from myria3d_tpu_torch.train import port_targets
+    from myria3d_tpu_torch.utils.config import instantiate
+
+    dm = config["datamodule"]
+    create_hdf5(
+        las_paths_by_split_dict=get_las_paths_by_split_dict(dm["data_dir"], dm["split_csv_path"]),
+        hdf5_file_path=dm["hdf5_file_path"], epsg=dm.get("epsg"),
+        tile_width=dm.get("tile_width", 1000), subtile_width=dm.get("subtile_width", 50),
+        subtile_overlap_train=dm.get("subtile_overlap_train", 0),
+        points_pre_transform=instantiate(port_targets(dm.get("points_pre_transform"))),
+        pre_filter=instantiate(port_targets(dm.get("pre_filter"))),
+    )
+
+
 def main(argv: List[str]):
     if "--help" in argv or "-h" in argv:
         print(__doc__)
@@ -125,13 +148,16 @@ def main(argv: List[str]):
     config_dir, config_name, overrides, task = parse_cli(argv)
     if task == "predict":
         return launch_predict(compose_config(config_dir, config_name, overrides))
-    if task == "fit":
-        from myria3d_tpu_torch.train import train
+    if task not in ("fit", "fit+test", "test", "create_hdf5"):
+        raise NotImplementedError(
+            f"task.task_name={task} is not ported yet (fit, fit+test, test, predict, create_hdf5)")
+    config = compose_config(config_dir, config_name, overrides)
+    enter_run_dir(config)
+    if task == "create_hdf5":
+        return launch_hdf5(config)
+    from myria3d_tpu_torch.train import train
 
-        config = compose_config(config_dir, config_name, overrides)
-        enter_run_dir(config)
-        return train(config)
-    raise NotImplementedError(f"task.task_name={task} is not ported yet (fit, predict)")
+    return train(config)
 
 
 if __name__ == "__main__":

@@ -1,70 +1,92 @@
-"""Training loop of the port: ``Trainer.fit`` and ``train(config)``.
+"""Training loop of the port: ``Trainer.fit``, ``Trainer.test`` and
+``train(config)``.
 
-Port of ``myria3d_tpu/train.py:33-450,646-741`` without JAX: an explicit
+Port of ``myria3d_tpu/train.py:33-582,646-741`` without JAX: an explicit
 loop over fixed-shape padded batches on one device, with the host-side
 control plane of the JAX package: sanity-val steps, ``limit_*_batches``,
 ``overfit_batches``, the val epoch, the LR scheduler (plateau per val
 epoch, one-cycle per step), the best/last checkpoints, early stopping, and
 the SIGTERM/SIGINT save (the in-flight step finishes, the "last"
-checkpoint is written, a second signal stops at once).
+checkpoint is written, a second signal stops at once). ``Trainer.test`` is
+the full-cloud evaluation: each test batch's logits are interpolated back
+to every raw point of its subtiles (``Model.interp_step``: K1, K2 and K3 on
+the card) before the loss and the confusion matrix.
 
-``train(config)`` reads the composed config tree of ``configs/``: targets
-that name JAX-package classes with a port (the model, optimizers,
-schedulers, criterion, metric and logging callbacks, the datamodule, the
-trainer config) are redirected to the port (:data:`PORTED_TARGETS`); the
-checkpoint and early-stopping callbacks, datasets and transforms are the
-JAX package's own, which use no JAX. ``test``, ``finetune`` and the LR
-range test are not ported yet.
+``train(config)`` reads the composed config tree of ``configs/``, whose
+targets name the JAX package's classes: :func:`port_targets` redirects
+every one of them to the port's counterpart (and raises
+``NotImplementedError`` for one the port lacks). ``fit`` and ``fit+test``
+run the test after fit on the best checkpoint; ``test`` evaluates
+``model.ckpt_path``. ``finetune`` and the LR range test are not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import logging
+import os
+import re
 import signal
 from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
-from myria3d_tpu.utils.config import instantiate
 from myria3d_tpu_torch.models.model import Model
 from myria3d_tpu_torch.models.optimizers import set_learning_rate_scale
+from myria3d_tpu_torch.pctl.batching import pad_full_cloud, pad_sampled_pos
+from myria3d_tpu_torch.pctl.loader import BackgroundIterator
+from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
+from myria3d_tpu_torch.utils.config import instantiate
 
 log = logging.getLogger(__name__)
 
-# JAX-package target prefix -> the port's (see the module docstring)
+# JAX-package targets whose counterpart lives at another path in the port;
+# every other ``myria3d_tpu.<path>`` maps to ``myria3d_tpu_torch.<path>``
 PORTED_TARGETS = {
     "myria3d_tpu.models.model.Model": "myria3d_tpu_torch.models.model.build_model",
-    "myria3d_tpu.models.optimizers.": "myria3d_tpu_torch.models.optimizers.",
-    "myria3d_tpu.models.criterion.": "myria3d_tpu_torch.models.criterion.",
-    "myria3d_tpu.callbacks.metric_callbacks.": "myria3d_tpu_torch.callbacks.metric_callbacks.",
-    "myria3d_tpu.callbacks.logging_callbacks.": "myria3d_tpu_torch.callbacks.logging_callbacks.",
     "myria3d_tpu.pctl.datamodule.hdf5.HDF5LidarDataModule": "myria3d_tpu_torch.data.HDF5LidarDataModule",
-    "myria3d_tpu.train.TrainerConfig": "myria3d_tpu_torch.train.TrainerConfig",
 }
+_JAX_TARGET = re.compile(r"\bmyria3d_tpu\.[A-Za-z0-9_.]+")
+
+
+def _port_target(name: str) -> str:
+    """The port's counterpart of the JAX-package object ``name``; raises
+    ``NotImplementedError`` when the port has none."""
+    new = PORTED_TARGETS.get(name, "myria3d_tpu_torch." + name[len("myria3d_tpu."):])
+    module, _, attr = new.rpartition(".")
+    try:
+        found = hasattr(importlib.import_module(module), attr)
+    except ModuleNotFoundError as e:   # the port's module, not one it imports
+        if not (e.name == module or module.startswith(f"{e.name}.")):
+            raise
+        found = False
+    if not found:
+        raise NotImplementedError(f"{name} has no counterpart in the port (no {new})")
+    return new
 
 
 def port_targets(node: Any) -> Any:
-    """The config tree with every ported JAX-package target (``_target_``
-    values and ``${get_method:...}`` strings) redirected to the port."""
+    """The config tree with every JAX-package target (``_target_`` values
+    and ``${get_method:...}`` strings) redirected to the port. Callers
+    redirect only the subtrees they instantiate: resolving a target imports
+    its module."""
     if isinstance(node, dict):
         return {k: port_targets(v) for k, v in node.items()}
     if isinstance(node, list):
         return [port_targets(v) for v in node]
     if isinstance(node, str):
-        for old, new in PORTED_TARGETS.items():
-            if old in node:
-                return node.replace(old, new)
+        return _JAX_TARGET.sub(lambda m: _port_target(m.group(0)), node)
     return node
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     """Trainer knobs (``configs/trainer/default.yaml``). ``accelerator``:
-    "auto" takes the first CUDA device when there is one, else the CPU;
-    "gpu"/"cuda" require a CUDA device; "cpu". One device per process."""
+    "auto", "gpu" and "cuda" take the first CUDA device and raise when
+    there is none; "cpu" the CPU. One device per process."""
 
     min_epochs: int = 1
     max_epochs: int = 1
@@ -74,6 +96,7 @@ class TrainerConfig:
     num_nodes: int = 1
     limit_train_batches: Optional[int] = None
     limit_val_batches: Optional[int] = None
+    limit_test_batches: Optional[int] = None
     num_sanity_val_steps: int = 0
     accumulate_grad_batches: int = 1
     overfit_batches: int = 0
@@ -90,10 +113,12 @@ class TrainerConfig:
         acc = str(self.accelerator).lower()
         if acc == "cpu":
             return torch.device("cpu")
-        if acc in ("gpu", "cuda") and not torch.cuda.is_available():
-            raise RuntimeError(f"trainer.accelerator={self.accelerator} asks for CUDA, "
-                               "but none is available")
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if acc not in ("auto", "gpu", "cuda"):
+            raise ValueError(f"trainer.accelerator={self.accelerator}: auto, gpu, cuda or cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"trainer.accelerator={self.accelerator} runs on CUDA, but none "
+                               "is available (trainer.accelerator=cpu runs on the CPU)")
+        return torch.device("cuda")
 
 
 def _limited(loader: Iterable, limit: Optional[int]) -> Iterable:
@@ -120,6 +145,14 @@ class Trainer:
         self.global_step = 0
         self.interrupted = False
         self.train_losses: List[float] = []  # every step's loss, for callers
+        # the predict section's knobs that also govern test (as in the JAX
+        # package): the two-op f32 interpolation, the error instead of the
+        # subsampled fallback, full-scan searches, the x-sorted window
+        self.exact_interpolation = False
+        self.strict_full_cloud = False
+        self.exact_knn = False
+        self.sorted_window = 0
+        self._warned_subsampled_test = False
 
     @contextlib.contextmanager
     def _graceful_interrupts(self):
@@ -213,8 +246,6 @@ class Trainer:
     def _fit_one_epoch(self, model, datamodule, epoch, scheduler, per_step, overfit):
         """One train + val epoch; returns the early-stopping decision, or
         None when interrupted before it was taken."""
-        from myria3d_tpu.pctl.loader import BackgroundIterator
-
         losses: List[torch.Tensor] = []
         iterator: Iterable = overfit if overfit is not None else BackgroundIterator(
             _limited(datamodule.train_dataloader(seed=self.seed + epoch),
@@ -297,11 +328,95 @@ class Trainer:
             out.update(self.metrics.compute_and_reset(log_prefix))
         return out
 
+    # ------------------------------------------------------------------
+
+    def test(self, model: Model, datamodule, ckpt_path: Optional[str] = None) -> Dict[str, float]:
+        """Full-cloud evaluation (``myria3d_tpu/train.py:462-582``): each
+        test batch's logits are interpolated back to every raw point of its
+        subtiles before the loss and the ``test`` confusion matrix
+        (reference ``task=test`` regime, ``models/model.py:86-103``).
+
+        ``ckpt_path`` replaces ``model``'s net by the checkpoint's (its
+        criterion stays). A batch without full-cloud copies falls back to
+        subsampled eval with one warning, or raises under
+        ``predict.strict_full_cloud``."""
+        if self.sorted_window > 0 and not self.exact_knn and hasattr(datamodule, "_stages"):
+            # windowed searches need x-sorted clouds: append the sort to the
+            # eval pipeline before the dataset composes its transforms (and
+            # drop a dataset built without it during fit)
+            from myria3d_tpu_torch.pctl.transforms.transforms import SortPointsByX
+
+            stages = datamodule._stages["eval"]
+            if not any(isinstance(t, SortPointsByX) for t in stages):
+                datamodule._stages["eval"] = list(stages) + [SortPointsByX()]
+                datamodule._dataset = None
+        datamodule.prepare_data()
+        datamodule.setup("test")
+        if ckpt_path:
+            criterion = model.criterion
+            model = load_checkpoint(ckpt_path, self.device)
+            model.criterion = criterion
+        model.to(self.device)
+        if self.exact_knn:
+            model.set_sorted_window(0)
+        elif self.sorted_window > 0:
+            model.set_sorted_window(self.sorted_window)
+        fused = not self.exact_interpolation
+
+        losses: List[torch.Tensor] = []
+        for batch in _limited(datamodule.test_dataloader(), self.cfg.limit_test_batches):
+            if batch is None:
+                continue
+            a = self._arrays(batch)
+            full = pad_full_cloud(batch.copies)
+            sampled_pos = pad_sampled_pos(batch.copies, batch.num_points)
+            if full is None or sampled_pos is None or "full_y" not in full:
+                # the subsampled regime is EASIER (metrics on the decimated
+                # cloud, not every raw point): a missing Copy*Pos transform
+                # would otherwise silently report the wrong mIoU
+                if self.strict_full_cloud:
+                    raise RuntimeError(
+                        "predict.strict_full_cloud=true but a test batch carries no "
+                        "full-cloud copies: the eval transform list is missing the "
+                        "Copy*Pos transforms, so full-cloud test metrics cannot be computed.")
+                if not self._warned_subsampled_test:
+                    self._warned_subsampled_test = True
+                    log.warning(
+                        "Test batch without full-cloud copies: falling back to "
+                        "SUBSAMPLED-regime eval (reference task=test is always full-cloud). "
+                        "Check the eval transform list (Copy*Pos transforms); set "
+                        "predict.strict_full_cloud=true to make this an error. This warning "
+                        "is logged once per run.")
+                loss, logits = model.eval_step(a["x"], a["pos"], a["y"], a["mask"],
+                                               self._generator(-777))
+                losses.append(loss)
+                if self.metrics is not None:
+                    self.metrics.update("test", logits, a["y"], a["mask"])
+                continue
+            dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
+                   for k, v in (("sampled_pos", sampled_pos), ("full_pos", full["full_pos"]),
+                                ("full_mask", full["full_mask"]), ("full_y", full["full_y"]))}
+            full_logits = model.interp_step(a["x"], a["pos"], a["mask"], dev["sampled_pos"],
+                                            dev["full_pos"], dev["full_mask"],
+                                            self._generator(-777), fused=fused)
+            full_y = dev["full_y"].long()
+            losses.append(model.criterion(full_logits, full_y))
+            if self.metrics is not None:
+                self.metrics.update("test", full_logits, full_y, dev["full_mask"])
+        out = {"test/loss_epoch": float(torch.stack(losses).mean()) if losses else float("nan")}
+        if self.metrics is not None:
+            out.update(self.metrics.compute_and_reset("test"))
+        self._log(out)
+        log.info("test: " + " ".join(f"{k}={v:.4f}" for k, v in out.items() if k.count("/") == 1))
+        return out
+
 
 def build_trainer(config: dict):
     """``(trainer, model)`` from the composed config: the model, callbacks,
-    logger and trainer knobs, with the ported targets (no datamodule)."""
-    config = port_targets(config)
+    logger and trainer knobs, with their targets redirected to the port
+    (the datamodule is the caller's)."""
+    config = {k: port_targets(config[k]) if k in ("model", "callbacks", "logger", "trainer")
+              else v for k, v in config.items()}
     seed = int(config.get("seed", 12345))
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -315,14 +430,16 @@ def build_trainer(config: dict):
     logger = None
     for lg_conf in (config.get("logger") or {}).values():
         if isinstance(lg_conf, dict) and "_target_" in lg_conf:
-            if not lg_conf["_target_"].startswith("myria3d_tpu_torch."):
-                raise NotImplementedError(
-                    f"logger {lg_conf['_target_']} is not ported (use logger=csv)")
             logger = instantiate(lg_conf)
             break
     trainer_cfg = dict(config.get("trainer") or {})
     trainer_cfg.pop("_target_", None)
     trainer = Trainer(TrainerConfig(**trainer_cfg), callbacks=callbacks, logger=logger, seed=seed)
+    pcfg = config.get("predict") or {}
+    trainer.exact_interpolation = bool(pcfg.get("exact_interpolation", False))
+    trainer.strict_full_cloud = bool(pcfg.get("strict_full_cloud", False))
+    trainer.exact_knn = bool(pcfg.get("exact_knn", False))
+    trainer.sorted_window = int(pcfg.get("sorted_window", 0) or 0)
     if logger is not None:
         logger.log_hyperparams({"model": model.hparams, "trainer": trainer_cfg, "seed": seed})
     return trainer, model
@@ -330,20 +447,32 @@ def build_trainer(config: dict):
 
 def train(config: dict) -> Trainer:
     """Instantiate the datamodule, model, callbacks and logger from the
-    composed config and run ``task.task_name=fit`` (the JAX package's test
-    after fit is skipped: ``Trainer.test`` is not ported yet)."""
+    composed config and run ``task.task_name``: ``fit`` and ``fit+test``
+    (fit, then the full-cloud test on the best checkpoint, or on the trained
+    model when no checkpoint was kept; none after a SIGTERM stop) or
+    ``test`` (the checkpoint directory ``model.ckpt_path``)."""
     task = config.get("task") or {}
-    if task.get("task_name", "fit") not in ("fit", "fit+test"):
-        raise NotImplementedError(f"task.task_name={task['task_name']} is not ported yet (fit only)")
-    if task.get("auto_lr_find"):
+    task_name = task.get("task_name", "fit")
+    if task_name not in ("fit", "fit+test", "test"):
+        raise NotImplementedError(f"task.task_name={task_name} is not ported yet (fit, test)")
+    if task.get("auto_lr_find") and task_name != "test":
         raise NotImplementedError("task.auto_lr_find (the LR range test) is not ported yet")
+    ckpt_path = config["model"].get("ckpt_path")
+    if task_name == "test" and not (ckpt_path and os.path.isdir(ckpt_path)):
+        raise ValueError("task=test requires model.ckpt_path pointing to a checkpoint dir")
     trainer, model = build_trainer(config)
     datamodule = instantiate(port_targets(config["datamodule"]))
     if getattr(datamodule, "num_features", None) is None:
         datamodule.num_features = int(model.net.fc0.in_features)
+    if task_name == "test":
+        log.info("Starting testing!")
+        trainer.test(model, datamodule, ckpt_path=ckpt_path)
+        return trainer
     log.info("Starting training!")
-    trainer.fit(model, datamodule, ckpt_path=config["model"].get("ckpt_path"))
-    log.info(f"Best checkpoint: {getattr(trainer.checkpoint_cb, 'best_model_path', None)}")
-    if not trainer.interrupted:
-        log.warning("Trainer.test is not ported yet: the test after fit is skipped")
+    trainer.fit(model, datamodule, ckpt_path=ckpt_path)
+    if trainer.interrupted:
+        return trainer  # preempted: checkpoint saved, no test after fit
+    best = getattr(trainer.checkpoint_cb, "best_model_path", None)
+    log.info(f"Best checkpoint: {best}")
+    trainer.test(model, datamodule, ckpt_path=best or None)
     return trainer

@@ -6,7 +6,7 @@ format, and write the synthetic toy tile beside it.
         [--out trained_model_assets/randlanet_toy_V0.5.0_torch]
 
 Writes ``<out>/state_dict.npz`` (reference PyGRandLANet keys, via
-``myria3d_tpu.utils.torch_ckpt.flax_to_torch_state_dict``),
+``myria3d_tpu_torch.utils.checkpoint.flax_to_torch_state_dict``),
 ``<out>/hparams.json`` (the model hparams) and ``<out>/toy_tile.las``
 (``write_synthetic_toy_las``, seed 42, 60 000 points), so the port's
 predict path needs neither JAX, orbax nor h5py to run the toy checkpoint.

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions on the
+"""The CUDA kernels K1-K7 against their plain PyTorch versions on the
 card (skipped where there is no CUDA device; ``chip_smoke.py`` runs the
 same comparisons at the predict and train steps' full shapes).
 
@@ -7,7 +7,8 @@ d2 are equal; K2 sums in another order (1e-4 of the output's scale); K3
 divides the same f32 sums (1e-5); K4 sums the same f32 terms in another
 order (1e-5); K5 and K6 are held to their plain versions in float64
 (K5 1e-5; K6 recomputes the forward and sums over every edge: 1e-4 on dx,
-1e-3 on the heavily cancelling d(att_w) and BN sums).
+1e-3 on the heavily cancelling d(att_w) and BN sums); K7 shares its plain
+version's association and ranking, so indices and d2 are equal.
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ import torch
 from myria3d_tpu_torch.models.model import Model, build_model, build_net
 from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, gather_bwd_plain, inverse_map
 from myria3d_tpu_torch.ops.cuda_interp import knn_interp, knn_interp_plain
-from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_plain
+from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu, knn_topk_plain
 from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention, lfa_attention_plain
 from myria3d_tpu_torch.ops.cuda_lfa_train import (
     lfa_train_bwd,
@@ -53,6 +54,20 @@ def test_k1_matches_plain(cuda_device, k, window, nq, nk):
     torch.cuda.synchronize()
     assert torch.equal(d2, pd2)
     assert torch.equal(idx, pidx)
+
+
+@pytest.mark.parametrize("k,nq,nk", [(16, 768, 768), (1, 1000, 300), (32, 4096, 1500)])
+def test_k7_matches_plain(cuda_device, k, nq, nk):
+    qp, _ = _sorted_cloud(2, nq, cuda_device, 4)
+    kp, km = _sorted_cloud(2, nk, cuda_device, 5)
+    q4, k4 = centred_clouds(qp, kp, km)
+    before = knn_topk_mxu.launches, knn_topk.launches
+    idx, d2 = knn_topk(q4, k4, k, variant="mxu")
+    assert (knn_topk_mxu.launches, knn_topk.launches) == (before[0] + 1, before[1])
+    pidx, pd2 = knn_topk_plain(q4, k4, k, variant="mxu")
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx)
+    assert torch.equal(d2, pd2)
 
 
 @pytest.mark.parametrize("c_in", [4, 32, 128])

@@ -1,5 +1,6 @@
 """The port's predict pipeline end to end on the CPU (plain versions), its
-CLI, its device selection, and the proof that it never imports JAX."""
+CLI, its device selection, and the proof that it never imports JAX or the
+JAX package."""
 
 import os
 import subprocess
@@ -33,7 +34,7 @@ def small_tile(tmp_path_factory):
 def _overrides(tile, out_dir):
     return ["task.task_name=predict", f"predict.src_las={tile}",
             f"predict.ckpt_path={CKPT}", f"predict.output_dir={out_dir}",
-            "datamodule.batch_size=2"]
+            "datamodule.batch_size=2", "trainer.accelerator=cpu"]
 
 
 def test_cli_predict_writes_the_output_las(small_tile, tmp_path):
@@ -62,23 +63,32 @@ def test_predict_phases_and_resume(small_tile, tmp_path):
     assert run.launch_predict(cfg) == [out] and os.path.getmtime(out) == mtime
 
 
-@pytest.mark.parametrize("task", ["test", "finetune", "create_hdf5"])
+@pytest.mark.parametrize("task", ["finetune"])
 def test_other_tasks_are_not_ported(task):
     with pytest.raises(NotImplementedError):
         run.main([f"task.task_name={task}"])
 
 
 def test_device_from_gpus(monkeypatch):
-    assert predict_mod.device_from_gpus(0) == torch.device("cpu")
+    """``predict.gpus`` picks the CUDA device (``[i]`` -> ``cuda:i``, else
+    ``cuda:0``; 0 no longer means the CPU); a missing CUDA device raises;
+    the CPU only when asked (``device="cpu"``, ``trainer.accelerator=cpu``)."""
+    cfg = {"predict": {"gpus": 0}, "trainer": {"accelerator": "auto"}}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for gpus in (1, [0]):
+    for gpus in (0, 1, [0]):
         with pytest.raises(RuntimeError):
-            predict_mod.device_from_gpus(gpus)
+            predict_mod.predict_device({**cfg, "predict": {"gpus": gpus}})
+    assert predict_mod.predict_device(cfg, device="cpu") == torch.device("cpu")
+    assert predict_mod.predict_device({**cfg, "trainer": {"accelerator": "cpu"}}) == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert predict_mod.predict_device(cfg) == torch.device("cuda:0")
+    assert predict_mod.predict_device({**cfg, "predict": {"gpus": [2]}}) == torch.device("cuda:2")
 
 
 def test_port_never_imports_jax(small_tile, tmp_path):
     """The port's modules, its predict path run end to end and the on-card
-    smoke script import no JAX, even where JAX is installed (it is here)."""
+    smoke script import no JAX and nothing of the JAX package, even where
+    both are installed (they are here)."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
@@ -86,7 +96,8 @@ def test_port_never_imports_jax(small_tile, tmp_path):
         " myria3d_tpu_torch.ops.cuda_interp, myria3d_tpu_torch.ops.cuda_lfa\n"
         "from myria3d_tpu_torch import run\n"
         f"run.main({_overrides(small_tile, tmp_path)!r})\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'myria3d_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
     )

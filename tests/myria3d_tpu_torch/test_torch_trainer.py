@@ -1,7 +1,7 @@
 """The port's train loop on the CPU at a small size: gradient accumulation,
 the SIGTERM save and resume, the confusion-matrix metrics against the JAX
-package, the config targets the port redirects, and the parts that are
-not ported yet raising."""
+package, the redirect of the config's targets to the port, and the parts
+that are not ported yet raising."""
 
 import os
 import signal
@@ -175,20 +175,29 @@ def test_config_targets_are_redirected_to_the_port():
                   "optimizer": {"_args_": ["${get_method:myria3d_tpu.models.optimizers.adam}"]}},
         "cb": {"_target_": "myria3d_tpu.callbacks.checkpoint_callbacks.ModelCheckpoint"},
         "dm": {"_target_": "myria3d_tpu.pctl.datamodule.hdf5.HDF5LidarDataModule"},
+        "tr": {"_target_": "myria3d_tpu.pctl.transforms.transforms.GridSampling"},
     })
     assert cfg["model"]["_target_"] == "myria3d_tpu_torch.models.model.build_model"
     assert cfg["model"]["optimizer"]["_args_"] == [
         "${get_method:myria3d_tpu_torch.models.optimizers.adam}"]
-    assert cfg["cb"]["_target_"] == "myria3d_tpu.callbacks.checkpoint_callbacks.ModelCheckpoint"
+    assert cfg["cb"]["_target_"] == "myria3d_tpu_torch.callbacks.checkpoint_callbacks.ModelCheckpoint"
     assert cfg["dm"]["_target_"] == "myria3d_tpu_torch.data.HDF5LidarDataModule"
+    assert cfg["tr"]["_target_"] == "myria3d_tpu_torch.pctl.transforms.transforms.GridSampling"
+    for missing in ("myria3d_tpu.callbacks.finetuning_callbacks.FinetuningFreezeUnfreeze",
+                    "myria3d_tpu.callbacks.logging_callbacks.CometLogger"):
+        with pytest.raises(NotImplementedError, match=missing):
+            port_targets({"_target_": missing})
 
 
-@pytest.mark.parametrize("what", ["test", "finetune", "auto_lr_find", "grad_microbatch"])
+@pytest.mark.parametrize("what", ["comet_logger", "finetune", "auto_lr_find", "grad_microbatch"])
 def test_unported_parts_raise(what):
     with pytest.raises(NotImplementedError):
         if what == "grad_microbatch":
             build_model("RandLANet", {"num_features": 9, "num_classes": 7}, grad_microbatch=2)
         elif what == "auto_lr_find":
             train({"task": {"task_name": "fit", "auto_lr_find": True}})
+        elif what == "comet_logger":
+            train({"task": {"task_name": "fit"}, "model": {},
+                   "logger": {"comet": {"_target_": "myria3d_tpu.callbacks.logging_callbacks.CometLogger"}}})
         else:
             train({"task": {"task_name": what}})
