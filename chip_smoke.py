@@ -8,21 +8,28 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA. Phases, one line each:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. the kernels built from ``myria3d_tpu_torch/csrc`` (nvcc, sm_90a);
+2. the kernels built from ``myria3d_tpu_torch/csrc`` (nvcc, sm_90a), and
+   each kernel's registers, stack frame and spill bytes (``cuobjdump
+   --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3
+   instantiation must have neither a stack frame nor spills;
 3. each kernel against its plain PyTorch version at the predict step's
    stage shapes (B=48 subtiles, N=12288 sampled, M=32768 full points):
-   K1 (kNN) within 1e-6 relative on d2 and equal indices except at d2 ties,
-   K2 (fused LFA) within 1e-4 and K3 (fused interpolation) within 1e-5 of
-   the plain version's scale (max |kernel - plain| / max |plain|);
+   K1 (kNN) bit-equal on indices and d2, K2 (fused LFA) within 1e-4 and K3
+   (fused interpolation, windowed and full scan) within 1e-5 of the plain
+   version's scale (max |kernel - plain| / max |plain|);
 4. the main path: ``myria3d_tpu_torch.predict.predict`` on the synthetic
    toy tile with the converted toy checkpoint; the output LAS is checked,
    every kernel must have launched, and the ground-truth accuracy must be
    within 0.02 of the plain path's accuracy on the CPU;
 5. the predict step at the bench shape, kernel path against plain path:
-   ms per batch, Mpts/s, argmax agreement (>= 0.999);
+   ms per batch, Mpts/s, argmax agreement (>= 0.999); then a
+   ``torch.profiler`` trace of three kernel-path steps: device time per
+   step by kernel and the device's idle share of the traced window;
 6. the train kernels against their plain versions at the train step's
    stage shapes (B=16, N=12288 -> 3072 -> 768 -> 192, K=16, window 4608
-   density-scaled per stage): K4 (gather VJP) within 1e-5 of scale, K5 (rel
+   density-scaled per stage): K1 bit-equal on indices and d2 at the four
+   self-kNN graphs and the four decoder searches, each timed; K4 (gather
+   VJP) within 1e-5 of scale, K5 (rel
    statistics) within 1e-5 of its float64 plain version, with the variance
    it implies within 1e-4 of the unfused route's two-pass masked variance,
    K6 (fused LFA backward) within 1e-4 (dx) and 1e-3 (d(att_w), BN sums)
@@ -85,7 +92,7 @@ CPU_PLAIN_ACCURACY = 0.7195166666666667
 ACCURACY_MARGIN = 0.02
 B, N, M, RAW = 48, 12_288, 32_768, 30_000   # bench.py:196-202
 WINDOW = 4608                                # configs/predict/default.yaml
-TOL = {"K1": 1e-6, "K2": 1e-4, "K3": 1e-5, "K4": 1e-5, "K5": 1e-5, "K6": 1e-4, "K6sum": 1e-3,
+TOL = {"K2": 1e-4, "K3": 1e-5, "K4": 1e-5, "K5": 1e-5, "K6": 1e-4, "K6sum": 1e-3,
        "var": 1e-4}
 TRAIN_N = 12_288                             # bench.py --train
 FIT_STEPS = 20
@@ -211,6 +218,10 @@ def phase_device():
     return smi
 
 
+# K1 and K3 kernels (topk.cuh's search): no stack frame, no spills
+SEARCH_KERNELS = ("knn_topk_kernel<", "knn_interp_kernel<")
+
+
 def phase_build():
     from myria3d_tpu_torch import _ext
 
@@ -218,25 +229,26 @@ def phase_build():
     path = _ext.build()
     _ext.lib()
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
+    usage = _ext.resource_usage(path)
+    for name, u in sorted(usage.items()):
+        print(f"phase 2 resources {name}: {u.get('reg')} registers, stack frame {u.get('stack')} B, "
+              f"local {u.get('local')} B, spill stores {u.get('spill_stores')} B, "
+              f"spill loads {u.get('spill_loads')} B")
+    search = {n: u for n, u in usage.items() if n.startswith(SEARCH_KERNELS)}
+    need(len(search) == 5, f"expected 5 K1/K3 instantiations, found {sorted(search)}")
+    bad = [n for n, u in search.items()
+           if any(u.get(key) != 0 for key in ("stack", "local", "spill_stores", "spill_loads"))]
+    need(not bad, f"K1/K3 instantiations with a stack frame or spills: {bad}")
 
 
-def check_k1(idx_k, d2_k, idx_p, d2_p, tol: float):
-    """The kernel's K slots against the plain version's K + 1: d2 within
-    ``tol`` relative everywhere; indices equal except where a slot's d2 is
-    within ``tol`` of a neighbouring candidate's (a tie), the (K+1)-th
-    included."""
+def check_k1(idx_k, d2_k, idx_p, d2_p, what: str) -> float:
+    """The kernel's indices and d2 bit-equal to the plain version's."""
     import torch
 
-    k = idx_k.shape[-1]
-    rel = (d2_k - d2_p[..., :k]).abs() / d2_p[..., :k].abs().clamp(min=1e-30)
-    need(bool((rel <= tol).all()), f"K1 d2 rel err {rel.max().item():.3g} > {tol}")
-    gap = (d2_p[..., 1:] - d2_p[..., :-1]).abs() <= tol * d2_p[..., 1:].abs()
-    tied = torch.zeros_like(idx_p, dtype=torch.bool)
-    tied[..., 1:] |= gap
-    tied[..., :-1] |= gap
-    bad = int(((idx_k != idx_p[..., :k]) & ~tied[..., :k]).sum())
-    need(bad == 0, f"K1 {bad} index mismatches outside ties")
-    return float((d2_k - d2_p[..., :k]).abs().max())
+    need(bool(torch.equal(d2_k, d2_p)), f"K1 {what}: d2 differs from the plain version")
+    need(bool(torch.equal(idx_k, idx_p)), f"K1 {what}: indices differ from the plain version "
+         f"at {int((idx_k != idx_p).sum())} slots")
+    return float((d2_k - d2_p).abs().max())
 
 
 def scale_err(a, b, tol: float, what: str) -> float:
@@ -281,8 +293,8 @@ def phase_kernels(model, dev):
         q4, k4 = centred_clouds(qp, kp, km)
         w = stage_window(WINDOW, kp.shape[1])
         idx_k, d2_k = knn_topk(q4, k4, k, window=w, query_mask=qm)
-        idx_p, d2_p = knn_topk_plain(q4, k4, k + 1, window=w, query_mask=qm)
-        err = check_k1(idx_k, d2_k, idx_p, d2_p, TOL["K1"])
+        idx_p, d2_p = knn_topk_plain(q4, k4, k, window=w, query_mask=qm)
+        err = check_k1(idx_k, d2_k, idx_p, d2_p, label)
         scanned = _windows(q4, k4, w, qm)[1]
         bnd = bound(PAIR_INSTR * float(qm.sum()) * scanned, nbytes(q4, k4, idx_k, d2_k))
         record("K1", f"{label} (window {w})", err,
@@ -419,6 +431,49 @@ def phase_step(model, dev):
     print(f"phase 5 predict step B={B} N={N} M={M}: kernels {ms:.1f} ms/batch "
           f"({mpts:.3f} Mpts/s), plain {plain_ms:.1f} ms/batch ({B * RAW / plain_ms / 1e3:.3f} Mpts/s), "
           f"argmax agreement {agree:.6f}, launches per step {per_step}")
+    print(f"phase 5 profile: {profile_steps(step)}")
+
+
+def profile_steps(step, reps: int = 3) -> str:
+    """Device time per step by kernel and the device's idle share between
+    the first and the last device activity of a ``torch.profiler`` trace of
+    ``reps`` steps; "not measured" with the reason if the trace holds no
+    device activity (the profile reports, it does not decide the run)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+        spans, by_name = [], {}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            t0, t1 = ev.time_range.start, ev.time_range.end
+            spans.append((t0, t1))
+            name = ev.name.split("(")[0].replace("void ", "").replace("m3d::", "")
+            by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3 / reps
+    except Exception as e:  # noqa: BLE001 - a profiler fault leaves the numbers unmeasured
+        return f"not measured ({type(e).__name__}: {e})"
+    if not spans:
+        return "not measured (no device activity in the trace)"
+    spans.sort()
+    busy, end = 0.0, spans[0][0]
+    for t0, t1 in spans:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    window = end - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    rest = sum(v for _, v in top[10:])
+    return (f"{reps} steps, device busy {busy / 1e3 / reps:.2f} ms/step of a "
+            f"{window / 1e3 / reps:.2f} ms/step window, idle {100 * (1 - busy / window):.2f} %; "
+            "ms/step by kernel: " + ", ".join(f"{n} {v:.3f}" for n, v in top[:10])
+            + f", other {rest:.3f}")
 
 
 def train_batch(b: int, seed: int = 0):
@@ -432,11 +487,12 @@ def train_batch(b: int, seed: int = 0):
 
 
 def phase_train_kernels(dev):
-    """K4/K5/K6 against their plain versions at the train stage shapes."""
+    """K1 and K4/K5/K6 against their plain versions at the train stage
+    shapes."""
     import torch
 
     from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, gather_bwd_plain, inverse_map
-    from myria3d_tpu_torch.ops.cuda_knn import stage_window
+    from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_plain, stage_window
     from myria3d_tpu_torch.ops.cuda_lfa_train import (
         lfa_train_bwd,
         lfa_train_bwd_plain,
@@ -445,7 +501,7 @@ def phase_train_kernels(dev):
         rel_stats,
         rel_stats_plain,
     )
-    from myria3d_tpu_torch.ops.knn import gather_rows, knn_graph
+    from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows, knn_graph
     from myria3d_tpu_torch.ops.masked import masked_var
     from myria3d_tpu_torch.ops.sampling import random_decimation
 
@@ -459,6 +515,26 @@ def phase_train_kernels(dev):
         p, m = stages[-1]
         idx, m2 = random_decimation(m, 4, gen)
         stages.append((gather_rows(p, idx), m2))
+
+    # K1 at the train step's searches (B=16): the four self-kNN graphs and
+    # the four decoder searches, the last into a fifth stage of 48 points
+    # (drawn from its own generator: ``gen`` keeps feeding K4-K6 the inputs
+    # it fed them before)
+    idx, m5 = random_decimation(stages[3][1], 4, torch.Generator(device=dev).manual_seed(1))
+    s48 = (gather_rows(stages[3][0], idx), m5)
+    searches = [(f"K=16 self {p.shape[1]}", (p, m), (p, m), 16) for p, m in stages]
+    searches += [(f"K=1 {q[0].shape[1]}<-{kk[0].shape[1]}", q, kk, 1)
+                 for q, kk in zip(stages, stages[1:] + [s48])]
+    k1_ms = 0.0
+    for label, (qp, qm), (kp, km), k in searches:
+        q4, k4 = centred_clouds(qp, kp, km)
+        w = stage_window(WINDOW, kp.shape[1])
+        check_k1(*knn_topk(q4, k4, k, window=w, query_mask=qm),
+                 *knn_topk_plain(q4, k4, k, window=w, query_mask=qm), label)
+        ms = cuda_ms(lambda: knn_topk(q4, k4, k, window=w, query_mask=qm), 5)
+        k1_ms += ms
+        print(f"phase 6 K1 {label} B=16 (window {w}): bit-equal to the plain version, {ms:.3f} ms")
+    print(f"phase 6 K1 per B=16 train step ({len(searches)} searches): {k1_ms:.3f} ms")
 
     stats = {"K4": [], "K5": [], "K6": []}
 

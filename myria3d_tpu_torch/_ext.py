@@ -10,6 +10,9 @@ is built or loaded at import time: the CPU code paths never need it.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+:func:`resource_usage` reads each kernel's registers, stack frame and
+spills from the built library (``cuobjdump``) and from ``ptxas``'s report,
+which the build keeps beside the library.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "myria3d_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -99,6 +103,10 @@ def build() -> Path:
         failed = [log for proc, log in zip(procs, logs) if proc.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        # ptxas's report (registers, stack frame, spills) beside the library
+        log_tmp = os.path.join(tmp_dir, "ptxas.txt")
+        Path(log_tmp).write_text("\n".join(logs))
+        os.replace(log_tmp, ptxas_log(out))
         lib_tmp = os.path.join(tmp_dir, out.name)
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs],
                               capture_output=True, text=True)
@@ -106,6 +114,51 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
         os.replace(lib_tmp, out)
     return out
+
+
+def ptxas_log(library: Path) -> Path:
+    """Where the build keeps ``ptxas -v``'s report of ``library``."""
+    return library.with_suffix(".ptxas.txt")
+
+
+def _short_name(mangled: str) -> str:
+    """``_ZN3m3d15knn_topk_kernelILi16ELi2EEEv...`` -> ``knn_topk_kernel<16,2>``."""
+    m = re.match(r"_ZN3m3d(\d+)", mangled)
+    if not m:
+        return mangled
+    name = mangled[m.end():m.end() + int(m.group(1))]
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[m.end() + len(name):])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return name
+
+
+def resource_usage(library: Optional[Path] = None) -> dict:
+    """``{kernel: {"reg", "stack", "local", "spill_stores", "spill_loads"}}``
+    of every kernel in the library (built if needed): registers per thread,
+    stack frame and local memory bytes from ``cuobjdump
+    --dump-resource-usage``, spill bytes from ``ptxas -v``."""
+    library = Path(library or build())
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "--dump-resource-usage", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    usage: dict = {}
+    name = None
+    for line in dump.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = _short_name(m.group(1))
+        elif name is not None and "REG:" in line:
+            usage[name] = {key.lower(): int(v)
+                           for key, v in re.findall(r"\b(REG|STACK|LOCAL):(\d+)", line)}
+            name = None
+    log = ptxas_log(library)
+    text = log.read_text() if log.is_file() else ""
+    for m in re.finditer(r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack frame, "
+                         r"(\d+) bytes spill stores, (\d+) bytes spill loads", text):
+        usage.setdefault(_short_name(m.group(1)), {}).update(
+            spill_stores=int(m.group(3)), spill_loads=int(m.group(4)))
+    return usage
 
 
 def lib() -> ctypes.CDLL:

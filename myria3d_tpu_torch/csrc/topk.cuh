@@ -1,104 +1,379 @@
-// Shared pieces of the exact windowed kNN kernels (knn.cu, interp.cu).
+// Shared search of the exact windowed kNN kernels K1 (knn.cu) and K3
+// (interp.cu), and the K-list that K7 (knn.cu) also keeps.
 //
-// Both kernels scan a contiguous run of x-sorted key positions per tile of
-// 256 queries (the window of ``ops/cuda_knn.py::window_bases``), one thread
-// per query, with the keys staged through shared memory in chunks. Each
-// thread keeps its K best (distance, index) pairs in a register-resident
-// sorted list; keys arrive in ascending position order and a candidate
-// must beat the current K-th distance strictly, so equal distances keep the
-// lower key index first -- the tie rule of the plain PyTorch versions.
+// One block covers one tile of 256 queries of one cloud and the tile's
+// window of x-sorted key positions (``ops/cuda_knn.py::window_bases``);
+// positions at or past ``nk`` are the virtual pad rows (0, 0, 0, PAD_W).
+// Selection is exact: the K smallest (d2, index) pairs of the window in
+// lexicographic order, d2 summed in the plain version's association.
+//
+// Bound on the H100: FP32 issue. A (query, key) pair costs 3 subtractions,
+// 3 products and 3 sums, each rounded on its own (no FMA, for the plain
+// version's bits), plus the compare against the K-th best; the bound that
+// chip_smoke.py prints counts 8 instructions per pair at 33.5 T/s. The
+// design keeps everything else off that path:
+//
+// 1. The K-list is a compile-time size held in registers (``TopK<K>``):
+//    K = 16 (encoder self-kNN), 1 (decoder searches), 10 (K3), and one
+//    generic K = 32 list for any other k in [1, 32], which keeps the 32
+//    best and writes the first k. The K-th best is the last slot, a
+//    register. Every index into the list is static after unrolling, so
+//    nothing of it goes to local memory (chip_smoke.py phase 2 reads the
+//    stack frame and spills of every instantiation and fails on either).
+// 2. A thread holds Q queries of the tile; each staged key read from
+//    shared memory feeds its Q distance tests, and the block runs 256 / Q
+//    threads. A warp's 32 Q queries are one band of the tile's rows ranked
+//    by y (``tile_queries``): an x-sorted tile spans the cloud's whole y,
+//    and a warp of rows in x order waited on an insertion at nearly every
+//    key near its x, for some lane's query at the right y (K1 K=16 self
+//    12288 took 4.4 ms that way, 2.6 ms in bands). The narrower the band,
+//    the rarer such waits, against fewer tests per shared read. Measured at
+//    the predict shapes (scripts/tune_search_q.py): Q = 1 for K = 16 and 10
+//    (68 and 59 registers; bands of 32 rows, 6-12 % faster than Q = 2 and
+//    far faster than Q = 4), Q = 2 for K = 1 (40 registers; its insertion
+//    is cheap, so sharing the reads wins: 11 % faster than Q = 4), Q = 1
+//    for the generic 32-slot list (two such lists spilled at 168
+//    registers). Four blocks of a 56 KB window fit an SM.
+// 3. Near keys first. Each warp binary-searches its queries' mean x into
+//    the staged (x-sorted) keys and walks outward, alternately right and
+//    left, to both ends: the list fills with near keys at once and later
+//    candidates rarely pass the ``d <= worst`` filter, so insertions (a
+//    branch a whole warp waits on) become rare. Because keys no longer
+//    arrive in position order, a candidate enters iff (d2, index) is below
+//    the K-th best in lexicographic order: the selected set and its order
+//    are the plain version's whatever the scan order, so unsorted clouds
+//    (full scans) stay exact too. Every key of the window is still tested.
+// 4. The window is staged once with ``cp.async`` into dynamic shared
+//    memory (up to STAGE_MAX positions, 80 KB) and the scan waits on it
+//    once. Longer windows and full scans stream through a double-buffered
+//    ring of RING-key chunks, the next chunk's copy in flight while the
+//    current one is scanned, the chunks taken centre-out from the chunk
+//    that holds the tile's middle x. The loading thread squares w once per
+//    key, so the pad term costs nothing per pair.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace m3d {
 
 constexpr int TILE_Q = 256;      // queries per block == window tile
 constexpr int BINS = 512;        // window base granularity (key positions)
-constexpr int CHUNK = 1024;      // keys staged in shared memory per step
+constexpr int CHUNK = 1024;      // K7's staging chunk (keys)
+constexpr int STAGE_MAX = 5120;  // longest window staged whole (80 KB)
+constexpr int RING = 2048;       // ring chunk of longer scans (2 x 32 KB)
 constexpr float PAD_W = 1e4f;    // 4th coordinate of pad keys
 
-// Squared distance in the association of the plain version
-// (w*w + dx*dx + dy*dy + dz*dz, every op rounded on its own, no FMA
-// contraction) so the kernel and its plain version rank identically.
-// Queries carry w = 0, so the pad term comes from the key alone.
+// Dynamic shared memory of a K1/K3 block scanning ``win_len`` positions.
+inline size_t search_smem_bytes(int win_len) {
+  return static_cast<size_t>(win_len <= STAGE_MAX ? win_len : 2 * RING) * sizeof(float4);
+}
+
+// Squared distance to a staged key whose w already holds w * w, in the
+// association of the plain version ((w^2 + dx^2) + dy^2) + dz^2, every op
+// rounded on its own (no FMA contraction). Queries carry w = 0.
 __device__ __forceinline__ float sq_dist(float4 q, float4 k) {
-  float s = __fmul_rn(k.w, k.w);
   const float dx = __fsub_rn(q.x, k.x);
-  s = __fadd_rn(s, __fmul_rn(dx, dx));
+  float s = __fadd_rn(k.w, __fmul_rn(dx, dx));
   const float dy = __fsub_rn(q.y, k.y);
   s = __fadd_rn(s, __fmul_rn(dy, dy));
   const float dz = __fsub_rn(q.z, k.z);
-  s = __fadd_rn(s, __fmul_rn(dz, dz));
-  return s;
+  return __fadd_rn(s, __fmul_rn(dz, dz));
 }
 
-// Ascending (distance, index) list of the K best candidates seen so far.
-// KMAX is the register capacity; the runtime k <= KMAX slots are live.
-template <int KMAX>
+// (da, ia) before (db, ib): the order of the plain version's int64 keys.
+__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
+}
+
+// Ascending (distance, index) list of the K best candidates seen so far,
+// in any order of arrival.
+template <int K>
 struct TopK {
-  float d[KMAX];
-  int idx[KMAX];
-  float worst;  // d[k - 1]: a candidate must beat it strictly
+  float d[K];
+  int idx[K];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
+    for (int j = 0; j < K; ++j) {
       d[j] = INFINITY;
-      idx[j] = 0;
+      idx[j] = INT_MAX;
     }
-    worst = INFINITY;
   }
 
-  __device__ __forceinline__ void push(float dn, int in, int k) {
-    if (!(dn < worst)) return;
-    // insertion from the back: slot j takes its left neighbour while that
-    // neighbour is strictly worse than the candidate (unrolled, so the
-    // list stays in registers)
+  // The cheap filter of the scan: a candidate that fails it cannot enter.
+  __device__ __forceinline__ bool admits(float dn) const { return dn <= d[K - 1]; }
+
+  __device__ __forceinline__ void push(float dn, int in) {
+    if (!before(dn, in, d[K - 1], idx[K - 1])) return;
+    bool c[K];  // the candidate goes before slot j
 #pragma unroll
-    for (int j = KMAX - 1; j > 0; --j) {
-      if (d[j - 1] > dn) {
+    for (int j = 0; j < K - 1; ++j) c[j] = before(dn, in, d[j], idx[j]);
+    c[K - 1] = true;
+    // slot j takes its left neighbour while the candidate goes before that
+    // neighbour, and the candidate at the first slot it goes before
+#pragma unroll
+    for (int j = K - 1; j > 0; --j) {
+      if (c[j - 1]) {
         d[j] = d[j - 1];
         idx[j] = idx[j - 1];
-      } else if (d[j] > dn) {
+      } else if (c[j]) {
         d[j] = dn;
         idx[j] = in;
       }
     }
-    if (d[0] > dn) {
+    if (c[0]) {
       d[0] = dn;
       idx[0] = in;
-    }
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j == k - 1) worst = d[j];
     }
   }
 };
 
-// Scan ``win_len`` key positions from ``start`` for this thread's query.
-// Positions at or past ``nk`` are the virtual pad rows of the key set
-// padded to a multiple of BINS: (0, 0, 0, PAD_W). Every thread of the block
-// must call this (it synchronises); inactive threads pass active=false.
-template <int KMAX>
-__device__ __forceinline__ void scan_window(
-    float4* slab, const float4* __restrict__ keys, int nk, int start,
-    int win_len, float4 qv, bool active, int k, TopK<KMAX>& top) {
-  for (int c0 = 0; c0 < win_len; c0 += CHUNK) {
-    const int n = min(CHUNK, win_len - c0);
-    __syncthreads();
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const int p = start + c0 + t;
-      slab[t] = p < nk ? keys[p] : make_float4(0.f, 0.f, 0.f, PAD_W);
-    }
-    __syncthreads();
-    if (active) {
-      for (int t = 0; t < n; ++t) {
-        top.push(sq_dist(qv, slab[t]), start + c0 + t, k);
-      }
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of key positions [first, first + n) into ``slab``: rows
+// of the cloud by cp.async, virtual pad rows (at or past nk) written
+// directly with w already squared. One commit group.
+__device__ __forceinline__ void stage_async(float4* slab, const float4* __restrict__ keys,
+                                            int nk, int first, int n) {
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    if (first + t < nk) {
+      cp_async16(slab + t, keys + first + t);
+    } else {
+      slab[t] = make_float4(0.f, 0.f, 0.f, __fmul_rn(PAD_W, PAD_W));
     }
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// After the wait: square w in the rows this thread copied (the same rows
+// as stage_async's), so the scan adds w^2 without a product per pair.
+__device__ __forceinline__ void square_w(float4* slab, int nk, int first, int n) {
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    if (first + t < nk) slab[t].w = __fmul_rn(slab[t].w, slab[t].w);
+  }
+}
+
+// The s-th of n items taken centre-out from c: c, c + 1, c - 1, c + 2,
+// c - 2, ..., then the rest of the longer side.
+__device__ __forceinline__ int centre_out(int s, int c, int n) {
+  const int m = min(c, n - 1 - c);
+  if (s <= 2 * m) return (s & 1) ? c + (s + 1) / 2 : c - s / 2;
+  return n - 1 - c > c ? s : n - 1 - s;
+}
+
+// Test staged position p against the thread's Q queries.
+template <int K, int Q>
+__device__ __forceinline__ void visit(const float4* slab, int p, int base,
+                                      const float4 (&qv)[Q], TopK<K> (&top)[Q]) {
+  const float4 kv = slab[p];
+  float d[Q];
+  bool hit = false;
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    d[j] = sq_dist(qv[j], kv);
+    hit |= top[j].admits(d[j]);
+  }
+  if (hit) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      if (top[j].admits(d[j])) top[j].push(d[j], base + p);
+    }
+  }
+}
+
+// Two positions at once: both keys' distances are computed before the one
+// branch, which gives the scheduler 2 Q independent sums.
+template <int K, int Q>
+__device__ __forceinline__ void visit2(const float4* slab, int pa, int pb, int base,
+                                       const float4 (&qv)[Q], TopK<K> (&top)[Q]) {
+  const float4 ka = slab[pa];
+  const float4 kb = slab[pb];
+  float da[Q], db[Q];
+  bool hit = false;
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    da[j] = sq_dist(qv[j], ka);
+    db[j] = sq_dist(qv[j], kb);
+    hit |= top[j].admits(da[j]) || top[j].admits(db[j]);
+  }
+  if (hit) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      if (top[j].admits(da[j])) top[j].push(da[j], base + pa);
+      if (top[j].admits(db[j])) top[j].push(db[j], base + pb);
+    }
+  }
+}
+
+// Scan the n staged keys (global positions base + p) centre-out from the
+// first one at or past the warp's centre x. ``cx`` is warp-uniform, so the
+// whole warp reads one key at a time (a shared-memory broadcast).
+template <int K, int Q>
+__device__ __forceinline__ void scan_slab(const float4* slab, int n, int base, float cx,
+                                          const float4 (&qv)[Q], TopK<K> (&top)[Q]) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (slab[mid].x < cx) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int c = min(lo, n - 1);
+  const int m = min(c, n - 1 - c);
+  visit<K, Q>(slab, c, base, qv, top);
+#pragma unroll 2
+  for (int s = 1; s <= m; ++s) visit2<K, Q>(slab, c + s, c - s, base, qv, top);
+  if (n - 1 - c > c) {
+    int p = c + m + 1;
+#pragma unroll 2
+    for (; p + 1 < n; p += 2) visit2<K, Q>(slab, p, p + 1, base, qv, top);
+    if (p < n) visit<K, Q>(slab, p, base, qv, top);
+  } else {
+    int p = c - m - 1;
+#pragma unroll 2
+    for (; p > 0; p -= 2) visit2<K, Q>(slab, p, p - 1, base, qv, top);
+    if (p == 0) visit<K, Q>(slab, 0, base, qv, top);
+  }
+}
+
+// The exact top-K of the thread's Q queries over ``win_len`` key positions
+// from ``start`` (keys of this cloud; the block's dynamic shared memory is
+// ``search_smem_bytes(win_len)``). ``tile_x`` is the tile's middle query x
+// (the ring's first chunk), ``warp_x`` the warp's (its scan's centre);
+// ``live`` is warp-uniform, and a warp that is not live stages and
+// synchronises with the block but scans nothing. Every thread of the
+// block must call this.
+template <int K, int Q>
+__device__ __forceinline__ void search_tile(float4* smem, const float4* __restrict__ keys,
+                                            int nk, int start, int win_len, float tile_x,
+                                            float warp_x, bool live, const float4 (&qv)[Q],
+                                            TopK<K> (&top)[Q]) {
+#pragma unroll
+  for (int j = 0; j < Q; ++j) top[j].init();
+  const int len = win_len <= STAGE_MAX ? win_len : RING;
+  const int n_chunks = (win_len + len - 1) / len;
+  // the ring starts at the last chunk whose first key lies at or left of
+  // the tile's middle x (the count of such chunks after the first)
+  int centre = 0;
+  for (int c0 = 1; c0 < n_chunks; c0 += blockDim.x) {
+    const int c = c0 + threadIdx.x;
+    const int p = start + c * len;
+    centre += __syncthreads_count(c < n_chunks && p < nk && __ldg(&keys[p].x) <= tile_x);
+  }
+  int first = centre_out(0, centre, n_chunks) * len;
+  stage_async(smem, keys, nk, start + first, min(len, win_len - first));
+  for (int s = 0; s < n_chunks; ++s) {
+    float4* slab = smem + (s & 1) * len;
+    const int n = min(len, win_len - first);
+    int next = 0;
+    if (s + 1 < n_chunks) {
+      next = centre_out(s + 1, centre, n_chunks) * len;
+      stage_async(smem + ((s + 1) & 1) * len, keys, nk, start + next, min(len, win_len - next));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    square_w(slab, nk, start + first, n);
+    __syncthreads();
+    if (live) scan_slab<K, Q>(slab, n, start + first, warp_x, qv, top);
+    __syncthreads();
+    first = next;
+  }
+}
+
+// This thread's Q query rows of the tile (``rows``, their queries ``qv``,
+// and ``use``: below nq and inside ``qmask`` when one is given), the x of
+// the tile's middle row and the warp's centre x (the mean x of its used
+// queries, the same in every lane).
+//
+// The tile's 256 rows are ranked by y, unused rows last, and the warp w
+// takes ranks [32 Q w, 32 Q (w + 1)), rank 32 Q w + lane + 32 j to query j
+// of a lane. A tile is x-sorted, so a warp's queries then lie in one band
+// of y as well as x: a key near none of them fails the filter of every
+// lane, and the warp seldom waits on an insertion that only a few of its
+// lanes make. Unused rows fill whole warps, which skip the scan. ``scratch``
+// needs 512 words and is free again when this returns.
+template <int Q>
+__device__ __forceinline__ void tile_queries(float4* scratch, const float4* __restrict__ qb,
+                                             const unsigned char* __restrict__ qmask, int nq,
+                                             int tile, int (&rows)[Q], float4 (&qv)[Q],
+                                             bool (&use)[Q], float& tile_x, float& warp_x) {
+  float* ys = reinterpret_cast<float*>(scratch);
+  int* order = reinterpret_cast<int*>(ys + TILE_Q);
+  const int row_base = tile * TILE_Q;
+  for (int i = threadIdx.x; i < TILE_Q; i += blockDim.x) {
+    const int r = row_base + i;
+    const float y = r < nq && (!qmask || qmask[r]) ? qb[r].y : INFINITY;
+    ys[i] = isnan(y) ? INFINITY : y;
+  }
+  __syncthreads();
+  // rank by (y, row): a permutation of the tile
+  for (int i = threadIdx.x; i < TILE_Q; i += blockDim.x) {
+    const float y = ys[i];
+    int rank = 0;
+#pragma unroll 8
+    for (int t = 0; t < TILE_Q; ++t) {
+      const float yt = ys[t];
+      rank += yt < y || (yt == y && t < i);
+    }
+    order[rank] = i;
+  }
+  __syncthreads();
+  const int first = (threadIdx.x >> 5) * 32 * Q + (threadIdx.x & 31);
+  float sx = 0.f, n = 0.f;
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    const int r = row_base + order[first + 32 * j];
+    rows[j] = r;
+    use[j] = r < nq && (!qmask || qmask[r]);
+    qv[j] = r < nq ? qb[r] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (use[j]) {
+      sx += qv[j].x;
+      n += 1.f;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sx += __shfl_xor_sync(0xffffffffu, sx, o);
+    n += __shfl_xor_sync(0xffffffffu, n, o);
+  }
+  tile_x = qb[min(row_base + TILE_Q / 2, nq - 1)].x;
+  warp_x = __shfl_sync(0xffffffffu, n > 0.f ? sx / n : tile_x, 0);
+  __syncthreads();  // the scratch is the window's staging buffer
+}
+
+// Let a K1/K3 instantiation take the largest block's shared memory, once
+// per device (``ready`` holds a bit per device, one word per kernel): the
+// attribute calls cost host time that a launch-sized search would pay on
+// every call.
+template <typename Kernel>
+inline cudaError_t allow_search_smem(Kernel* kernel, std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (ready.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(search_smem_bytes(STAGE_MAX)));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) ready.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace m3d

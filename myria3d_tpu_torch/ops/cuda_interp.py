@@ -15,7 +15,13 @@ from __future__ import annotations
 import torch
 
 from myria3d_tpu_torch import _ext
-from myria3d_tpu_torch.ops.cuda_knn import TILE_Q, _check, _windows, knn_topk_plain
+from myria3d_tpu_torch.ops.cuda_knn import (
+    TILE_Q,
+    _check,
+    _windows,
+    knn_topk_plain,
+    require_float4,
+)
 from myria3d_tpu_torch.ops.knn import VALID_THRESH
 
 
@@ -56,6 +62,7 @@ def knn_interp(x: torch.Tensor, q4: torch.Tensor, k4: torch.Tensor, k: int,
         qmask = query_mask.to(torch.uint8).contiguous()
         _ext.require_cuda("knn_interp", qmask)
     _ext.require_cuda("knn_interp", x, q4, k4)
+    require_float4("knn_interp", q4, k4)
     b, nq, _ = q4.shape
     nk, c = x.shape[1], x.shape[2]
     out = torch.empty((b, nq, c), dtype=torch.float32, device=q4.device)

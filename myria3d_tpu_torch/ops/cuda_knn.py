@@ -117,6 +117,13 @@ def _check(q4: torch.Tensor, k4: torch.Tensor, k: int) -> None:
         raise ValueError("queries and keys must be float32")
 
 
+def require_float4(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels read (..., 4) rows as 16-byte vectors (and stage keys
+    with 16-byte asynchronous copies): raise unless each row is aligned."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: (..., 4) tensors must be 16-byte aligned")
+
+
 def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
                    query_mask: torch.Tensor | None = None, variant: str = "vpu"):
     """Plain PyTorch version of K1: same windows, same exact selection
@@ -220,6 +227,7 @@ def knn_topk_mxu(q4: torch.Tensor, k4: torch.Tensor, k: int):
     ascending by the expanded score."""
     _check(q4, k4, k)
     _ext.require_cuda("knn_topk_mxu", q4, k4)
+    require_float4("knn_topk_mxu", q4, k4)
     b, nq, _ = q4.shape
     nk = k4.shape[1]
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=q4.device)
@@ -262,6 +270,7 @@ def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
         return knn_topk_mxu(q4, k4, k)
     _check(q4, k4, k)
     _ext.require_cuda("knn_topk", q4, k4)
+    require_float4("knn_topk", q4, k4)
     b, nq, _ = q4.shape
     nk = k4.shape[1]
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=q4.device)

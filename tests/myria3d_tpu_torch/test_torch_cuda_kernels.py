@@ -2,9 +2,14 @@
 card (skipped where there is no CUDA device; ``chip_smoke.py`` runs the
 same comparisons at the predict and train steps' full shapes).
 
-Tolerances: K1 shares the plain version's arithmetic order, so indices and
-d2 are equal; K2 sums in another order (1e-4 of the output's scale); K3
-divides the same f32 sums (1e-5); K4 sums the same f32 terms in another
+Run them on the card without the JAX side's fixtures (the card has no
+JAX): ``python -m pytest --noconftest tests/myria3d_tpu_torch/test_torch_cuda_kernels.py``.
+
+Tolerances: K1 shares the plain version's arithmetic order and its
+(d2, index) ranking, so indices and d2 are equal, whatever order its scan
+takes the keys in (ties, duplicate points, unsorted clouds); K2 sums in
+another order (1e-4 of the output's scale); K3 divides the same f32 sums
+(1e-5); K4 sums the same f32 terms in another
 order (1e-5); K5 and K6 are held to their plain versions in float64
 (K5 1e-5; K6 recomputes the forward and sums over every edge: 1e-4 on dx,
 1e-3 on the heavily cancelling d(att_w) and BN sums); K7 shares its plain
@@ -32,6 +37,15 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where there is none (also
+    defined here so that the file runs with ``--noconftest``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
 def _sorted_cloud(b, n, dev, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     p = torch.rand((b, n, 3), generator=g) * torch.tensor([50.0, 50.0, 10.0])
@@ -41,12 +55,58 @@ def _sorted_cloud(b, n, dev, seed=0):
     return p.to(dev), mask.to(dev)
 
 
-@pytest.mark.parametrize("k,window,nq,nk", [(16, 2048, 4096, 4096), (1, 2048, 8192, 4096),
-                                            (1, 0, 768, 192), (10, 0, 1000, 300)])
-def test_k1_matches_plain(cuda_device, k, window, nq, nk):
-    qp, qm = _sorted_cloud(2, nq, cuda_device, 1)
-    kp, km = _sorted_cloud(2, nk, cuda_device, 2)
+def _grid_cloud(rng, n):
+    """(2, n, 3) points on a quarter-metre grid (x, y in [-8, 8), z in
+    [-2, 2)), x-sorted: exact duplicates and many keys at equal distances,
+    every squared distance exact in f32."""
+    p = np.stack([rng.integers(-32, 32, (2, n)), rng.integers(-32, 32, (2, n)),
+                  rng.integers(-8, 8, (2, n))], axis=-1).astype(np.float32) / 4
+    p[:, n // 2:n // 2 + n // 8] = p[:, :n // 8]         # exact duplicate rows
+    return np.take_along_axis(p, np.argsort(p[..., :1], axis=1, kind="stable"), axis=1)
+
+
+def _clouds(kind, nq, nk, dev, seed):
+    """(q4, k4, query mask) in the kernels' layout. "sorted": x-sorted
+    uniform subtiles centred as the model centres them (the second cloud's
+    last fifth is padding); "unsorted": the same rows in random order (full
+    scans only); "grid": ``_grid_cloud`` queries and keys, the second
+    cloud's last tenth of keys pad keys (w = 1e4) and of queries masked."""
+    if kind == "grid":
+        rng = np.random.default_rng(seed)
+        q, kp = _grid_cloud(rng, nq), _grid_cloud(rng, nk)
+        w = np.zeros((2, nk, 1), np.float32)
+        w[1, nk - nk // 10:] = 1e4
+        qm = np.ones((2, nq), bool)
+        qm[1, nq - nq // 10:] = False
+        q4 = np.concatenate([q, np.zeros_like(q[..., :1])], axis=-1)
+        k4 = np.concatenate([kp, w], axis=-1)
+        return (torch.from_numpy(q4).to(dev), torch.from_numpy(k4).to(dev),
+                torch.from_numpy(qm).to(dev))
+    qp, qm = _sorted_cloud(2, nq, dev, seed)
+    kp, km = _sorted_cloud(2, nk, dev, seed + 1)
+    if kind == "unsorted":
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        qo, ko = torch.randperm(nq, generator=g).to(dev), torch.randperm(nk, generator=g).to(dev)
+        qp, qm, kp, km = qp[:, qo], qm[:, qo], kp[:, ko], km[:, ko]
     q4, k4 = centred_clouds(qp, kp, km)
+    return q4, k4, qm
+
+
+# the shipped cases; every k the tests name, with ties and nq % 256 != 0;
+# windows above the 5120-position shared-memory budget (the ring); full
+# scans up to nk = 40960, sorted, unsorted and with ties
+K1_CASES = ([(16, 2048, 4096, 4096, "sorted"), (1, 2048, 8192, 4096, "sorted"),
+             (1, 0, 768, 192, "sorted"), (10, 0, 1000, 300, "sorted")]
+            + [(k, 2048, 1000, 4096, "grid") for k in (1, 2, 10, 16, 17, 32)]
+            + [(16, 6144, 3000, 16384, "sorted"), (1, 6144, 3000, 16384, "grid"),
+               (17, 6144, 1000, 16384, "grid")]
+            + [(16, 0, 2000, 40960, "sorted"), (32, 0, 1000, 40960, "grid"),
+               (16, 0, 1500, 12288, "unsorted"), (10, 0, 700, 3000, "unsorted")])
+
+
+@pytest.mark.parametrize("k,window,nq,nk,kind", K1_CASES)
+def test_k1_matches_plain(cuda_device, k, window, nq, nk, kind):
+    q4, k4, qm = _clouds(kind, nq, nk, cuda_device, 1)
     before = knn_topk.launches
     idx, d2 = knn_topk(q4, k4, k, window=window, query_mask=qm)
     assert knn_topk.launches == before + 1
@@ -85,13 +145,41 @@ def test_k2_matches_plain(cuda_device, c_in):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-def test_k3_matches_plain(cuda_device):
-    kp, km = _sorted_cloud(2, 3072, cuda_device, 4)
-    qp, qm = _sorted_cloud(2, 8192, cuda_device, 5)
-    q4, k4 = centred_clouds(qp, kp, km)
-    x = torch.randn((2, 3072, 7), device=cuda_device) * 3
-    got = knn_interp(x, q4, k4, 10, window=2048, query_mask=qm)
-    want = knn_interp_plain(x, q4, k4, 10, window=2048, query_mask=qm)
+def test_searches_reject_misaligned_rows(cuda_device):
+    """K1, K3 and K7 read (..., 4) rows as 16-byte vectors: a view that
+    starts one float into its storage is refused, not read unaligned."""
+    q4, k4, qm = _clouds("sorted", 512, 512, cuda_device, 2)
+    bad = torch.empty(q4.numel() + 1, device=cuda_device)[1:].view(q4.shape).copy_(q4)
+    x = torch.zeros((2, 512, 7), device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        knn_topk(bad, k4, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        knn_topk(q4, bad, 16, variant="mxu")
+    with pytest.raises(ValueError, match="aligned"):
+        knn_interp(x, bad, k4, 10, query_mask=qm)
+
+
+# the shipped case; the full scan; ties; a window above the shared-memory
+# budget; another k (the generic list); an unsorted full scan; whole warps
+# (64 query rows) outside the query mask
+K3_CASES = [(10, 2048, 8192, 3072, "sorted", False), (10, 0, 8192, 3072, "sorted", False),
+            (10, 2048, 1000, 4096, "grid", False), (10, 6144, 3000, 16384, "sorted", False),
+            (3, 2048, 1000, 4096, "grid", False), (10, 0, 1500, 12288, "unsorted", False),
+            (10, 2048, 8192, 3072, "sorted", True)]
+
+
+@pytest.mark.parametrize("k,window,nq,nk,kind,masked_warps", K3_CASES)
+def test_k3_matches_plain(cuda_device, k, window, nq, nk, kind, masked_warps):
+    q4, k4, qm = _clouds(kind, nq, nk, cuda_device, 4)
+    if masked_warps:
+        qm[0, nq // 3:] = False
+        qm[1, 1000:1500:3] = False
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    x = torch.randn((2, nk, 7), generator=g, device=cuda_device) * 3
+    before = knn_interp.launches
+    got = knn_interp(x, q4, k4, k, window=window, query_mask=qm)
+    assert knn_interp.launches == before + 1
+    want = knn_interp_plain(x, q4, k4, k, window=window, query_mask=qm)
     torch.cuda.synchronize()
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     assert (got[~qm] == 0).all()
