@@ -11,7 +11,9 @@ PyTorch built for CUDA. Phases, one line each:
 2. the kernels built from ``myria3d_tpu_torch/csrc`` (nvcc, sm_90a), and
    each kernel's registers, stack frame and spill bytes (``cuobjdump
    --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3
-   instantiation must have neither a stack frame nor spills;
+   instantiation and every width's K2/K6 instantiation must have neither a
+   stack frame, local memory nor spills; K2's and K6's dynamic shared
+   memory and blocks per SM at each width;
 3. each kernel against its plain PyTorch version at the predict step's
    stage shapes (B=48 subtiles, N=12288 sampled, M=32768 full points):
    K1 (kNN) bit-equal on indices and d2, K2 (fused LFA) within 1e-4 and K3
@@ -65,8 +67,12 @@ the bytes its call must move (inputs read once, outputs written once) over
 3.35 TB/s and its FP32 instructions over 33.5 T/s (the H100 SXM's 67
 TFLOP/s FP32 counting an FMA as two), with the instructions counted from
 this run's data (valid queries or points, the keys each window scans).
-K4's carries ``library_ms``, the time of ``index_add_`` of the cotangent
-rows. Then one JSON line with the kernels and, last, the device JSON line.
+K2's and K6's also carry ``tc_bound_ms``, with their attention products
+(the FMAs of one pass) at the dense TF32 tensor-core rate of 495 TFLOP/s
+and the rest at the FP32 rate; it is the bound they are held to in the
+kernels line, as they run those products on the tensor cores. K4's
+carries ``library_ms``, the time of ``index_add_`` of the cotangent rows.
+Then one JSON line with the kernels and, last, the device JSON line.
 Any failure, a missing CUDA device, or a module of JAX or of the JAX
 package loaded during the run exits nonzero without a result.
 """
@@ -96,10 +102,12 @@ TOL = {"K2": 1e-4, "K3": 1e-5, "K4": 1e-5, "K5": 1e-5, "K6": 1e-4, "K6sum": 1e-3
        "var": 1e-4}
 TRAIN_N = 12_288                             # bench.py --train
 FIT_STEPS = 20
+TRAIN_REPS = 10                              # phase 8's steps per turn
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and FP32 instructions/s
 # (67 TFLOP/s with an FMA counted as two flops)
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
+TF32_FMA_PER_S = 495e12 / 2                  # dense TF32 tensor cores, FMA as two flops
 PAIR_INSTR = 8                               # per (query, key) pair of a search
 
 
@@ -121,6 +129,21 @@ def bound(instr: float, n_bytes: float):
     and ``n_bytes`` of device memory traffic on the H100 SXM."""
     t_ops, t_bytes = instr / FP32_INSTR_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tc_bound(fmas: float, instr: float, n_bytes: float):
+    """(bound_ms, bound_by) of a kernel whose ``fmas`` product FMAs may run
+    on the TF32 tensor cores (one pass) and whose other ``instr`` FP32
+    instructions run on the CUDA cores, against ``n_bytes`` of traffic."""
+    return bound(instr + fmas * FP32_INSTR_PER_S / TF32_FMA_PER_S, n_bytes)
+
+
+def bounds_text(bnd, cuda_bnd=None) -> str:
+    """A kernel line's bounds: ``bound_ms``, or for a tensor-core kernel the
+    FP32 ``bound_ms`` (``cuda_bnd``) beside the ``tc_bound_ms`` it is held to."""
+    if cuda_bnd is None:
+        return f"bound_ms {bnd[0]:.4f} ({bnd[1]})"
+    return f"bound_ms {cuda_bnd[0]:.4f} ({cuda_bnd[1]}), tc_bound_ms {bnd[0]:.4f} ({bnd[1]})"
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -218,8 +241,11 @@ def phase_device():
     return smi
 
 
-# K1 and K3 kernels (topk.cuh's search): no stack frame, no spills
-SEARCH_KERNELS = ("knn_topk_kernel<", "knn_interp_kernel<")
+# kernels that must have no stack frame, local memory or spills, and how
+# many instantiations each family has: K1/K3 (topk.cuh's search), K2 and K6
+# (lfa_tile.cuh's edge tile, one per width)
+CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "lfa_kernel<": 6,
+                 "lfa_bwd_kernel<": 6}
 
 
 def phase_build():
@@ -234,11 +260,22 @@ def phase_build():
         print(f"phase 2 resources {name}: {u.get('reg')} registers, stack frame {u.get('stack')} B, "
               f"local {u.get('local')} B, spill stores {u.get('spill_stores')} B, "
               f"spill loads {u.get('spill_loads')} B")
-    search = {n: u for n, u in usage.items() if n.startswith(SEARCH_KERNELS)}
-    need(len(search) == 5, f"expected 5 K1/K3 instantiations, found {sorted(search)}")
-    bad = [n for n, u in search.items()
+    for family, count in CLEAN_KERNELS.items():
+        found = sorted(n for n in usage if n.startswith(family))
+        need(len(found) == count, f"expected {count} {family}...> instantiations, found {found}")
+    clean = {n: u for n, u in usage.items() if n.startswith(tuple(CLEAN_KERNELS))}
+    bad = [n for n, u in clean.items()
            if any(u.get(key) != 0 for key in ("stack", "local", "spill_stores", "spill_loads"))]
-    need(not bad, f"K1/K3 instantiations with a stack frame or spills: {bad}")
+    need(not bad, f"K1/K2/K3/K6 instantiations with a stack frame, local memory or spills: {bad}")
+    from myria3d_tpu_torch.ops.cuda_lfa import WIDTHS, launch_info
+    from myria3d_tpu_torch.ops.cuda_lfa_train import bwd_launch_info
+
+    for name, info_of in (("K2", launch_info), ("K6", bwd_launch_info)):
+        for c in WIDTHS:
+            info = info_of(c)
+            print(f"phase 2 {name} C={c}: {info['points_per_tile']} points a tile, "
+                  f"{info['bands']} d(att_w) band(s), dynamic shared memory "
+                  f"{info['smem_bytes']} B, {info['blocks_per_sm']} block(s) per SM")
 
 
 def check_k1(idx_k, d2_k, idx_p, d2_p, what: str) -> float:
@@ -279,11 +316,11 @@ def phase_kernels(model, dev):
 
     stats = {"K1": [], "K2": [], "K3": []}
 
-    def record(name, label, err, fn_k, fn_p, bnd, reps_p=2):
+    def record(name, label, err, fn_k, fn_p, bnd, reps_p=2, cuda_bnd=None):
         ms, plain_ms = cuda_ms(fn_k, 5), cuda_ms(fn_p, reps_p)
         stats[name].append((err, ms, plain_ms, bnd, None))
         print(f"phase 3 {name} {label}: max_abs_err {err:.3g}, {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound_ms {bnd[0]:.4f} ({bnd[1]})")
+              + bounds_text(bnd, cuda_bnd))
 
     k1_cases = [("K=16 self 12288", stages[0], stages[0], 16),
                 ("K=16 self 3072", stages[1], stages[1], 16),
@@ -316,12 +353,17 @@ def phase_kernels(model, dev):
                                 TOL["K2"], f"K2 ({c_in},{2 * c_in})")
                 # per valid point and slot: the attention product (C^2), the
                 # encoder (10 per encoder channel) and the masked softmax
-                # and pooling (~4 per channel), C = 2 c_in
+                # and pooling (~4 per channel), C = 2 c_in; the product on
+                # the CUDA cores (bound_ms) or the TF32 tensor cores
+                # (tc_bound_ms, which the kernel is held to)
                 c = 2 * c_in
-                bnd = bound(float(m.sum()) * 16 * (c * c + 10 * c_in + 4 * c),
-                            nbytes(*args, got))
+                slots = float(m.sum()) * 16
+                n_bytes = nbytes(*args, got)
+                cuda_bnd = bound(slots * (c * c + 10 * c_in + 4 * c), n_bytes)
+                bnd = tc_bound(slots * c * c, slots * (10 * c_in + 4 * c), n_bytes)
                 record("K2", f"({c_in},{2 * c_in}) N={p.shape[1]}", err,
-                       lambda: lfa_attention(*args), lambda: lfa_attention_plain(*args), bnd)
+                       lambda: lfa_attention(*args), lambda: lfa_attention_plain(*args), bnd,
+                       cuda_bnd=cuda_bnd)
 
     logits = torch.randn((B, N, 7), generator=gen, device=dev) * 3
     q4, k4 = centred_clouds(full_pos, pos, mask)
@@ -418,8 +460,15 @@ def phase_step(model, dev):
     counters = launch_counters()
     start = {n: fn.launches for n, fn in counters.items()}
     ms, out_k = wall_ms(5)
+    # the host's share: enqueueing steps without waiting for the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    torch.cuda.synchronize()
     before = {n: fn.launches for n, fn in counters.items()}
-    per_step = {n: (before[n] - start[n]) / 6 for n in counters if before[n] > start[n]}
+    per_step = {n: (before[n] - start[n]) / 9 for n in counters if before[n] > start[n]}
     with plain_versions():
         plain_ms, out_p = wall_ms(2)
     need(before == {n: fn.launches for n, fn in counters.items()}, "plain path launched a kernel")
@@ -430,7 +479,8 @@ def phase_step(model, dev):
     mpts = B * RAW / ms / 1e3
     print(f"phase 5 predict step B={B} N={N} M={M}: kernels {ms:.1f} ms/batch "
           f"({mpts:.3f} Mpts/s), plain {plain_ms:.1f} ms/batch ({B * RAW / plain_ms / 1e3:.3f} Mpts/s), "
-          f"argmax agreement {agree:.6f}, launches per step {per_step}")
+          f"argmax agreement {agree:.6f}, launches per step {per_step}; host enqueue "
+          f"{host_ms:.1f} ms/step")
     print(f"phase 5 profile: {profile_steps(step)}")
 
 
@@ -538,12 +588,12 @@ def phase_train_kernels(dev):
 
     stats = {"K4": [], "K5": [], "K6": []}
 
-    def record(name, label, err, fn_k, fn_p, bnd, reps=5, reps_p=2, fn_lib=None):
+    def record(name, label, err, fn_k, fn_p, bnd, reps=5, reps_p=2, fn_lib=None, cuda_bnd=None):
         ms, plain_ms = cuda_ms(fn_k, reps), cuda_ms(fn_p, reps_p)
         lib_ms = cuda_ms(fn_lib, reps) if fn_lib is not None else None
         stats[name].append((err, ms, plain_ms, bnd, lib_ms))
         print(f"phase 6 {name} {label}: max_abs_err {err:.3g}, {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound_ms {bnd[0]:.4f} ({bnd[1]})"
+              + bounds_text(bnd, cuda_bnd)
               + (f", library_ms {lib_ms:.3f} (index_add_)" if lib_ms is not None else ""))
 
     def rnd(*shape, scale=1.0):
@@ -593,13 +643,19 @@ def phase_train_kernels(dev):
                     zip(got, want, (TOL["K6"], TOL["K6sum"], TOL["K6sum"]), ("dx", "d_att_w", "sums"))]
             # per valid point and slot: the forward's attention product, its
             # transpose and d(att_w) (3 C^2, C = 2 c_in), plus the encoder,
-            # softmax and BN-sum terms (~40 per channel)
+            # softmax and BN-sum terms (~40 per channel); the products on
+            # the CUDA cores (bound_ms) or the TF32 tensor cores
+            # (tc_bound_ms, which the kernel is held to)
             c = 2 * c_in
-            bnd = bound(float(m.sum()) * 16 * (3 * c * c + 40 * c), nbytes(*args, *got))
+            slots = float(m.sum()) * 16
+            n_bytes = nbytes(*args, *got)
+            cuda_bnd = bound(slots * (3 * c * c + 40 * c), n_bytes)
+            bnd = tc_bound(slots * 3 * c * c, slots * 40 * c, n_bytes)
             record("K6", f"C_in={c_in} N={n} (dx/d_att_w/sums errs "
-                   + "/".join(f"{e:.3g}" for e in errs) + ")", errs[0],
+                   + "/".join(f"{e:.3g}" for e in errs) + " of scales "
+                   + "/".join(f"{float(b.abs().max()):.3g}" for b in want) + ")", errs[0],
                    lambda: lfa_train_bwd(*args[:4], inv, *args[4:]),
-                   lambda: lfa_train_bwd_plain(*args), bnd, reps_p=1)
+                   lambda: lfa_train_bwd_plain(*args), bnd, reps_p=1, cuda_bnd=cuda_bnd)
     return stats
 
 
@@ -779,7 +835,7 @@ def phase_train_step(dev):
         mem = {}
         launches = {}
         for fused in (True, False, False, True):
-            dt, mem[fused] = timed(models[fused], batch, 5)
+            dt, mem[fused] = timed(models[fused], batch, TRAIN_REPS)
             ms[fused].append(dt)
             launches[fused] = dict(per_step)
         c = cos(grad[True], grad[False])

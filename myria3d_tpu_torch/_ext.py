@@ -44,11 +44,13 @@ _SIGNATURES = {
     "m3d_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "m3d_knn_topk_mxu": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "m3d_knn_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "m3d_lfa": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "m3d_lfa": [_P] * 6 + [_I] * 4 + [_P, _P],
+    "m3d_lfa_info": [_I, _P],
     "m3d_gather_bwd": [_P, _P, _P, _I, _I, _P, _P],
     "m3d_relstats": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "m3d_reduce_chunks": [_P, _I, _I, _I, _P, _P],
-    "m3d_lfa_bwd": [_P] * 11 + [_I] * 7 + [_P, _P, _P, _P],
+    "m3d_reduce_chunks": [_P, _I, _I, _I, _I, _P, _P],
+    "m3d_lfa_bwd": [_P] * 9 + [_I] * 5 + [_P] * 4,
+    "m3d_lfa_bwd_info": [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -183,6 +185,14 @@ def stream_of(t: torch.Tensor) -> int:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def aligned(t: torch.Tensor, nbytes: int = 16) -> torch.Tensor:
+    """``t`` contiguous with its data at an ``nbytes`` boundary (a copy if
+    it is a view that starts elsewhere), for kernels that read it in
+    vectors of that size."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

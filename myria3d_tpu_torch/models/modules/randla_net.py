@@ -44,9 +44,11 @@ from myria3d_tpu_torch.ops.masked import masked_softmax
 from myria3d_tpu_torch.ops.sampling import random_decimation
 
 # ``fused_train_lfa: "auto"`` takes the fused train LFA from this batch size
-# up: the smallest batch at which it trained faster than the unfused route
-# on an H100 (``chip_smoke.py`` phase 8, PERF.md)
-FUSED_TRAIN_MIN_BATCH = 32
+# up: the smallest batch at which it trained faster than the unfused route in
+# every timed turn on an H100 (``chip_smoke.py`` phase 8, PERF.md), on a
+# quarter of the unfused route's peak memory. Below it both routes are paced
+# by the host's launches and their order changes from turn to turn.
+FUSED_TRAIN_MIN_BATCH = 16
 
 
 def use_fused_train_lfa(setting, batch: int) -> bool:

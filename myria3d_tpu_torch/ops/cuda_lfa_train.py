@@ -33,17 +33,14 @@ import torch.nn.functional as F
 from myria3d_tpu_torch import _ext
 from myria3d_tpu_torch.models.modules.nn import BN_EPS, LRELU_SLOPE
 from myria3d_tpu_torch.ops.cuda_gather import InverseMap, _launch_scatter, gather_bwd_plain, inverse_map
-from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention
+from myria3d_tpu_torch.ops.cuda_lfa import WIDTHS, idx_with_invalid, lfa_attention, read_launch_info
 from myria3d_tpu_torch.ops.knn import gather_rows
 from myria3d_tpu_torch.ops.masked import masked_softmax
 
 MAX_K = 16
-MAX_C = 256
 N_SUMS = 14          # dgamma, dbeta, S1, S2, M1[10] per encoder channel
 _TRIU = torch.triu_indices(11, 11)   # K5's 66 products, row-major
 _RS_CHUNK_SLOTS = 4096                # slots a K5 block sums
-_BW_OWN = 64                          # d(att_w) entries a K6 thread holds
-_BW_PART_FLOATS = 1 << 22             # cap on K6's d(att_w) partials
 
 
 def locse(pos: torch.Tensor, pos_j: torch.Tensor) -> torch.Tensor:
@@ -62,12 +59,14 @@ def _check(name, pos, idx, *floats):
 
 
 def _reduce_chunks(part: torch.Tensor) -> torch.Tensor:
-    """``part (rows, n_chunks, E)`` summed over chunks in order: ``(rows, E)``."""
+    """``part (rows, n_chunks, E)`` (float32 or float64) summed over chunks in
+    order, in float64: ``(rows, E)`` float32."""
     rows, n_chunks, e = part.shape
     out = torch.empty((rows, e), dtype=torch.float32, device=part.device)
     with torch.cuda.device(part.device):
-        code = _ext.lib().m3d_reduce_chunks(part.data_ptr(), rows, n_chunks, e,
-                                            out.data_ptr(), _ext.stream_of(part))
+        code = _ext.lib().m3d_reduce_chunks(part.data_ptr(), int(part.dtype == torch.float64),
+                                            rows, n_chunks, e, out.data_ptr(),
+                                            _ext.stream_of(part))
     _ext.check(code, "m3d_reduce_chunks")
     return out
 
@@ -164,6 +163,13 @@ def lfa_train_bwd_plain(x, pos, idx, neigh_valid, a_hat, c_hat, gamma, beta, att
     return dx, d_att_w, torch.cat([sums, m1], dim=1)
 
 
+def bwd_launch_info(c: int) -> dict:
+    """K6's launch resources at width ``c`` on the current CUDA device, as
+    :func:`ops.cuda_lfa.launch_info` reads K2's (read once per device on
+    the C side)."""
+    return read_launch_info(_ext.lib().m3d_lfa_bwd_info, c)
+
+
 def lfa_train_bwd(x, pos, idx, neigh_valid, inv: InverseMap | None, a_hat, c_hat, gamma,
                   beta, att_w, gout):
     """K6: the fused LFA backward, see :func:`lfa_train_bwd_plain` for the
@@ -179,30 +185,30 @@ def lfa_train_bwd(x, pos, idx, neigh_valid, inv: InverseMap | None, a_hat, c_hat
     b, n, c_in = x.shape
     k = idx.shape[-1]
     c = 2 * c_in
-    if not (c <= MAX_C and MAX_C % c == 0):
-        raise ValueError(f"lfa_train_bwd: needs 2*C_in dividing {MAX_C}")
+    if c not in WIDTHS:
+        raise ValueError(f"lfa_train_bwd: needs 2*C_in in {WIDTHS}")
     _check("lfa_train_bwd", pos, idx, x, a_hat, c_hat, gamma, beta, att_w, gout)
     if inv is None:
         raise ValueError("lfa_train_bwd: CUDA tensors need the inverse map")
-    args = [t.contiguous() for t in (x, pos)] + [
-        idx.to(torch.int32).contiguous(), neigh_valid.to(torch.uint8).contiguous()] + [
-        t.contiguous() for t in (a_hat, c_hat, gamma, beta, att_w, att_w.T, gout)]
+    args = [_ext.aligned(x), pos.contiguous(), idx_with_invalid(idx, neigh_valid)] + [
+        t.contiguous() for t in (a_hat, c_hat, gamma, beta)] + [
+        _ext.aligned(att_w), gout.contiguous()]
     _ext.require_cuda("lfa_train_bwd", *args)
     dev = x.device
     dx = torch.zeros((b, n, c_in), dtype=torch.float32, device=dev)
     if b * n == 0:
         return dx, torch.zeros((c, c), device=dev), torch.zeros((c_in, N_SUMS), device=dev)
-    n_groups = -(-b * n // (256 // c))
-    cap = min(1024, max(64, _BW_PART_FLOATS // (c * c)))
-    per_chunk = -(-n_groups // min(n_groups, cap))
-    n_chunks = -(-n_groups // per_chunk)
-    bands = max(1, c * c // (256 * _BW_OWN))
-    dxj = torch.empty((b, n, k, c_in), dtype=torch.float32, device=dev)
-    dw_part = torch.empty((1, n_chunks, c * c), dtype=torch.float32, device=dev)
-    sc_part = torch.empty((1, n_chunks, c_in * N_SUMS), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        info = bwd_launch_info(c)
+        # one chunk of tiles per resident block (blocks per SM x SMs), each
+        # band of d(att_w) columns over the same chunks
+        tiles = -(-b * n // info["points_per_tile"])
+        n_chunks = max(1, min(tiles, info["blocks_per_sm"] * info["sms"]))
+        dxj = torch.empty((b, n, k, c_in), dtype=torch.float32, device=dev)
+        dw_part = torch.empty((1, n_chunks, c * c), dtype=torch.float32, device=dev)
+        sc_part = torch.empty((1, n_chunks, c_in * N_SUMS), dtype=torch.float64, device=dev)
         code = _ext.lib().m3d_lfa_bwd(
-            *(t.data_ptr() for t in args), b, n, k, c_in, n_chunks, per_chunk, bands,
+            *(t.data_ptr() for t in args), b, n, k, c_in, n_chunks,
             dxj.data_ptr(), dw_part.data_ptr(), sc_part.data_ptr(), _ext.stream_of(x),
         )
     _ext.check(code, "m3d_lfa_bwd")

@@ -12,7 +12,9 @@ another order (1e-4 of the output's scale); K3 divides the same f32 sums
 (1e-5); K4 sums the same f32 terms in another
 order (1e-5); K5 and K6 are held to their plain versions in float64
 (K5 1e-5; K6 recomputes the forward and sums over every edge: 1e-4 on dx,
-1e-3 on the heavily cancelling d(att_w) and BN sums); K7 shares its plain
+1e-3 on the heavily cancelling d(att_w) and BN sums). K2 and K6 run their
+attention products in 3xTF32, which keeps them at f32 grade
+(``test_torch_lfa_tf32.py``), at every width the model uses. K7 shares its plain
 version's association and ranking, so indices and d2 are equal.
 """
 
@@ -130,19 +132,45 @@ def test_k7_matches_plain(cuda_device, k, nq, nk):
     assert torch.equal(d2, pd2)
 
 
-@pytest.mark.parametrize("c_in", [4, 32, 128])
-def test_k2_matches_plain(cuda_device, c_in):
-    pos, mask = _sorted_cloud(2, 3072, cuda_device, 3)
-    idx, _, nv = knn_graph(pos, mask, 16, window=2048)
-    g = torch.Generator(device=cuda_device).manual_seed(c_in)
-    x = torch.rand((2, 3072, c_in), generator=g, device=cuda_device) * 2 - 1
-    enc_a = torch.randn((c_in, 10), generator=g, device=cuda_device) * 0.3
-    enc_c = torch.randn((c_in,), generator=g, device=cuda_device) * 0.3
-    att_w = torch.randn((2 * c_in, 2 * c_in), generator=g, device=cuda_device) / (2 * c_in) ** 0.5
-    args = (x, pos, idx, nv, enc_a, enc_c, att_w)
+# (C_in, K, seed, N): every width the model uses, K = 8 and 16, more draws
+# at C_in = 16, and clouds whose points end inside a kernel tile
+LFA_CASES = ([(c_in, k, 0, 3072) for c_in in (4, 8, 16, 32, 64, 128) for k in (8, 16)]
+             + [(16, 16, seed, 3072) for seed in (1, 2, 3)]
+             + [(c_in, 16, 0, 3001) for c_in in (4, 128)])
+
+
+def _lfa_graph(dev, k, seed, n):
+    """A (2, n) graph of K neighbours whose second cloud ends in padding,
+    with some slots of every seventh point and every slot of 64 points
+    marked invalid."""
+    pos, mask = _sorted_cloud(2, n, dev, 3 + seed)
+    idx, _, nv = knn_graph(pos, mask, k, window=2048)
+    nv = nv.clone()
+    nv[:, ::7, k // 2:] = False
+    nv[0, 100:164] = False
+    return pos, mask, idx, nv
+
+
+def k2_args(dev, c_in, k, seed, n):
+    """The inputs of a K2 case: (x, pos, idx, nv, enc_a, enc_c, att_w)."""
+    pos, mask, idx, nv = _lfa_graph(dev, k, seed, n)
+    g = torch.Generator(device=dev).manual_seed(100 * c_in + seed)
+    x = torch.rand((2, n, c_in), generator=g, device=dev) * 2 - 1
+    enc_a = torch.randn((c_in, 10), generator=g, device=dev) * 0.3
+    enc_c = torch.randn((c_in,), generator=g, device=dev) * 0.3
+    att_w = torch.randn((2 * c_in, 2 * c_in), generator=g, device=dev) / (2 * c_in) ** 0.5
+    return x, pos, idx, nv, enc_a, enc_c, att_w
+
+
+@pytest.mark.parametrize("c_in,k,seed,n", LFA_CASES)
+def test_k2_matches_plain(cuda_device, c_in, k, seed, n):
+    args = k2_args(cuda_device, c_in, k, seed, n)
+    before = lfa_attention.launches
     got, want = lfa_attention(*args), lfa_attention_plain(*args)
     torch.cuda.synchronize()
+    assert lfa_attention.launches == before + 1
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (got[0, 100:164] == 0).all()
 
 
 def test_searches_reject_misaligned_rows(cuda_device):
@@ -239,30 +267,41 @@ def test_k5_matches_plain(cuda_device):
     assert torch.equal(got, got.transpose(1, 2))
 
 
-@pytest.mark.parametrize("c_in", [4, 32, 128])
-def test_k6_matches_plain(cuda_device, c_in):
-    """Against the plain version in float64: dx within 1e-4 of scale;
-    d(att_w) and the BN sums within 1e-3, as they cancel heavily (sums over
-    ~1e5 edges of terms up to ~1e3 times their total)."""
-    pos, mask, idx, nv = _graph(2, 3072, 16, cuda_device, 10)
-    g = torch.Generator(device=cuda_device).manual_seed(c_in)
+def k6_args(dev, c_in, k, seed, n):
+    """The inputs of a K6 case: (x, pos, idx, nv, a_hat, c_hat, gamma, beta,
+    att_w, gout)."""
+    pos, mask, idx, nv = _lfa_graph(dev, k, seed, n)
+    g = torch.Generator(device=dev).manual_seed(100 * c_in + seed)
 
     def rnd(*shape, scale=1.0):
-        return torch.randn(shape, generator=g, device=cuda_device) * scale
+        return torch.randn(shape, generator=g, device=dev) * scale
 
-    x = rnd(2, 3072, c_in)
+    x = rnd(2, n, c_in)
     a_hat, c_hat = rnd(c_in, 10, scale=0.3), rnd(c_in, scale=0.3)
     gamma, beta = 1.0 + rnd(c_in, scale=0.2), rnd(c_in, scale=0.2)
     att_w = rnd(2 * c_in, 2 * c_in, scale=(2 * c_in) ** -0.5)
-    gout = rnd(2, 3072, 2 * c_in)
-    args = (x, pos, idx, nv, a_hat, c_hat, gamma, beta, att_w, gout)
+    gout = rnd(2, n, 2 * c_in)
+    return x, pos, idx, nv, a_hat, c_hat, gamma, beta, att_w, gout
+
+
+@pytest.mark.parametrize("c_in,k,seed,n", LFA_CASES)
+def test_k6_matches_plain(cuda_device, c_in, k, seed, n):
+    """Against the plain version in float64: dx within 1e-4 of scale;
+    d(att_w) and the BN sums within 1e-3, as they cancel heavily (sums over
+    ~1e5 edges of terms up to ~1e3 times their total); bit-equal on a
+    second call."""
+    args = k6_args(cuda_device, c_in, k, seed, n)
+    idx, nv = args[2], args[3]
+    inv = inverse_map(idx, nv, n)
     before = lfa_train_bwd.launches
-    got = lfa_train_bwd(*args[:4], inverse_map(idx, nv, 3072), *args[4:])
+    got = lfa_train_bwd(*args[:4], inv, *args[4:])
+    again = lfa_train_bwd(*args[:4], inv, *args[4:])
     want = lfa_train_bwd_plain(*(a.double() if a.is_floating_point() else a for a in args))
     torch.cuda.synchronize()
-    assert lfa_train_bwd.launches == before + 1
+    assert lfa_train_bwd.launches == before + 2
     for a, b, tol in zip(got, want, (1e-4, 1e-3, 1e-3)):
         assert (a - b).abs().max() <= tol * b.abs().max()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
 
 
 @pytest.mark.parametrize("fused", [False, True])

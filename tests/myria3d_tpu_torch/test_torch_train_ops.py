@@ -27,6 +27,7 @@ from myria3d_tpu_torch.models import optimizers as port_opt
 from myria3d_tpu_torch.models.criterion import CrossEntropyLoss
 from myria3d_tpu_torch.models.model import build_net
 from myria3d_tpu_torch.models.modules.nn import MaskedBatchNorm
+from myria3d_tpu_torch.models.modules.randla_net import FUSED_TRAIN_MIN_BATCH, use_fused_train_lfa
 from myria3d_tpu_torch.ops.cuda_gather import gather_bwd_plain, gather_neighbors
 from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train, rel_stats_plain
 from myria3d_tpu_torch.ops.knn import knn_graph
@@ -327,3 +328,17 @@ def test_dropout_draws_from_the_generator():
     assert 0.4 < zeros < 0.6
     mlp.eval()
     assert torch.equal(mlp(x), mlp(x, None, torch.Generator().manual_seed(3)))
+
+
+@pytest.mark.parametrize("setting,batch,fused", [
+    ("auto", FUSED_TRAIN_MIN_BATCH - 1, False), ("auto", FUSED_TRAIN_MIN_BATCH, True),
+    ("auto", 2 * FUSED_TRAIN_MIN_BATCH, True), (True, 1, True), (False, 64, False)])
+def test_train_lfa_routing(setting, batch, fused):
+    """``fused_train_lfa: auto`` goes fused from FUSED_TRAIN_MIN_BATCH (placed
+    by the card's train-step turns); a bool forces a route."""
+    assert use_fused_train_lfa(setting, batch) is fused
+
+
+def test_train_lfa_routing_rejects_other_settings():
+    with pytest.raises(ValueError, match="fused_train_lfa"):
+        use_fused_train_lfa("yes", 16)
