@@ -11,9 +11,10 @@ PyTorch built for CUDA. Phases, one line each:
 2. the kernels built from ``myria3d_tpu_torch/csrc`` (nvcc, sm_90a), and
    each kernel's registers, stack frame and spill bytes (``cuobjdump
    --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3
-   instantiation and every width's K2/K6 instantiation must have neither a
-   stack frame, local memory nor spills; K2's and K6's dynamic shared
-   memory and blocks per SM at each width;
+   instantiation, every width's K2/K6 instantiation, every K4
+   instantiation and K5 must have neither a stack frame, local memory nor
+   spills; K2's and K6's dynamic shared memory and blocks per SM at each
+   width;
 3. each kernel against its plain PyTorch version at the predict step's
    stage shapes (B=48 subtiles, N=12288 sampled, M=32768 full points):
    K1 (kNN) bit-equal on indices and d2, K2 (fused LFA) within 1e-4 and K3
@@ -30,22 +31,29 @@ PyTorch built for CUDA. Phases, one line each:
 6. the train kernels against their plain versions at the train step's
    stage shapes (B=16, N=12288 -> 3072 -> 768 -> 192, K=16, window 4608
    density-scaled per stage): K1 bit-equal on indices and d2 at the four
-   self-kNN graphs and the four decoder searches, each timed; K4 (gather
-   VJP) within 1e-5 of scale, K5 (rel
-   statistics) within 1e-5 of its float64 plain version, with the variance
-   it implies within 1e-4 of the unfused route's two-pass masked variance,
+   self-kNN graphs and the four decoder searches, each timed; K4's inverse
+   map equal to the plain version's (offsets, and perm over every range),
+   both timed; K4 (gather VJP) within 1e-5 of scale and bit-equal on a
+   second call, at the unfused route's eight gather widths and at the
+   widths of K6's eight dx scatters, with the sums per train step; K5 (rel
+   statistics) within 1e-5 of its float64 plain version, bit-equal on a
+   second call, at most two launches and no copy a call, returning while
+   the stream is still busy (no host synchronisation), with the variance
+   it implies within 1e-4 of the unfused route's two-pass masked variance;
    K6 (fused LFA backward) within 1e-4 (dx) and 1e-3 (d(att_w), BN sums)
    of its float64 plain version;
 7. the train path: the port's ``Trainer.fit`` on toy-tile subtiles
    (``overfit_batches: 1``, 20 steps) at a batch under each
    ``fused_train_lfa: auto`` route; finite losses whose last five average
-   below the first five, K4 (unfused) and K5/K6 (fused) launched, and the
+   below the first five, K4 (both routes) and K5/K6 (fused) launched, and the
    port's ``predict()`` run with the checkpoint the fit wrote;
 8. the train step at ``bench.py --train``'s shape (N=12288, uniform
    positions in [-25, 25], 7 classes): both routes timed in turns at B = 4,
    8, 10 (the base run's), 16 (the bench's) and 32 (the datamodule's
    default), with the plain path beside the kernel path at B=16 and 10:
-   ms/step (updated parameters consumed), Mpts/s, peak memory, and the
+   ms/step (updated parameters consumed), Mpts/s, peak memory, the launches
+   per step (K4's kernel 8 on either route, K5 4 and K6 8 on the fused one,
+   the inverse map 4), and the
    cosine of the whole-model gradient between the routes and between the
    paths (>= 0.999);
 9. K7 (``knn_topk(variant="mxu")``, the expanded-score full scan): its path
@@ -146,20 +154,79 @@ def bounds_text(bnd, cuda_bnd=None) -> str:
     return f"bound_ms {cuda_bnd[0]:.4f} ({cuda_bnd[1]}), tc_bound_ms {bnd[0]:.4f} ({bnd[1]})"
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` in ms (CUDA events over ``reps`` calls)."""
+def cuda_ms(fn, reps: int, warmup: int = 1, ahead: bool = False) -> float:
+    """Mean device time of ``fn`` in ms (CUDA events over ``reps`` calls).
+    ``ahead`` queues long matrix products first, so the host enqueues the
+    calls while the card is still busy and the events see the card's time
+    alone; without it a call that takes the host longer to enqueue than the
+    card to run shows the host's time. The products must still be running
+    when the last call is enqueued: if not, the turn is repeated behind
+    more of them, and the run fails where the host never gets ahead."""
     import torch
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    plug = torch.zeros((8192, 8192), device="cuda") if ahead else None
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    for plugs in (1, 2, 4, 8) if ahead else (0,):
+        torch.cuda.synchronize()
+        for _ in range(plugs):
+            plug @ plug
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        was_ahead = not start.query()
+        end.synchronize()
+        if was_ahead or not ahead:
+            return start.elapsed_time(end) / reps
+    raise PhaseError(f"the host did not enqueue {reps} calls within 8 long products' time")
+
+
+def device_work(fn, counter) -> str:
+    """What one warm call of ``fn`` puts on the stream: the launches of its
+    own kernel (``counter.launches``) and every PyTorch operator it calls
+    that is no allocation or view (each may launch or copy), from a
+    dispatch trace. More than two in all, or a copy, fails the run."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    free = ("empty", "view", "alias", "detach", "as_strided", "reshape", "_unsafe_view")
+    ops = []
+
+    class Trace(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    before = counter.launches
+    with Trace():
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    torch.cuda.synchronize()
+    own = counter.launches - before
+    other = [name for name in ops if not name.startswith(free)]
+    copies = [name for name in other if "copy" in name or name == "to"]
+    need(own >= 1 and own + len(other) <= 2 and not copies,
+         f"{own} launches of the kernel and the operators {other} in one call")
+    return f"{own} launch of its kernel and {len(other)} other operators a call"
+
+
+def host_runs_ahead(fn, what: str) -> None:
+    """``fn`` must return while the stream is still busy with work queued
+    before it: a host-to-device copy from pageable memory, an ``.item()``
+    or any other synchronisation inside it would drain the stream first."""
+    import torch
+
+    fn()
+    a = torch.zeros((8192, 8192), device="cuda")
+    torch.cuda.synchronize()
+    for _ in range(4):          # some 100 ms of products
+        a @ a
+    fn()
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    need(busy, f"{what}: the call waited for the stream (a host synchronisation inside it)")
 
 
 def bench_subtiles(seed: int = 0):
@@ -204,19 +271,30 @@ def plain_versions():
         nn1,
     )
 
+    # the wrappers' arguments that only the kernels read (the inverse map,
+    # the marked indices) are dropped
     def lfa_train_bwd_plain(x, pos, idx, nv, inv, *rest):
-        return cuda_lfa_train.lfa_train_bwd_plain(x, pos, idx, nv, *rest)
+        return cuda_lfa_train.lfa_train_bwd_plain(x, pos, idx, nv, *rest[:6])
 
     def gather_neighbors_plain(payload, idx, nv, inv=None):
         return cuda_gather.gather_neighbors_plain(payload, idx, nv)
 
+    def lfa_attention_plain(*args, idx_marked=None):
+        return cuda_lfa.lfa_attention_plain(*args[:7])
+
+    def rel_stats_plain(pos, idx, nv, idx_marked=None):
+        return cuda_lfa_train.rel_stats_plain(pos, idx, nv)
+
     patches = [(knn, "knn_topk", cuda_knn.knn_topk_plain),
                (nn1, "knn_topk", cuda_knn.knn_topk_plain),
                (interpolate, "knn_interp", cuda_interp.knn_interp_plain),
-               (randla_net, "lfa_attention", cuda_lfa.lfa_attention_plain),
+               (randla_net, "lfa_attention", lfa_attention_plain),
                (randla_net, "gather_neighbors", gather_neighbors_plain),
-               (cuda_lfa_train, "lfa_attention", cuda_lfa.lfa_attention_plain),
-               (cuda_lfa_train, "rel_stats", cuda_lfa_train.rel_stats_plain),
+               (randla_net, "inverse_map", cuda_gather.inverse_map_plain),
+               (randla_net, "rel_stats", rel_stats_plain),
+               (cuda_lfa_train, "inverse_map", cuda_gather.inverse_map_plain),
+               (cuda_lfa_train, "lfa_attention", lfa_attention_plain),
+               (cuda_lfa_train, "rel_stats", rel_stats_plain),
                (cuda_lfa_train, "lfa_train_bwd", lfa_train_bwd_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
@@ -243,9 +321,10 @@ def phase_device():
 
 # kernels that must have no stack frame, local memory or spills, and how
 # many instantiations each family has: K1/K3 (topk.cuh's search), K2 and K6
-# (lfa_tile.cuh's edge tile, one per width)
+# (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows)
+# and K5
 CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "lfa_kernel<": 6,
-                 "lfa_bwd_kernel<": 6}
+                 "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2, "relstats_kernel<": 2}
 
 
 def phase_build():
@@ -266,7 +345,7 @@ def phase_build():
     clean = {n: u for n, u in usage.items() if n.startswith(tuple(CLEAN_KERNELS))}
     bad = [n for n, u in clean.items()
            if any(u.get(key) != 0 for key in ("stack", "local", "spill_stores", "spill_loads"))]
-    need(not bad, f"K1/K2/K3/K6 instantiations with a stack frame, local memory or spills: {bad}")
+    need(not bad, f"K1-K6 instantiations with a stack frame, local memory or spills: {bad}")
     from myria3d_tpu_torch.ops.cuda_lfa import WIDTHS, launch_info
     from myria3d_tpu_torch.ops.cuda_lfa_train import bwd_launch_info
 
@@ -385,14 +464,17 @@ def phase_kernels(model, dev):
 
 
 def launch_counters():
-    from myria3d_tpu_torch.ops.cuda_gather import gather_bwd
+    from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, inverse_map
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp
     from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu
     from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention
     from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train_bwd, rel_stats
 
+    # K4 counts its kernel's every launch: the gathers' VJP and K6's dx
+    # scatter; inverse_map is K4's map, built by the kernels beside it
     return {"K1": knn_topk, "K2": lfa_attention, "K3": knn_interp, "K4": gather_bwd,
-            "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu}
+            "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu,
+            "inverse_map": inverse_map}
 
 
 def phase_main_path(dev):
@@ -541,8 +623,14 @@ def phase_train_kernels(dev):
     shapes."""
     import torch
 
-    from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, gather_bwd_plain, inverse_map
+    from myria3d_tpu_torch.ops.cuda_gather import (
+        gather_bwd,
+        gather_bwd_plain,
+        inverse_map,
+        inverse_map_plain,
+    )
     from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_plain, stage_window
+    from myria3d_tpu_torch.ops.cuda_lfa import idx_with_invalid
     from myria3d_tpu_torch.ops.cuda_lfa_train import (
         lfa_train_bwd,
         lfa_train_bwd_plain,
@@ -588,37 +676,80 @@ def phase_train_kernels(dev):
 
     stats = {"K4": [], "K5": [], "K6": []}
 
-    def record(name, label, err, fn_k, fn_p, bnd, reps=5, reps_p=2, fn_lib=None, cuda_bnd=None):
-        ms, plain_ms = cuda_ms(fn_k, reps), cuda_ms(fn_p, reps_p)
-        lib_ms = cuda_ms(fn_lib, reps) if fn_lib is not None else None
+    def record(name, label, err, fn_k, fn_p, bnd, reps=5, reps_p=2, fn_lib=None, cuda_bnd=None,
+               ahead=False):
+        """``ahead`` (K4, K5: calls the host takes longer to enqueue than
+        the card to run): the card's time with the host running ahead, and the
+        time as enqueued on an idle stream beside it."""
+        ms, plain_ms = cuda_ms(fn_k, 20 if ahead else reps, ahead=ahead), cuda_ms(fn_p, reps_p)
+        lib_ms = cuda_ms(fn_lib, reps, ahead=ahead) if fn_lib is not None else None
         stats[name].append((err, ms, plain_ms, bnd, lib_ms))
-        print(f"phase 6 {name} {label}: max_abs_err {err:.3g}, {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              + bounds_text(bnd, cuda_bnd)
+        print(f"phase 6 {name} {label}: max_abs_err {err:.3g}, {ms:.4f} ms"
+              + (f" ({cuda_ms(fn_k, 20):.4f} ms as enqueued)" if ahead else "")
+              + f", plain {plain_ms:.3f} ms, " + bounds_text(bnd, cuda_bnd)
               + (f", library_ms {lib_ms:.3f} (index_add_)" if lib_ms is not None else ""))
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
+    step_ms = {"map": 0.0, "map_plain": 0.0, "gathers": 0.0, "dx": 0.0}
+    gen_dx = torch.Generator(device=dev).manual_seed(2)   # ``gen`` keeps its sequence of draws
     for d_out, (p, m) in zip((32, 128, 256, 512), stages):
         n = p.shape[1]
         w = stage_window(WINDOW, n)
         idx, _, nv = knn_graph(p, m, 16, window=w)
-        inv = inverse_map(idx, nv, n)
+        # K4's inverse map: the kernels' against the stable sort's
+        inv, inv_p = inverse_map(idx, nv, n), inverse_map_plain(idx, nv, n)
+        n_valid = int(inv_p.offsets[-1])
+        need(n_valid == int(nv.sum()), f"inverse map N={n}: offsets end at {n_valid}")
+        need(bool(torch.equal(inv.offsets, inv_p.offsets)), f"inverse map N={n}: offsets differ")
+        need(bool(torch.equal(inv.perm[:n_valid], inv_p.perm[:n_valid])),
+             f"inverse map N={n}: perm differs from the stable sort's")
+        map_ms, map_plain_ms = (cuda_ms(lambda: fn(idx, nv, n), 20, ahead=True)
+                                for fn in (inverse_map, inverse_map_plain))
+        step_ms["map"] += map_ms
+        step_ms["map_plain"] += map_plain_ms
+        print(f"phase 6 inverse_map N={n} B=16 K=16 ({n_valid} valid slots): equal to the plain "
+              f"version, {map_ms:.4f} ms ({cuda_ms(lambda: inverse_map(idx, nv, n), 20):.4f} ms as "
+              f"enqueued), plain {map_plain_ms:.3f} ms "
+              f"({cuda_ms(lambda: inverse_map_plain(idx, nv, n), 20):.3f} as enqueued; stable sort, "
+              "searchsorted)")
         # index_add_'s operands: the cotangent rows of the valid slots and
         # their global key rows (built outside its timing)
         rows_key = (idx.long() + torch.arange(idx.shape[0], device=dev)[:, None, None] * n).reshape(-1)
-        for width in (3 + d_out // 8, d_out // 4):      # the wide gather, lfa2's gather
-            dout = rnd(16, n, 16, width)
+
+        def k4_case(width, gen=gen):
+            dout = torch.randn((16, n, 16, width), generator=gen, device=dev)
             got = gather_bwd(dout, idx, nv, inv, n)
+            need(bool(torch.equal(got, gather_bwd(dout, idx, nv, inv, n))),
+                 f"K4 P={width} N={n}: a second call differs")
             err = scale_err(got, gather_bwd_plain(dout, idx, nv, n), TOL["K4"], f"K4 P={width}")
+            # the kernel reads the cotangents and the map, and writes the sums
+            bnd = bound(float(nv.sum()) * width, nbytes(dout, inv.perm, inv.offsets, got))
+            return dout, got, err, bnd
+
+        for width in (3 + d_out // 8, d_out // 4):      # the wide gather, lfa2's gather
+            dout, got, err, bnd = k4_case(width)
             rows = torch.where(nv[..., None], dout, 0.0).reshape(-1, width)
             target = torch.zeros((16 * n, width), device=dev)
-            bnd = bound(float(nv.sum()) * width, nbytes(dout, idx, nv, inv.perm, inv.offsets, got))
             record("K4", f"P={width} N={n}", err, lambda: gather_bwd(dout, idx, nv, inv, n),
                    lambda: gather_bwd_plain(dout, idx, nv, n), bnd,
-                   fn_lib=lambda: target.index_add_(0, rows_key, rows))
+                   fn_lib=lambda: target.index_add_(0, rows_key, rows), ahead=True)
+            step_ms["gathers"] += stats["K4"][-1][1]
+        for width in (d_out // 8, d_out // 4):          # K6's dx scatter of lfa1, lfa2
+            dout, got, err, bnd = k4_case(width, gen_dx)
+            ms = cuda_ms(lambda: gather_bwd(dout, idx, nv, inv, n), 20, ahead=True)
+            step_ms["dx"] += ms
+            print(f"phase 6 K4 as K6's dx scatter P={width} N={n}: max_abs_err {err:.3g}, bit-equal "
+                  f"on a second call, {ms:.4f} ms, " + bounds_text(bnd))
+        del dout, got, rows, target
 
-        got = rel_stats(p, idx, nv)
+        # as the train block calls it: on the marked indices it made already
+        marked = idx_with_invalid(idx, nv)
+        got = rel_stats(p, idx, nv, marked)
+        need(bool(torch.equal(got, rel_stats(p, idx, nv, marked))), f"K5 N={n}: a second call differs")
+        need(bool(torch.equal(got, rel_stats(p, idx, nv))),
+             f"K5 N={n}: the call that marks the indices itself gives other sums")
         err = scale_err(got, rel_stats_plain(p.double(), idx, nv), TOL["K5"], "K5")
         # the encoder variance the moments imply against the unfused route's
         # two-pass masked variance over the edges
@@ -630,8 +761,13 @@ def phase_train_kernels(dev):
         # per valid slot: the 10 rel features (~20) and 66 product sums
         bnd = bound(float(nv.sum()) * (20 + 66), nbytes(p, idx, nv, got))
         record("K5", f"N={n} (window {w}; variance vs two-pass {var_err:.3g} of "
-               f"{float(two_pass.abs().max()):.3g})", err,
-               lambda: rel_stats(p, idx, nv), lambda: rel_stats_plain(p, idx, nv), bnd)
+               f"{float(two_pass.abs().max()):.3g}; "
+               f"{device_work(lambda: rel_stats(p, idx, nv, marked), rel_stats)})",
+               err, lambda: rel_stats(p, idx, nv, marked), lambda: rel_stats_plain(p, idx, nv), bnd,
+               ahead=True)
+        host_runs_ahead(lambda: rel_stats(p, idx, nv, marked), f"K5 N={n}")
+        print(f"phase 6 K5 N={n}: bit-equal on a second call and where it marks the indices "
+              "itself; returns while the stream is still busy with earlier work")
 
         for c_in in (d_out // 8, d_out // 4):           # lfa1, lfa2
             args = (rnd(16, n, c_in), p, idx, nv, rnd(c_in, 10, scale=0.3), rnd(c_in, scale=0.3),
@@ -656,6 +792,10 @@ def phase_train_kernels(dev):
                    + "/".join(f"{float(b.abs().max()):.3g}" for b in want) + ")", errs[0],
                    lambda: lfa_train_bwd(*args[:4], inv, *args[4:]),
                    lambda: lfa_train_bwd_plain(*args), bnd, reps_p=1, cuda_bnd=cuda_bnd)
+    print(f"phase 6 K4 per B=16 train step (the card's time, host ahead): the 8 gathers' VJP "
+          f"{step_ms['gathers']:.4f} ms (unfused route), K6's 8 dx scatters {step_ms['dx']:.4f} ms "
+          f"(fused route); the 4 inverse maps {step_ms['map']:.4f} ms, plain "
+          f"{step_ms['map_plain']:.4f} ms (either route)")
     return stats
 
 
@@ -838,6 +978,14 @@ def phase_train_step(dev):
             dt, mem[fused] = timed(models[fused], batch, TRAIN_REPS)
             ms[fused].append(dt)
             launches[fused] = dict(per_step)
+        # per step: K4's kernel 8 times on either route (the gathers' VJP, or
+        # K6's dx scatters), K5 once per block, the inverse map once per block
+        want = {True: {"K4": 8, "K5": 4, "K6": 8, "inverse_map": 4},
+                False: {"K4": 8, "inverse_map": 4}}
+        for fused, counts in want.items():
+            got = {name: launches[fused].get(name, 0) for name in ("K4", "K5", "K6", "inverse_map")}
+            need(got == {"K4": 0, "K5": 0, "K6": 0, "inverse_map": 0, **counts},
+                 f"B={b} fused={fused}: launches per step {got}")
         c = cos(grad[True], grad[False])
         need(c >= 0.999, f"B={b}: fused/unfused gradient cosine {c:.6f}")
         for fused in (True, False):

@@ -47,7 +47,9 @@ _SIGNATURES = {
     "m3d_lfa": [_P] * 6 + [_I] * 4 + [_P, _P],
     "m3d_lfa_info": [_I, _P],
     "m3d_gather_bwd": [_P, _P, _P, _I, _I, _P, _P],
-    "m3d_relstats": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "m3d_inverse_map_count": [_P, _P, _I, _I, _I, _P, _P],
+    "m3d_inverse_map_fill": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "m3d_relstats": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "m3d_reduce_chunks": [_P, _I, _I, _I, _I, _P, _P],
     "m3d_lfa_bwd": [_P] * 9 + [_I] * 5 + [_P] * 4,
     "m3d_lfa_bwd_info": [_I, _P],

@@ -13,10 +13,13 @@
 // per cloud (the corner holds the count, the last row the sums of rel).
 // The TPU grid carried one (16, 16) accumulator across its sequential query
 // tiles; Hopper blocks run in no order, so each block sums the 66 distinct
-// products of a contiguous point chunk (per-thread partials, then warp
-// shuffles and shared memory in a fixed order) and writes its own partial;
-// reduce_chunks_kernel sums the partials in chunk order. Bound: the pos_j
-// gather (12 bytes per slot), one pass; 66 FMAs per slot.
+// products of a contiguous chunk of a cloud's slots (per-thread partials,
+// then warp shuffles and shared memory in a fixed order) and writes its own
+// partial; the last block to finish a cloud sums its partials in chunk
+// order in f64 and writes the (16, 16) output, all in one launch. The
+// wrapper sizes the chunks from the slot count and the card's SMs, so every
+// stage fills the card. Bound: 66 FMAs per slot against the index read (4
+// bytes per slot) and the pos_j gather, one pass.
 //
 // K6 replaces myria3d_tpu/ops/pallas_lfa_train.py::_lfa_bwd_kernel. For
 // every centre point it recomputes the forward in f32 from direct gathers
@@ -50,7 +53,8 @@
 
 namespace m3d {
 
-constexpr int RS_THREADS = 256;
+constexpr int RS_THREADS = 128;
+constexpr int RS_UNROLL = 4;   // slots a thread has in flight
 constexpr int RS_PAIRS = 66;   // distinct products of the 11-vector z
 constexpr int BW_SUMS = 14;    // dgamma, dbeta, S1, S2, M1[10]
 constexpr int RD_THREADS = 256;
@@ -62,47 +66,73 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// rel = [pos_i, pos_j, pos_j - pos_i, |pos_j - pos_i|]
-__device__ __forceinline__ void make_rel(const float* __restrict__ pos,
-                                         long long gi, long long gj,
-                                         float* rel) {
-  rel[0] = pos[gi * 3];
-  rel[1] = pos[gi * 3 + 1];
-  rel[2] = pos[gi * 3 + 2];
-  rel[3] = pos[gj * 3];
-  rel[4] = pos[gj * 3 + 1];
-  rel[5] = pos[gj * 3 + 2];
-  rel[6] = rel[3] - rel[0];
-  rel[7] = rel[4] - rel[1];
-  rel[8] = rel[5] - rel[2];
-  rel[9] = sqrtf(fmaxf(rel[6] * rel[6] + rel[7] * rel[7] + rel[8] * rel[8], 0.f));
-}
-
-__global__ void __launch_bounds__(RS_THREADS) relstats_kernel(
-    const float* __restrict__ pos, const int* __restrict__ idx,
-    const unsigned char* __restrict__ nv, int n, int k, int chunk_pts,
-    int n_chunks, float* __restrict__ part) {
+// One block sums the 66 products over a chunk of one cloud's slots. A thread
+// takes RS_UNROLL slots a trip, branch-free (an invalid slot reads point 0
+// and contributes zeros), so that the index loads and then the pos_j
+// gathers of a trip are all in flight together. The block's partial goes to
+// part; the block that arrives last at its cloud's ticket sums the cloud's
+// partials in chunk order in f64 and writes the symmetric (16, 16) output,
+// zeros outside (11, 11). The ticket orders nothing that is summed, so the
+// result does not depend on which block comes last; it is left at 0. A
+// slot's centre is slot / k: a shift where k is a power of two (POW2, k =
+// 1 << k_or_shift), else a division by k = k_or_shift.
+template <int POW2>
+__global__ void __launch_bounds__(RS_THREADS, 4) relstats_kernel(
+    const float* __restrict__ pos, const int* __restrict__ idx, int n, int k_or_shift, int chunk_slots,
+    int n_chunks, float* __restrict__ part, int* __restrict__ tickets, float* __restrict__ out) {
   const int b = blockIdx.y, chunk = blockIdx.x;
-  const long long cloud = (long long)b * n;
-  const long long s0 = (long long)chunk * chunk_pts * k;
-  const long long s1 = (long long)min(n, (chunk + 1) * chunk_pts) * k;
+  const int cloud_slots = POW2 ? n << k_or_shift : n * k_or_shift;
+  const float* cpos = pos + (long long)b * n * 3;
+  const int* cidx = idx + (long long)b * cloud_slots;
+  const int s0 = chunk * chunk_slots;
+  const int s1 = min(cloud_slots, s0 + chunk_slots);
   float acc[RS_PAIRS];
 #pragma unroll
   for (int t = 0; t < RS_PAIRS; ++t) acc[t] = 0.f;
-  for (long long s = s0 + threadIdx.x; s < s1; s += RS_THREADS) {
-    const long long slot = cloud * k + s;
-    if (!nv[slot]) continue;
-    float z[11];
-    make_rel(pos, cloud + s / k, cloud + idx[slot], z);
-    z[10] = 1.f;
-    int t = 0;
+  for (int s = s0 + threadIdx.x; s < s1; s += RS_THREADS * RS_UNROLL) {
+    int j[RS_UNROLL], i[RS_UNROLL];
 #pragma unroll
-    for (int a = 0; a < 11; ++a) {
+    for (int u = 0; u < RS_UNROLL; ++u) {
+      const int su = s + u * RS_THREADS;
+      j[u] = su < s1 ? cidx[su] : -1;
+      i[u] = j[u] >= 0 ? (POW2 ? su >> k_or_shift : su / k_or_shift) : 0;
+    }
+    float pi[RS_UNROLL][3], pj[RS_UNROLL][3];
 #pragma unroll
-      for (int c = a; c < 11; ++c) acc[t++] += z[a] * z[c];
+    for (int u = 0; u < RS_UNROLL; ++u) {
+      const int jj = max(j[u], 0);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        pi[u][d] = cpos[i[u] * 3 + d];
+        pj[u][d] = cpos[jj * 3 + d];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RS_UNROLL; ++u) {
+      const bool ok = j[u] >= 0;
+      float z[11];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        z[d] = ok ? pi[u][d] : 0.f;
+        z[3 + d] = ok ? pj[u][d] : 0.f;
+        z[6 + d] = z[3 + d] - z[d];
+      }
+      z[9] = sqrtf(fmaxf(z[6] * z[6] + z[7] * z[7] + z[8] * z[8], 0.f));
+      z[10] = ok ? 1.f : 0.f;
+      int t = 0;
+#pragma unroll
+      for (int a = 0; a < 11; ++a) {
+#pragma unroll
+        for (int c = a; c < 11; ++c) {
+          acc[t] = fmaf(z[a], z[c], acc[t]);
+          ++t;
+        }
+      }
     }
   }
   __shared__ float red[RS_THREADS / 32][RS_PAIRS];
+  __shared__ float fin[RS_PAIRS];
+  __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int t = 0; t < RS_PAIRS; ++t) {
@@ -110,15 +140,36 @@ __global__ void __launch_bounds__(RS_THREADS) relstats_kernel(
     if (lane == 0) red[warp][t] = v;
   }
   __syncthreads();
+  float* cloud_part = part + (long long)b * n_chunks * RS_PAIRS;
   if (threadIdx.x < RS_PAIRS) {
     float v = 0.f;
     for (int w = 0; w < RS_THREADS / 32; ++w) v += red[w][threadIdx.x];
-    part[((long long)b * n_chunks + chunk) * RS_PAIRS + threadIdx.x] = v;
+    cloud_part[chunk * RS_PAIRS + threadIdx.x] = v;
+    __threadfence();  // the partial is visible before the ticket is taken
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + b, 1) == n_chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x < RS_PAIRS) {
+    double v = 0.0;
+    for (int c = 0; c < n_chunks; ++c) {
+      v += static_cast<double>(__ldcg(cloud_part + c * RS_PAIRS + threadIdx.x));
+    }
+    fin[threadIdx.x] = static_cast<float>(v);
+  }
+  if (threadIdx.x == 0) tickets[b] = 0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < 256; e += RS_THREADS) {
+    const int r = min(e >> 4, e & 15), c = max(e >> 4, e & 15);
+    // row-major place of (r, c), r <= c, in the upper triangle of (11, 11)
+    out[b * 256 + e] = c < 11 ? fin[r * 11 - r * (r - 1) / 2 + c - r] : 0.f;
   }
 }
 
 // out[r][e] = sum over c of part[r][c][e], c ascending, accumulated in f64
-// (K5's f32 partials, K6's f32 d(att_w) and f64 BN-sum partials), out f32.
+// (K6's f32 d(att_w) and f64 BN-sum partials), out f32.
 template <typename T>
 __global__ void __launch_bounds__(RD_THREADS) reduce_chunks_kernel(
     const T* __restrict__ part, int rows, int n_chunks, int e, float* __restrict__ out) {
@@ -440,18 +491,22 @@ struct K6 {
 
 }  // namespace m3d
 
-// pos (B, n, 3) f32; idx (B, n, k) i32; nv (B, n, k) u8. Writes part
-// (B, n_chunks, 66) f32: the upper triangle (row-major) of each chunk's
-// sum of z z^T. chunk_pts * n_chunks >= n.
-extern "C" int m3d_relstats(const void* pos, const void* idx, const void* nv,
-                            int B, int n, int k, int n_chunks, int chunk_pts,
-                            void* part, void* stream) {
+// pos (B, n, 3) f32; idx (B, n, k) i32, -1 at invalid slots. Chunk q of a
+// cloud covers its slots [q chunk_slots, (q + 1) chunk_slots); chunk_slots *
+// n_chunks >= n * k. part (B, n_chunks, 66) f32 is scratch (each chunk's
+// upper triangle, row-major); tickets (B) i32 must be 0 and is left 0.
+// Writes out (B, 16, 16) f32.
+extern "C" int m3d_relstats(const void* pos, const void* idx, int B, int n, int k,
+                            int n_chunks, int chunk_slots, void* part, void* tickets,
+                            void* out, void* stream) {
   using namespace m3d;
-  relstats_kernel<<<dim3(n_chunks, B), RS_THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pos), static_cast<const int*>(idx),
-      static_cast<const unsigned char*>(nv), n, k, chunk_pts, n_chunks,
-      static_cast<float*>(part));
+  if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool pow2 = (k & (k - 1)) == 0;
+  const auto launch = pow2 ? relstats_kernel<1> : relstats_kernel<0>;
+  launch<<<dim3(n_chunks, B), RS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pos), static_cast<const int*>(idx), n, pow2 ? __builtin_ctz(k) : k,
+      chunk_slots, n_chunks, static_cast<float*>(part), static_cast<int*>(tickets),
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

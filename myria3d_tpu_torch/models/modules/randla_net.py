@@ -18,8 +18,9 @@ Routes of the two LFAs of a block (on CUDA every search runs on K1):
   LFA gathered inside the search window; K2 gathers directly, so all four
   blocks share one path.
 - train, fused (``fused_train_lfa`` True, or ``"auto"`` at a batch of at
-  least :data:`FUSED_TRAIN_MIN_BATCH`): K5 batch moments, K2 forward on the
-  batch-folded affine, K6 backward (``ops.cuda_lfa_train``).
+  least :data:`FUSED_TRAIN_MIN_BATCH`): K5 rel statistics (once per block:
+  they depend on the graph alone, so both LFAs share them), K2 forward on
+  the batch-folded affine, K6 backward (``ops.cuda_lfa_train``).
 - train, unfused: the LocSE geometry built once per block from one wide
   ``[pos | x]`` neighbour gather, both gathers through K4, masked-moment BN
   on the encoder over the valid neighbour slots, attention in torch.
@@ -36,8 +37,8 @@ from torch import nn
 from myria3d_tpu_torch.models.modules.nn import SharedMLP, lrelu
 from myria3d_tpu_torch.ops.cuda_gather import gather_neighbors, inverse_map
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
-from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention
-from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train, locse
+from myria3d_tpu_torch.ops.cuda_lfa import idx_with_invalid, lfa_attention
+from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train, locse, rel_stats
 from myria3d_tpu_torch.ops.interpolate import knn_interpolate
 from myria3d_tpu_torch.ops.knn import gather_rows, knn_graph
 from myria3d_tpu_torch.ops.masked import masked_softmax
@@ -81,11 +82,13 @@ class LocalFeatureAggregation(nn.Module):
         return lin.weight * scale[:, None], lin.bias * scale + shift
 
     def forward(self, x, pos, idx, neigh_valid, mask=None, rel=None, x_j=None, inv=None,
-                fused=False):
+                fused=False, stats=None, idx_marked=None):
         """``x (B, N, C_in)`` -> ``(B, N, C)``. Training mode takes the fused
-        route when ``fused``, else the unfused one on the block's LocSE
-        geometry ``rel (B, N, K, 10)`` (and ``x_j``, the neighbours' rows of
-        ``x``, when the block gathered them already)."""
+        route when ``fused`` (on the block's rel statistics ``stats`` and
+        marked indices ``idx_marked``, when it made them), else the unfused
+        one on the block's LocSE geometry ``rel (B, N, K, 10)`` (and
+        ``x_j``, the neighbours' rows of ``x``, when the block gathered
+        them already)."""
         if not self.training:
             enc_a, enc_c = self.folded_encoder()
             att_w = self.mlp_attention.lins[0].weight.T.contiguous()
@@ -95,7 +98,8 @@ class LocalFeatureAggregation(nn.Module):
             lin, bn = self.mlp_encoder.lins[0], self.mlp_encoder.norms[0]
             pooled, mu, var, n = lfa_train(x, pos, idx, neigh_valid, lin.weight, lin.bias,
                                            bn.weight, bn.bias,
-                                           self.mlp_attention.lins[0].weight, inv)
+                                           self.mlp_attention.lins[0].weight, inv, stats,
+                                           idx_marked)
             bn.update_running(mu, var, n)
         else:
             if x_j is None:
@@ -130,8 +134,13 @@ class DilatedResidualBlock(nn.Module):
             # one inverse map serves every backward scatter of the block
             inv = inverse_map(idx, neigh_valid, pos.shape[1]) if pos.is_cuda else None
             if fused_train:
-                x = self.lfa1(x, pos, idx, neigh_valid, mask, inv=inv, fused=True)
-                x = self.lfa2(x, pos, idx, neigh_valid, mask, inv=inv, fused=True)
+                # what depends on the graph alone, once for both LFAs: the
+                # kernels' marked indices and K5's rel statistics
+                idx_marked = idx_with_invalid(idx, neigh_valid) if pos.is_cuda else None
+                shared = dict(inv=inv, fused=True, idx_marked=idx_marked,
+                              stats=rel_stats(pos, idx, neigh_valid, idx_marked))
+                x = self.lfa1(x, pos, idx, neigh_valid, mask, **shared)
+                x = self.lfa2(x, pos, idx, neigh_valid, mask, **shared)
             else:
                 # one wide [pos | x] gather serves the LocSE geometry (built
                 # once, shared by both LFAs) and lfa1's neighbour features

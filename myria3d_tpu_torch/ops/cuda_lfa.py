@@ -65,14 +65,16 @@ def lfa_attention_plain(x, pos, idx, neigh_valid, enc_a, enc_c, att_w):
 
 def lfa_attention(x: torch.Tensor, pos: torch.Tensor, idx: torch.Tensor,
                   neigh_valid: torch.Tensor, enc_a: torch.Tensor,
-                  enc_c: torch.Tensor, att_w: torch.Tensor) -> torch.Tensor:
+                  enc_c: torch.Tensor, att_w: torch.Tensor,
+                  idx_marked: torch.Tensor | None = None) -> torch.Tensor:
     """Attention-pooled LFA features ``(B, N, C)``, ``C = 2 * C_in``.
 
     ``x (B, N, C_in)``, ``pos (B, N, 3)``, ``idx (B, N, K)`` indices into
     each cloud, ``neigh_valid (B, N, K)``, ``enc_a (C_in, 10)``,
-    ``enc_c (C_in,)``, ``att_w (C, C)`` with ``att = lf @ att_w``. CPU
-    tensors take :func:`lfa_attention_plain`; CUDA tensors launch the kernel
-    (or raise).
+    ``enc_c (C_in,)``, ``att_w (C, C)`` with ``att = lf @ att_w``;
+    ``idx_marked`` is ``idx_with_invalid(idx, neigh_valid)`` where the
+    caller has it already. CPU tensors take :func:`lfa_attention_plain`;
+    CUDA tensors launch the kernel (or raise).
     """
     if x.device.type == "cpu":
         return lfa_attention_plain(x, pos, idx, neigh_valid, enc_a, enc_c, att_w)
@@ -85,7 +87,7 @@ def lfa_attention(x: torch.Tensor, pos: torch.Tensor, idx: torch.Tensor,
         raise ValueError("lfa_attention: affine shapes do not match C_in")
     if any(t.dtype != torch.float32 for t in (x, pos, enc_a, enc_c, att_w)):
         raise ValueError("lfa_attention: float tensors must be float32")
-    idx32 = idx_with_invalid(idx, neigh_valid)
+    idx32 = idx_with_invalid(idx, neigh_valid) if idx_marked is None else idx_marked
     pos, enc_a, enc_c = (t.contiguous() for t in (pos, enc_a, enc_c))
     x, att_w = _ext.aligned(x), _ext.aligned(att_w)   # read in 16-byte pieces
     _ext.require_cuda("lfa_attention", x, pos, idx32, enc_a, enc_c, att_w)

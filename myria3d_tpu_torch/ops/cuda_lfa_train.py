@@ -22,10 +22,16 @@ direct f32 loads, not from the TPU's bf16 payload table, so the fused
 route computes the same f32 function as the unfused one up to the raw
 second-moment variance (``Cov = Srr / n - r_bar r_bar^T``, which the JAX
 package also uses and which cancels when positions sit far from the
-origin; the training transforms centre each cloud).
+origin; the training transforms centre each cloud). The JAX package
+computes the rel statistics in every LFA; they depend on the graph alone,
+so here the two LFAs of a block share one K5 call (``lfa_train(...,
+stats=...)``), as they share the inverse map and the marked indices, with
+the same results bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +45,8 @@ from myria3d_tpu_torch.ops.masked import masked_softmax
 
 MAX_K = 16
 N_SUMS = 14          # dgamma, dbeta, S1, S2, M1[10] per encoder channel
-_TRIU = torch.triu_indices(11, 11)   # K5's 66 products, row-major
-_RS_CHUNK_SLOTS = 4096                # slots a K5 block sums
+_RS_MIN_CHUNK_SLOTS = 1024            # the least a K5 block sums (8 slots a thread)
+_RS_BLOCKS_PER_SM = 4                 # K5 blocks resident on an SM
 
 
 def locse(pos: torch.Tensor, pos_j: torch.Tensor) -> torch.Tensor:
@@ -87,31 +93,67 @@ def rel_stats_plain(pos: torch.Tensor, idx: torch.Tensor, neigh_valid: torch.Ten
     return out
 
 
-def rel_stats(pos: torch.Tensor, idx: torch.Tensor, neigh_valid: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    """The device's SMs, read once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_tickets: dict = {}   # (device index, stream) -> K5's per-cloud tickets, zero between calls
+
+
+def _rel_stats_tickets(device_index: int, stream: int, b: int) -> torch.Tensor:
+    """K5's per-cloud arrival counters for the calls of one stream of a
+    device: zeroed when they are made, and left at zero by every launch.
+    Calls on one stream follow one another, so they can share them; calls
+    on two streams may overlap, so each stream has its own."""
+    t = _tickets.get((device_index, stream))
+    if t is None or t.numel() < b:
+        t = _tickets[device_index, stream] = torch.zeros(
+            max(b, 64), dtype=torch.int32, device=torch.device("cuda", device_index))
+    return t
+
+
+def rel_stats(pos: torch.Tensor, idx: torch.Tensor, neigh_valid: torch.Tensor,
+              idx_marked: torch.Tensor | None = None) -> torch.Tensor:
     """K5: per-cloud masked second moments of ``[rel; 1]``, ``(B, 16, 16)``.
     CPU tensors take :func:`rel_stats_plain`; CUDA tensors launch the
-    kernel (or raise)."""
+    kernel (or raise). ``idx_marked`` is ``idx_with_invalid(idx,
+    neigh_valid)`` where the caller has it already (the train block does):
+    the call is then one launch and two allocations, copies nothing from
+    the host and never waits for the stream."""
     if pos.device.type == "cpu":
         return rel_stats_plain(pos, idx, neigh_valid)
     _check("rel_stats", pos, idx)
     b, n, k = idx.shape
-    idx32 = idx.to(torch.int32).contiguous()
-    nv8 = neigh_valid.to(torch.uint8).contiguous()
+    if n * k >= 2**31 - 1024:
+        raise ValueError("rel_stats: a cloud's slots must fit int32")
     pos = pos.contiguous()
-    _ext.require_cuda("rel_stats", pos, idx32, nv8)
-    chunk_pts = max(1, _RS_CHUNK_SLOTS // max(k, 1))
-    n_chunks = max(1, -(-n // chunk_pts))
-    part = torch.empty((b, n_chunks, 66), dtype=torch.float32, device=pos.device)
-    with torch.cuda.device(pos.device):
-        code = _ext.lib().m3d_relstats(pos.data_ptr(), idx32.data_ptr(), nv8.data_ptr(),
-                                       b, n, k, n_chunks, chunk_pts, part.data_ptr(),
-                                       _ext.stream_of(pos))
+    if idx_marked is None:
+        idx_marked = idx_with_invalid(idx, neigh_valid)
+    _ext.require_cuda("rel_stats", pos, idx_marked)
+    if idx_marked.dtype != torch.int32 or idx_marked.shape != idx.shape:
+        raise ValueError("rel_stats: idx_marked must be idx's int32 copy")
+    dev = pos.device
+    if b * n * k == 0:
+        return torch.zeros((b, 16, 16), dtype=torch.float32, device=dev)
+    # chunks of a cloud's slots: enough blocks to fill the card's SMs at
+    # every stage, none below the least chunk
+    slots = n * k
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    blocks = _sm_count(index) * _RS_BLOCKS_PER_SM
+    n_chunks = max(1, min(-(-blocks // b), slots // _RS_MIN_CHUNK_SLOTS))
+    chunk_slots = -(-slots // n_chunks)
+    n_chunks = -(-slots // chunk_slots)
+    part = torch.empty((b, n_chunks, 66), dtype=torch.float32, device=dev)
+    out = torch.empty((b, 16, 16), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = _ext.stream_of(pos)
+        tickets = _rel_stats_tickets(index, stream, b)
+        code = _ext.lib().m3d_relstats(pos.data_ptr(), idx_marked.data_ptr(), b, n, k, n_chunks,
+                                       chunk_slots, part.data_ptr(), tickets.data_ptr(),
+                                       out.data_ptr(), stream)
     _ext.check(code, "m3d_relstats")
-    pairs = _reduce_chunks(part)                                     # (B, 66)
-    out = torch.zeros((b, 16, 16), dtype=torch.float32, device=pos.device)
-    r, c = _TRIU.to(pos.device)
-    out[:, r, c] = pairs
-    out[:, c, r] = pairs
     rel_stats.launches += 1
     return out
 
@@ -171,14 +213,15 @@ def bwd_launch_info(c: int) -> dict:
 
 
 def lfa_train_bwd(x, pos, idx, neigh_valid, inv: InverseMap | None, a_hat, c_hat, gamma,
-                  beta, att_w, gout):
+                  beta, att_w, gout, idx_marked: torch.Tensor | None = None):
     """K6: the fused LFA backward, see :func:`lfa_train_bwd_plain` for the
     outputs. ``a_hat (C_in, 10)``, ``c_hat`` are the BN-normalized encoder
     affine (``ehat = a_hat rel + c_hat``), ``att_w (C, C)`` with ``att = lf
     att_w``, ``gout (B, N, C)`` the pooled output's cotangent; ``inv`` the
     graph's inverse map (:func:`ops.cuda_gather.inverse_map`) for the
-    ``dx`` scatter. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (or raise)."""
+    ``dx`` scatter (K4's kernel); ``idx_marked`` is ``idx_with_invalid(idx,
+    neigh_valid)`` where the caller has it already. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return lfa_train_bwd_plain(x, pos, idx, neigh_valid, a_hat, c_hat, gamma, beta,
                                    att_w, gout)
@@ -190,14 +233,17 @@ def lfa_train_bwd(x, pos, idx, neigh_valid, inv: InverseMap | None, a_hat, c_hat
     _check("lfa_train_bwd", pos, idx, x, a_hat, c_hat, gamma, beta, att_w, gout)
     if inv is None:
         raise ValueError("lfa_train_bwd: CUDA tensors need the inverse map")
-    args = [_ext.aligned(x), pos.contiguous(), idx_with_invalid(idx, neigh_valid)] + [
+    if idx_marked is None:
+        idx_marked = idx_with_invalid(idx, neigh_valid)
+    args = [_ext.aligned(x), pos.contiguous(), idx_marked] + [
         t.contiguous() for t in (a_hat, c_hat, gamma, beta)] + [
         _ext.aligned(att_w), gout.contiguous()]
     _ext.require_cuda("lfa_train_bwd", *args)
     dev = x.device
-    dx = torch.zeros((b, n, c_in), dtype=torch.float32, device=dev)
     if b * n == 0:
-        return dx, torch.zeros((c, c), device=dev), torch.zeros((c_in, N_SUMS), device=dev)
+        return (torch.zeros((b, n, c_in), device=dev), torch.zeros((c, c), device=dev),
+                torch.zeros((c_in, N_SUMS), device=dev))
+    dx = torch.empty((b, n, c_in), dtype=torch.float32, device=dev)   # the scatter writes it all
     with torch.cuda.device(dev):
         info = bwd_launch_info(c)
         # one chunk of tiles per resident block (blocks per SM x SMs), each
@@ -224,17 +270,20 @@ lfa_train_bwd.launches = 0
 
 class _LFATrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, pos, idx, neigh_valid, w_e, b_e, gamma, beta, att_weight, inv):
-        mu, var, n, sum_rel, srr = moments(rel_stats(pos, idx, neigh_valid), w_e, b_e)
+    def forward(ctx, x, pos, idx, neigh_valid, w_e, b_e, gamma, beta, att_weight, inv, stats,
+                idx_marked):
+        if stats is None:
+            stats = rel_stats(pos, idx, neigh_valid, idx_marked)
+        mu, var, n, sum_rel, srr = moments(stats, w_e, b_e)
         inv_sigma = torch.rsqrt(var + BN_EPS)
         a_hat = inv_sigma[:, None] * w_e
         c_hat = inv_sigma * (b_e - mu)
         att_w = att_weight.T.contiguous()
         pooled = lfa_attention(x, pos, idx, neigh_valid, (gamma[:, None] * a_hat).contiguous(),
-                               (gamma * c_hat + beta).contiguous(), att_w)
+                               (gamma * c_hat + beta).contiguous(), att_w, idx_marked)
         ctx.save_for_backward(x, pos, idx, neigh_valid, w_e, b_e, gamma, beta, att_w,
                               mu, n, inv_sigma, a_hat, c_hat, sum_rel, srr)
-        ctx.inv = inv
+        ctx.inv, ctx.idx_marked = inv, idx_marked
         ctx.mark_non_differentiable(mu, var, n)
         return pooled, mu, var, n
 
@@ -243,25 +292,36 @@ class _LFATrain(torch.autograd.Function):
         (x, pos, idx, neigh_valid, w_e, b_e, gamma, beta, att_w,
          mu, n, inv_sigma, a_hat, c_hat, sum_rel, srr) = ctx.saved_tensors
         dx, d_att_w, sums = lfa_train_bwd(x, pos, idx, neigh_valid, ctx.inv, a_hat, c_hat,
-                                          gamma, beta, att_w, g_pooled.contiguous())
+                                          gamma, beta, att_w, g_pooled.contiguous(),
+                                          ctx.idx_marked)
         d_gamma, d_beta, s1, s2, m1 = sums[:, 0], sums[:, 1], sums[:, 2], sums[:, 3], sums[:, 4:]
         # sum over slots of ehat_c rel_j, from the rel statistics
         e_rel = inv_sigma[:, None] * (w_e @ srr + (b_e - mu)[:, None] * sum_rel[None, :])
         d_w = inv_sigma[:, None] * (m1 - s1[:, None] * sum_rel[None, :] / n
                                     - s2[:, None] * e_rel / n)
         return (dx, None, None, None, d_w, torch.zeros_like(b_e), d_gamma, d_beta,
-                d_att_w.T, None)
+                d_att_w.T, None, None, None)
 
 
 def lfa_train(x: torch.Tensor, pos: torch.Tensor, idx: torch.Tensor, neigh_valid: torch.Tensor,
               w_e: torch.Tensor, b_e: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              att_weight: torch.Tensor, inv: InverseMap | None = None):
+              att_weight: torch.Tensor, inv: InverseMap | None = None,
+              stats: torch.Tensor | None = None, idx_marked: torch.Tensor | None = None):
     """Train-mode fused LFA: ``(pooled (B, N, C), mu, var_biased, n)`` with
     batch-moment BN on the encoder and a hand-written backward w.r.t.
     ``x``, ``w_e (C_in, 10)``, ``b_e``, ``gamma``, ``beta`` and ``att_weight
     (C, C)`` (``att = lf @ att_weight.T``). ``(mu, var_biased, n)`` feed the
-    encoder BN's running-stat update and carry no gradient."""
-    if x.device.type == "cuda" and inv is None:
-        inv = inverse_map(idx, neigh_valid, x.shape[1])
+    encoder BN's running-stat update and carry no gradient.
+
+    What depends on the graph alone may come from the caller, who shares it
+    between the LFAs of a block: ``inv`` (:func:`ops.cuda_gather.inverse_map`),
+    ``stats`` (:func:`rel_stats` of ``pos``, ``idx``, ``neigh_valid``) and
+    ``idx_marked`` (:func:`ops.cuda_lfa.idx_with_invalid`). Each is built
+    here when it is not given."""
+    if x.device.type == "cuda":
+        if inv is None:
+            inv = inverse_map(idx, neigh_valid, x.shape[1])
+        if idx_marked is None:
+            idx_marked = idx_with_invalid(idx, neigh_valid)
     return _LFATrain.apply(x.contiguous(), pos.contiguous(), idx, neigh_valid, w_e, b_e,
-                           gamma, beta, att_weight, inv)
+                           gamma, beta, att_weight, inv, stats, idx_marked)

@@ -165,6 +165,8 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
             to_dev(batch.x), to_dev(batch.pos), to_dev(batch.mask),
             to_dev(sampled_pos), to_dev(full["full_pos"]),
             to_dev(full["full_mask"]), generator,
+            # predict.exact_interpolation: the f32 two-op path instead of K3
+            fused=not pcfg.get("exact_interpolation"),
         )
         if device.type == "cuda":
             host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)

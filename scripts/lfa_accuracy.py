@@ -36,6 +36,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device")
         return 1
+    from myria3d_tpu_torch.ops import cuda_gather
+
+    if not hasattr(cuda_gather, "inverse_map_plain"):   # a tree whose map is the stable sort
+        cuda_gather.inverse_map_plain = cuda_gather.inverse_map
     spec = importlib.util.spec_from_file_location("cuda_kernel_tests", TESTS)
     cases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cases)

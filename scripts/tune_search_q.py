@@ -146,7 +146,7 @@ def main() -> int:
                 print("  resources: " + "; ".join(
                     f"{n} {u.get('reg')} registers, stack frame {u.get('stack')} B, "
                     f"spill stores {u.get('spill_stores')} B" for n, u in sorted(usage.items())
-                    if n.startswith(chip_smoke.SEARCH_KERNELS)))
+                    if n.startswith(("knn_topk_kernel<", "knn_interp_kernel<"))))
     _ext._lib = None
     return 0
 

@@ -10,8 +10,8 @@ Tolerances: K1 shares the plain version's arithmetic order and its
 takes the keys in (ties, duplicate points, unsorted clouds); K2 sums in
 another order (1e-4 of the output's scale); K3 divides the same f32 sums
 (1e-5); K4 sums the same f32 terms in another
-order (1e-5); K5 and K6 are held to their plain versions in float64
-(K5 1e-5; K6 recomputes the forward and sums over every edge: 1e-4 on dx,
+order (1e-5), over an inverse map equal to the plain version's; K5 and K6
+are held to their plain versions in float64 (K5 1e-5; K6 recomputes the forward and sums over every edge: 1e-4 on dx,
 1e-3 on the heavily cancelling d(att_w) and BN sums). K2 and K6 run their
 attention products in 3xTF32, which keeps them at f32 grade
 (``test_torch_lfa_tf32.py``), at every width the model uses. K7 shares its plain
@@ -23,10 +23,15 @@ import pytest
 import torch
 
 from myria3d_tpu_torch.models.model import Model, build_model, build_net
-from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, gather_bwd_plain, inverse_map
+from myria3d_tpu_torch.ops.cuda_gather import (
+    gather_bwd,
+    gather_bwd_plain,
+    inverse_map,
+    inverse_map_plain,
+)
 from myria3d_tpu_torch.ops.cuda_interp import knn_interp, knn_interp_plain
 from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu, knn_topk_plain
-from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention, lfa_attention_plain
+from myria3d_tpu_torch.ops.cuda_lfa import idx_with_invalid, lfa_attention, lfa_attention_plain
 from myria3d_tpu_torch.ops.cuda_lfa_train import (
     lfa_train_bwd,
     lfa_train_bwd_plain,
@@ -239,7 +244,13 @@ def _graph(b, n, k, dev, seed):
     return pos, mask, idx, nv
 
 
-@pytest.mark.parametrize("p", [7, 36, 64])
+# the gathers' widths on the unfused route ([pos | x] and lfa2's x per
+# block) and those of K6's dx scatters; one that is no multiple of 4 lanes
+# wide, and rows wider than one pass of a group in both layouts
+K4_WIDTHS = [7, 8, 19, 32, 35, 64, 67, 128, 4, 16, 36, 131, 260]
+
+
+@pytest.mark.parametrize("p", K4_WIDTHS)
 def test_k4_matches_plain(cuda_device, p):
     """The deterministic scatter equals the plain scatter-add up to the
     summation order (1e-5 of scale) and repeats bit for bit."""
@@ -257,14 +268,133 @@ def test_k4_matches_plain(cuda_device, p):
     assert torch.equal(got, again)
 
 
-def test_k5_matches_plain(cuda_device):
-    """Against the plain version in float64: K5's f32 sums of ~1e5 positive
-    products stay within 1e-5 of scale."""
-    pos, mask, idx, nv = _graph(2, 4096, 16, cuda_device, 9)
-    got, want = rel_stats(pos, idx, nv), rel_stats_plain(pos.double(), idx, nv)
+def test_k4_unaligned_rows_take_the_scalar_layout(cuda_device):
+    """Rows of a multiple of 4 floats that start off a 16-byte boundary are
+    read one float a lane: the same sums, bit for bit."""
+    pos, mask, idx, nv = _graph(2, 2048, 16, cuda_device, 8)
+    dout = torch.randn((2, 2048, 16, 32), device=cuda_device)
+    shifted = torch.empty(dout.numel() + 1, device=cuda_device)[1:].view(dout.shape).copy_(dout)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    inv = inverse_map(idx, nv, 2048)
+    assert torch.equal(gather_bwd(dout, idx, nv, inv, 2048), gather_bwd(shifted, idx, nv, inv, 2048))
+
+
+def _hub_graph(dev, case):
+    """(idx, nv, n_keys) of graphs the inverse map must order: a kNN graph
+    with invalid slots and an all-invalid cloud; every query choosing key 5
+    in every slot (one range of every slot of the cloud); queries and keys
+    of different counts."""
+    if case == "knn":
+        _, _, idx, nv = _lfa_graph(dev, 16, 0, 3072)
+        nv[1] = False
+        return idx, nv, 3072
+    g = torch.Generator(device="cpu").manual_seed(3)
+    if case == "hub":
+        idx = torch.full((2, 700, 8), 5, dtype=torch.int32)
+        idx[1] = torch.randint(0, 300, (700, 8), generator=g, dtype=torch.int32)
+        nv = torch.ones((2, 700, 8), dtype=torch.bool)
+        nv[0, ::3, 1] = False
+        return idx.to(dev), nv.to(dev), 300
+    if case == "long_ranges":
+        # a full-size cloud whose every slot chose one key; one with ranges
+        # just under, at and over the length where the block takes over,
+        # among ordinary ones
+        idx = torch.randint(0, 12288, (2, 12288, 16), generator=g, dtype=torch.int32)
+        idx[0] = 77
+        nv = torch.rand((2, 12288, 16), generator=g) < 0.97
+        flat, flat_nv = idx[1].view(-1), nv[1].view(-1)
+        ranges = ((3, 255), (4, 256), (5, 257), (12287, 3000))
+        for key, _ in ranges:
+            flat[flat == key] = 9
+        places = torch.randperm(flat.numel(), generator=g)
+        for key, d in ranges:
+            flat[places[:d]], flat_nv[places[:d]], places = key, True, places[d:]
+        return idx.to(dev), nv.to(dev), 12288
+    idx = torch.randint(0, 50, (3, 1000, 4), generator=g, dtype=torch.int32)
+    nv = torch.rand((3, 1000, 4), generator=g) < 0.8
+    return idx.to(dev), nv.to(dev), 50
+
+
+@pytest.mark.parametrize("case", ["knn", "hub", "few_keys", "long_ranges"])
+def test_inverse_map_matches_plain(cuda_device, case):
+    """The hand-built map equals the stable sort's: the same offsets, and
+    the same perm over every range (atomics place the slots, each range is
+    then ordered, so the result repeats)."""
+    idx, nv, n_keys = _hub_graph(cuda_device, case)
+    before = inverse_map.launches
+    got, want = inverse_map(idx, nv, n_keys), inverse_map_plain(idx, nv, n_keys)
+    again = inverse_map(idx, nv, n_keys)
     torch.cuda.synchronize()
+    assert inverse_map.launches == before + 2
+    n_valid = int(nv.sum())
+    assert int(got.offsets[-1]) == n_valid
+    assert got.offsets.dtype == got.perm.dtype == torch.int32
+    assert torch.equal(got.offsets, want.offsets)
+    assert torch.equal(got.perm[:n_valid], want.perm[:n_valid])
+    assert torch.equal(again.perm[:n_valid], got.perm[:n_valid])
+
+
+def test_inverse_map_long_range_in_bounded_time(cuda_device):
+    """A key that every slot of a full-size cloud chose (196 608 slots in
+    one range, in each of 16 clouds) is ordered by a walk of the cloud's
+    slots, not by a compare of every pair: the map takes milliseconds."""
+    idx = torch.full((16, 12288, 16), 4242, dtype=torch.int32, device=cuda_device)
+    nv = torch.ones((16, 12288, 16), dtype=torch.bool, device=cuda_device)
+    got = inverse_map(idx, nv, 12288)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = inverse_map(idx, nv, 12288)
+    end.record()
+    end.synchronize()
+    assert start.elapsed_time(end) < 50.0
+    want = torch.arange(16 * 12288 * 16, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(got.perm, want)
+    assert torch.equal(got.offsets, inverse_map_plain(idx, nv, 12288).offsets)
+
+
+def test_inverse_map_leaves_out_indices_outside_the_keys(cuda_device):
+    """A valid slot whose index is no key of its cloud is in no range (and
+    writes nowhere): the map of the graph without those slots."""
+    idx, nv, n_keys = _hub_graph(cuda_device, "few_keys")
+    bad = idx.clone()
+    bad[0, ::5, 0] = n_keys + 3
+    bad[2, 1::7, 2] = -2
+    inside = nv & (bad >= 0) & (bad < n_keys)
+    got, want = inverse_map(bad, nv, n_keys), inverse_map_plain(idx, inside, n_keys)
+    n_valid = int(inside.sum())
+    assert n_valid < int(nv.sum())
+    assert torch.equal(got.offsets, want.offsets)
+    assert torch.equal(got.perm[:n_valid], want.perm[:n_valid])
+
+
+# (N, K): the four train stages, K = 8, and K no power of two
+K5_CASES = [(12288, 16), (3072, 16), (768, 16), (192, 16), (3072, 8), (192, 8), (768, 12),
+            (192, 5)]
+
+
+@pytest.mark.parametrize("n,k", K5_CASES)
+def test_k5_matches_plain(cuda_device, n, k):
+    """Against the plain version in float64: K5's f32 sums of up to ~1e5
+    positive products a block stay within 1e-5 of scale; invalid slots and
+    an all-invalid cloud (zeros); bit-equal on a second call and on the
+    marked indices; one launch counted a call."""
+    pos, mask = _sorted_cloud(3, n, cuda_device, 9)
+    idx, _, nv = knn_graph(pos, mask, k, window=2048)
+    nv = nv.clone()
+    nv[:, ::7, k // 2:] = False
+    nv[2] = False
+    before = rel_stats.launches
+    got, again = rel_stats(pos, idx, nv), rel_stats(pos, idx, nv)
+    marked = rel_stats(pos, idx, nv, idx_with_invalid(idx, nv))
+    want = rel_stats_plain(pos.double(), idx, nv)
+    torch.cuda.synchronize()
+    assert rel_stats.launches == before + 3
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     assert torch.equal(got, got.transpose(1, 2))
+    assert (got[2] == 0).all() and (got[:, 11:] == 0).all()
+    assert got[0, 10, 10] == nv[0].sum()
+    assert torch.equal(got, again) and torch.equal(got, marked)
 
 
 def k6_args(dev, c_in, k, seed, n):
@@ -307,7 +437,8 @@ def test_k6_matches_plain(cuda_device, c_in, k, seed, n):
 @pytest.mark.parametrize("fused", [False, True])
 def test_train_step_runs_its_kernels(cuda_device, fused):
     """One train step per route: finite loss, and K4 (two gathers a block)
-    or K5 + K6 (once per LFA) launched."""
+    or K4 (the dx scatter of every LFA), K5 (once per block) and K6 (once
+    per LFA) launched; the inverse map once per block on both."""
     torch.manual_seed(0)
     model = build_model("RandLANet", {"num_features": 9, "num_classes": 7, "knn_window": 4608,
                                       "sort_inputs": True, "fused_train_lfa": fused})
@@ -316,10 +447,11 @@ def test_train_step_runs_its_kernels(cuda_device, fused):
     pos = pos[:, torch.randperm(4096, device=cuda_device)]   # the model sorts
     x = torch.rand((2, 4096, 9), device=cuda_device)
     y = torch.randint(0, 7, (2, 4096), device=cuda_device).masked_fill(~mask, 65)
-    counters = (gather_bwd, rel_stats, lfa_train_bwd)
+    counters = (gather_bwd, rel_stats, lfa_train_bwd, inverse_map)
     before = [f.launches for f in counters]
     loss, logits = model.train_step(x, pos, y, mask,
                                     torch.Generator(device=cuda_device).manual_seed(0))
     torch.cuda.synchronize()
     assert torch.isfinite(loss) and logits.shape == (2, 4096, 7)
-    assert [f.launches - b for f, b in zip(counters, before)] == ([0, 8, 8] if fused else [8, 0, 0])
+    assert [f.launches - b for f, b in zip(counters, before)] == ([8, 4, 8, 4] if fused
+                                                                  else [8, 0, 0, 4])

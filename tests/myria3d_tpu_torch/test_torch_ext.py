@@ -1,9 +1,11 @@
-"""The kernel library's resource report (``_ext.resource_usage``), which
+"""The kernel library's bindings (every ``extern "C"`` entry point of
+``csrc/`` has its argument types) and its resource report (``_ext.resource_usage``), which
 ``chip_smoke.py`` phase 2 reads to fail on a stack frame or spills in a
 K1/K3 instantiation: parsed here from a canned ``cuobjdump
 --dump-resource-usage`` listing and ``ptxas -v`` report in the formats the
 CUDA 12 toolkit prints (no toolkit is needed)."""
 
+import re
 import subprocess
 import types
 
@@ -66,3 +68,30 @@ def test_resource_usage_reads_cuobjdump_and_ptxas(tmp_path, monkeypatch):
         "reg": 113, "stack": 0, "local": 0, "spill_stores": 0, "spill_loads": 0}
     assert usage["lfa_bwd_kernel"] == {
         "reg": 128, "stack": 96, "local": 0, "spill_stores": 180, "spill_loads": 1176}
+
+
+def _entry_points():
+    """``{name: argument count}`` of every ``extern "C"`` function in csrc/."""
+    found = {}
+    for src in sorted(_ext.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    return found
+
+
+def test_every_entry_point_has_a_signature():
+    """ctypes cuts a pointer passed without ``argtypes``: every entry point
+    is bound, with as many argument types as the C function takes."""
+    entries = _entry_points()
+    assert set(entries) == set(_ext._SIGNATURES)
+    assert {n: len(sig) for n, sig in _ext._SIGNATURES.items()} == entries
+
+
+@pytest.mark.parametrize("name,pointers,ints", [
+    ("m3d_gather_bwd", 5, 2), ("m3d_inverse_map_count", 4, 3), ("m3d_inverse_map_fill", 6, 3),
+    ("m3d_relstats", 6, 5)])
+def test_train_graph_entry_points_are_bound(name, pointers, ints):
+    """K4, its inverse map and K5: pointers (and the stream) as ``void*``,
+    sizes as ``int``."""
+    sig = _ext._SIGNATURES[name]
+    assert sig.count(_ext._P) == pointers and sig.count(_ext._I) == ints

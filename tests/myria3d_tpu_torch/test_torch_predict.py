@@ -63,6 +63,31 @@ def test_predict_phases_and_resume(small_tile, tmp_path):
     assert run.launch_predict(cfg) == [out] and os.path.getmtime(out) == mtime
 
 
+@pytest.mark.parametrize("setting,fused", [(True, False), (False, True), (None, True)])
+def test_exact_interpolation_reaches_the_interpolation(small_tile, tmp_path, monkeypatch,
+                                                       setting, fused):
+    """``predict.exact_interpolation: true`` takes the f32 two-op
+    interpolation (``fused_payload=False``); false or absent takes K3's
+    fused path, as the JAX package's ``predict`` switches its step."""
+    from myria3d_tpu_torch.models import model as model_mod
+
+    seen = []
+    real = model_mod.knn_interpolate
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["fused_payload"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(model_mod, "knn_interpolate", spy)
+    cfg = run.compose_config(run.CONFIG_DIR, "config.yaml", _overrides(small_tile, tmp_path))
+    if setting is None:
+        cfg["predict"].pop("exact_interpolation", None)
+    else:
+        cfg["predict"]["exact_interpolation"] = setting
+    assert os.path.isfile(predict_mod.predict(cfg))
+    assert seen == [fused, fused]          # one full-cloud interpolation a batch
+
+
 @pytest.mark.parametrize("task", ["finetune"])
 def test_other_tasks_are_not_ported(task):
     with pytest.raises(NotImplementedError):

@@ -27,8 +27,14 @@ from myria3d_tpu_torch.models import optimizers as port_opt
 from myria3d_tpu_torch.models.criterion import CrossEntropyLoss
 from myria3d_tpu_torch.models.model import build_net
 from myria3d_tpu_torch.models.modules.nn import MaskedBatchNorm
-from myria3d_tpu_torch.models.modules.randla_net import FUSED_TRAIN_MIN_BATCH, use_fused_train_lfa
-from myria3d_tpu_torch.ops.cuda_gather import gather_bwd_plain, gather_neighbors
+from myria3d_tpu_torch.models.modules import randla_net
+from myria3d_tpu_torch.models.modules.randla_net import (
+    FUSED_TRAIN_MIN_BATCH,
+    DilatedResidualBlock,
+    use_fused_train_lfa,
+)
+from myria3d_tpu_torch.ops import cuda_lfa_train
+from myria3d_tpu_torch.ops.cuda_gather import gather_bwd_plain, gather_neighbors, inverse_map
 from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train, rel_stats_plain
 from myria3d_tpu_torch.ops.knn import knn_graph
 from myria3d_tpu_torch.ops.masked import masked_mean, masked_var
@@ -160,6 +166,46 @@ def test_k4_gather_and_vjp_match_jax_kernel():
                                payload.grad.numpy(), rtol=1e-6, atol=1e-6)
 
 
+def _inverse_map_case(case):
+    """(idx, nv, n_keys): a kNN graph with pads; every query of a cloud
+    choosing key 3 in every slot; a cloud with no valid slot; random keys
+    with random validity."""
+    if case == "knn":
+        _, _, _, idx, nv = _sorted_graph(2, 256, 8, 1, seed=11)
+        return idx, nv, 256
+    rng = np.random.default_rng(12)
+    idx = rng.integers(0, 40, (3, 90, 4)).astype(np.int32)
+    nv = rng.uniform(size=(3, 90, 4)) < 0.8
+    if case == "hub":
+        idx[1], nv[1] = 3, True
+    elif case == "all_invalid_cloud":
+        nv[0] = False
+    return _t(idx), _t(nv), 40
+
+
+@pytest.mark.parametrize("case", ["knn", "hub", "all_invalid_cloud", "random"])
+def test_inverse_map_properties(case):
+    """What K4 needs of its map, and what the card's hand-built map is held
+    to: ``offsets`` ascending from 0 to the count of valid slots; key q's
+    range lists exactly the valid slots that chose q, in ascending order;
+    invalid slots are in no range."""
+    idx, nv, n_keys = _inverse_map_case(case)
+    inv = inverse_map(idx, nv, n_keys)
+    b = idx.shape[0]
+    perm, offsets = inv.perm.numpy(), inv.offsets.numpy()
+    assert offsets.shape == (b * n_keys + 1,) and offsets[0] == 0
+    assert (np.diff(offsets) >= 0).all() and offsets[-1] == int(nv.sum())
+    key = (idx.numpy().astype(np.int64) + np.arange(b)[:, None, None] * n_keys).reshape(-1)
+    valid = nv.numpy().reshape(-1)
+    for q in range(b * n_keys):
+        want = np.flatnonzero(valid & (key == q))
+        np.testing.assert_array_equal(perm[offsets[q]:offsets[q + 1]], want)
+    if case == "hub":
+        assert offsets[n_keys + 4] - offsets[n_keys + 3] == idx[1].numel()
+    if case == "all_invalid_cloud":
+        assert offsets[n_keys] == 0
+
+
 # ---------------------------------------------------------------------------
 # K5 and the fused train LFA (the JAX kernel test's bf16-exact case)
 
@@ -249,6 +295,48 @@ def test_fused_lfa_matches_jax_kernel(lfa_case):
     for name, a, b in zip(["x", "w_e", "b_e", "gamma", "beta", "att_t"], grads, want_grads):
         np.testing.assert_allclose(a / scale, np.asarray(b) / scale, rtol=0, atol=2e-3,
                                    err_msg=name)
+
+
+def test_fused_block_shares_one_rel_stats(monkeypatch):
+    """The fused train block computes K5's statistics once (they depend on
+    the graph alone) and hands them to both LFAs; output, running moments
+    and every gradient equal those with per-LFA statistics exactly."""
+    rng = np.random.default_rng(13)
+    b, n, d_in, d_out = 2, 160, 8, 32
+    pos = np.sort(rng.uniform(0, 20, (b, n, 3)).astype(np.float32), axis=1)
+    mask = np.arange(n)[None] < np.array([n, n - 37])[:, None]
+    x = rng.normal(size=(b, n, d_in)).astype(np.float32)
+    calls = {"block": 0, "lfa": 0}
+
+    def counted(where, fn):
+        def wrapper(*args, **kwargs):
+            calls[where] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(randla_net, "rel_stats", counted("block", randla_net.rel_stats))
+    monkeypatch.setattr(cuda_lfa_train, "rel_stats", counted("lfa", cuda_lfa_train.rel_stats))
+
+    def run(shared):
+        torch.manual_seed(0)
+        block = DilatedResidualBlock(8, d_in, d_out, bn_momentum=0.1).train()
+        if not shared:   # each LFA computes its own statistics
+            for lfa in (block.lfa1, block.lfa2):
+                fwd = lfa.forward
+                lfa.forward = lambda *a, _fwd=fwd, **kw: _fwd(*a, **{**kw, "stats": None})
+        xt = _t(x).requires_grad_(True)
+        out = block(xt, _t(pos), _t(mask), fused_train=True)
+        (out * out).sum().backward()
+        grads = [xt.grad] + [p.grad for p in block.parameters()]
+        return out.detach(), grads, [buf.clone() for buf in block.buffers()]
+
+    out, grads, bufs = run(shared=True)
+    assert calls == {"block": 1, "lfa": 0}
+    out2, grads2, bufs2 = run(shared=False)
+    assert calls == {"block": 2, "lfa": 2}
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a, c) for a, c in zip(grads, grads2))
+    assert all(torch.equal(a, c) for a, c in zip(bufs, bufs2))
 
 
 # ---------------------------------------------------------------------------
