@@ -10,11 +10,11 @@ PyTorch built for CUDA. Phases, one line each:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. the kernels built from ``myria3d_tpu_torch/csrc`` (nvcc, sm_90a), and
    each kernel's registers, stack frame and spill bytes (``cuobjdump
-   --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3
-   instantiation, every width's K2/K6 instantiation, every K4
-   instantiation and K5 must have neither a stack frame, local memory nor
-   spills; K2's and K6's dynamic shared memory and blocks per SM at each
-   width;
+   --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3/K7
+   instantiation (K7: K = 1, 16 and the generic 32), every width's K2/K6
+   instantiation, every K4 instantiation and K5 must have neither a stack
+   frame, local memory nor spills; K2's and K6's dynamic shared memory and
+   blocks per SM at each width;
 3. each kernel against its plain PyTorch version at the predict step's
    stage shapes (B=48 subtiles, N=12288 sampled, M=32768 full points):
    K1 (kNN) bit-equal on indices and d2, K2 (fused LFA) within 1e-4 and K3
@@ -56,14 +56,19 @@ PyTorch built for CUDA. Phases, one line each:
    the inverse map 4), and the
    cosine of the whole-model gradient between the routes and between the
    paths (>= 0.999);
-9. K7 (``knn_topk(variant="mxu")``, the expanded-score full scan): its path
-   run at the full-scan shapes of the predict step (self 768 and self 192,
-   B=48) and at a full-scan self 12288 (B=48); indices bit-equal to its
-   plain version and d2 within 1e-6 relative; against K1's full scan on the
+9. K7 (``knn_topk(variant="mxu")``, the expanded-score full scan on K1's
+   search): its path run at the full-scan shapes of the predict step (self
+   768 and self 192, B=48) and at a full-scan self 12288 (B=48); indices
+   and d2 bit-equal to its plain version (which scans every padded
+   position); against K1's full scan on the
    same clouds, equal index sets wherever the gap between the k-th and
    (k+1)-th distances exceeds twice the expanded form's rounding bound
-   (16 eps (|q|^2 + max |k|^2)) and d2 within that bound there; K7 and K1
-   timed side by side;
+   (16 eps (|q|^2 + max |k|^2)) and d2 within that bound there; K7 and K1's
+   full scan timed side by side (the card's time, the host running ahead;
+   K7 also as enqueued), K7's bound on the positions it scans
+   (``mxu_scan_len``: the keys and k virtual pad rows) at 5 instructions a
+   pair, its filter (the exact score of the few pairs that pass is not
+   counted);
 10. the full-cloud test path: ``Trainer.test`` on the toy-tile subtiles
    (with their full-cloud copies) and phase 7's B=32 checkpoint; K1, K2 and
    K3 launched, ``test/loss_epoch`` and the mean IoU printed, and held
@@ -117,6 +122,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 67e12 / 2
 TF32_FMA_PER_S = 495e12 / 2                  # dense TF32 tensor cores, FMA as two flops
 PAIR_INSTR = 8                               # per (query, key) pair of a search
+MXU_PAIR_INSTR = 5                           # K7's filter a pair: a product, 3 FMAs, compare
 
 
 class PhaseError(RuntimeError):
@@ -320,11 +326,12 @@ def phase_device():
 
 
 # kernels that must have no stack frame, local memory or spills, and how
-# many instantiations each family has: K1/K3 (topk.cuh's search), K2 and K6
-# (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows)
+# many instantiations each family has: K1/K3/K7 (topk.cuh's search), K2 and
+# K6 (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows)
 # and K5
-CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "lfa_kernel<": 6,
-                 "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2, "relstats_kernel<": 2}
+CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "knn_topk_mxu_kernel<": 3,
+                 "lfa_kernel<": 6, "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2,
+                 "relstats_kernel<": 2}
 
 
 def phase_build():
@@ -345,7 +352,7 @@ def phase_build():
     clean = {n: u for n, u in usage.items() if n.startswith(tuple(CLEAN_KERNELS))}
     bad = [n for n, u in clean.items()
            if any(u.get(key) != 0 for key in ("stack", "local", "spill_stores", "spill_loads"))]
-    need(not bad, f"K1-K6 instantiations with a stack frame, local memory or spills: {bad}")
+    need(not bad, f"K1-K7 instantiations with a stack frame, local memory or spills: {bad}")
     from myria3d_tpu_torch.ops.cuda_lfa import WIDTHS, launch_info
     from myria3d_tpu_torch.ops.cuda_lfa_train import bwd_launch_info
 
@@ -1015,13 +1022,12 @@ def phase_train_step(dev):
     return rows
 
 
-def phase_knn_mxu(dev):
-    """K7: its path run, then held against its plain version and K1's full
-    scan, and timed beside K1."""
+def knn_mxu_stages(dev):
+    """Phase 9's clouds: [(pos, mask)] of B=48 bench subtiles (seed 2) at
+    12288 points and three random decimations by 4 (3072, 768, 192)."""
     import torch
 
-    from myria3d_tpu_torch.ops.cuda_knn import BINS, knn_topk, knn_topk_mxu, knn_topk_plain
-    from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows
+    from myria3d_tpu_torch.ops.knn import gather_rows
     from myria3d_tpu_torch.ops.sampling import random_decimation
 
     _, pos, mask, _, _ = (torch.from_numpy(a).to(dev) for a in bench_subtiles(2))
@@ -1031,6 +1037,18 @@ def phase_knn_mxu(dev):
         p, m = stages[-1]
         idx, m2 = random_decimation(m, 4, gen)
         stages.append((gather_rows(p, idx), m2))
+    return stages
+
+
+def phase_knn_mxu(dev):
+    """K7: its path run, then held against its plain version and K1's full
+    scan, and timed beside K1."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu, knn_topk_plain, mxu_scan_len
+    from myria3d_tpu_torch.ops.knn import centred_clouds
+
+    stages = knn_mxu_stages(dev)
     cases = [(f"K=16 self {stages[i][0].shape[1]}", *centred_clouds(stages[i][0], stages[i][0],
                                                                       stages[i][1]), stages[i][1])
              for i in (2, 3, 0)]
@@ -1049,7 +1067,7 @@ def phase_knn_mxu(dev):
         idx_p, d_p = knn_topk_plain(q4, k4, 16, variant="mxu")
         need(bool(torch.equal(idx7, idx_p)), f"K7 {label}: indices differ from the plain version")
         err = float((d7 - d_p).abs().max())
-        need(bool(((d7 - d_p).abs() <= 1e-6 * d_p.abs().clamp(min=1.0)).all()),
+        need(bool(torch.equal(d7, d_p)),
              f"K7 {label}: d2 differs from the plain version by {err:.3g}")
         # against K1's exact difference form: where the k-th and (k+1)-th
         # true distances are further apart than twice the expanded form's
@@ -1063,15 +1081,17 @@ def phase_knn_mxu(dev):
              "differ from K1's outside the rounding bound")
         d_err = ((d7 - d1[..., :16]).abs() - tol[..., None])[clear]
         need(bool((d_err <= 0).all()), f"K7 {label}: d2 off K1's by more than the bound")
-        ms = cuda_ms(lambda: knn_topk(q4, k4, 16, variant="mxu"), 5)
-        k1_ms = cuda_ms(lambda: knn_topk(q4, k4, 16), 5)
+        ms = cuda_ms(lambda: knn_topk(q4, k4, 16, variant="mxu"), 5, ahead=True)
+        enqueued_ms = cuda_ms(lambda: knn_topk(q4, k4, 16, variant="mxu"), 5)
+        k1_ms = cuda_ms(lambda: knn_topk(q4, k4, 16), 5, ahead=True)
         plain_ms = cuda_ms(lambda: knn_topk_plain(q4, k4, 16, variant="mxu"), 1)
-        pairs = q4.shape[0] * q4.shape[1] * (-(-k4.shape[1] // BINS) * BINS)
-        bnd = bound(PAIR_INSTR * pairs, nbytes(q4, k4, idx7, d7))
+        pairs = q4.shape[0] * q4.shape[1] * mxu_scan_len(k4.shape[1], 16)
+        bnd = bound(MXU_PAIR_INSTR * pairs, nbytes(q4, k4, idx7, d7))
         stats.append((err, ms, plain_ms, bnd, None))
         print(f"phase 9 K7 {label} B={q4.shape[0]} (full scan): max_abs_err {err:.3g}, "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound_ms {bnd[0]:.4f} ({bnd[1]}); "
-              f"K1 full scan {k1_ms:.3f} ms; vs K1: {int(clear.sum())} of {int(qm.sum())} valid "
+              f"{ms:.4f} ms ({enqueued_ms:.4f} ms as enqueued), plain {plain_ms:.3f} ms, "
+              f"bound_ms {bnd[0]:.4f} ({bnd[1]}); "
+              f"K1 full scan {k1_ms:.4f} ms; vs K1: {int(clear.sum())} of {int(qm.sum())} valid "
               f"queries checked (k-th gap above twice the bound, max {float(tol.max()):.3g})")
     return stats, launches
 

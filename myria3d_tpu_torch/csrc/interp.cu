@@ -52,8 +52,8 @@ __global__ void __launch_bounds__(TILE_Q / Q) knn_interp_kernel(
   const int start = bases ? bases[b * n_tiles + tile] * BINS : 0;
 
   TopK<K> top[Q];
-  search_tile<K, Q>(smem, keys + (size_t)b * nk, nk, start, win_len, tile_x, warp_x, live,
-                    qv, top);
+  search_tile<SqDist, K, Q>(smem, keys + (size_t)b * nk, nk, start, win_len, tile_x, warp_x,
+                            live, qv, top);
 
   const float* xb = x + (size_t)b * nk * c;
 #pragma unroll

@@ -27,20 +27,27 @@
 // (the MXU variant: a contraction-depth-4 dot_general at
 // Precision.HIGHEST, per-bin running minima, then k extraction passes; the
 // caller adds |q|^2 back and clamps at 0, pallas_knn.py:857-858, which the
-// wrapper does in torch). One block per (256-query tile, cloud), one thread
-// per query, keys streamed in position order through a shared slab, the
-// register K-list of topk.cuh (K = 1, 16, or the generic 32), every key of
-// the cloud scanned (the JAX kernel is exact when its bins cover the
-// padded key count, the contract kept here).
-// Bound on the H100: FP32 issue, ~8 instructions per (query, key) pair
-// (4 products, 3 sums and the add of |k|^2, plus the compare): |k|^2 is
-// computed once per staged key by the loading thread and shared by the
-// 256 queries of the block, and -2q is folded into the query once (an
-// exact power-of-two scaling), so the pair costs no more than K1's
-// difference form. No tensor cores: a depth-4 contraction gains nothing
-// from them, and TF32 would not keep the f32 ranking that HIGHEST asks
-// for. The score is negative for most near keys (it is d2 - |q|^2): the
-// K-list compares floats, so the order is right for negative scores.
+// wrapper does in torch). It runs on the same search as K1 with the
+// ``Expanded`` score of topk.cuh: y-banded warps, centre-out order, the
+// cp.async ring, two keys a branch. The loading thread writes |k|^2 into
+// the staged key's w slot and the query is scaled by -2 once (exact); a
+// pair is filtered on a product and 3 FMAs (``Expanded::bound``, proved to
+// let through every pair the exact score would) and only a pair that
+// passes is scored in the plain association (3 products, 3 sums). Every
+// real key of the cloud is tested (the JAX kernel is exact when its bins
+// cover the padded key count, the contract kept here), and of the virtual
+// pad rows only the first k: they all score PAD_W^2 exactly and ties go to
+// the lower index, so no later one can enter
+// (``ops/cuda_knn.py::mxu_scan_len``).
+// Bound on the H100: FP32 issue, 5 instructions per pair scanned (the
+// filter's product, 3 FMAs and the compare; the exact score of the few
+// pairs that pass is not counted). What holds it above: the insertions a
+// warp waits on while its lists fill, and the scan's shared-memory loads
+// and branches. No tensor cores: TF32 does not keep the f32 ranking that
+// HIGHEST asks for, 3xTF32 cannot reproduce the plain association bit for
+// bit, and a contraction of depth 4 would leave them nearly idle. The
+// score is negative for most near keys (it is d2 - |q|^2): the K-list
+// compares floats, so the order is right for negative scores.
 #include "topk.cuh"
 
 namespace m3d {
@@ -89,8 +96,8 @@ __global__ void __launch_bounds__(TILE_Q / Q) knn_topk_kernel(
   const int start = bases ? bases[b * n_tiles + tile] * BINS : 0;
 
   TopK<K> top[Q];
-  search_tile<K, Q>(smem, keys + (size_t)b * nk, nk, start, win_len, tile_x, warp_x, live,
-                    qv, top);
+  search_tile<SqDist, K, Q>(smem, keys + (size_t)b * nk, nk, start, win_len, tile_x, warp_x,
+                            live, qv, top);
 #pragma unroll
   for (int j = 0; j < Q; ++j) {
     if (use[j]) {
@@ -113,70 +120,49 @@ static int launch(const float4* q, const float4* keys, const int* bases,
   return static_cast<int>(cudaGetLastError());
 }
 
-// |k|^2 in a fixed association, every op rounded on its own (no FMA
-// contraction), as the plain version sums it: ((x*x + y*y) + z*z) + w*w.
-__device__ __forceinline__ float sq_norm(float4 k) {
-  float s = __fmul_rn(k.x, k.x);
-  s = __fadd_rn(s, __fmul_rn(k.y, k.y));
-  s = __fadd_rn(s, __fmul_rn(k.z, k.z));
-  return __fadd_rn(s, __fmul_rn(k.w, k.w));
-}
-
-// kn + (-2q).k, products summed x, y, z, w in order, every op rounded on
-// its own: bit for bit kn - 2 (q.k), since scaling by -2 is exact.
-__device__ __forceinline__ float expanded_score(float4 q2, float4 k, float kn) {
-  float c = __fmul_rn(q2.x, k.x);
-  c = __fadd_rn(c, __fmul_rn(q2.y, k.y));
-  c = __fadd_rn(c, __fmul_rn(q2.z, k.z));
-  c = __fadd_rn(c, __fmul_rn(q2.w, k.w));
-  return __fadd_rn(kn, c);
-}
-
-template <int K>
-__global__ void __launch_bounds__(TILE_Q) knn_topk_mxu_kernel(
-    const float4* __restrict__ q, const float4* __restrict__ keys, int nq,
-    int nk, int nk_pad, int k, int* __restrict__ idx_out,
-    float* __restrict__ score_out) {
-  __shared__ float4 slab[CHUNK];
-  __shared__ float norms[CHUNK];
+// K = 16 is held to 64 registers, four blocks an SM (on an H100 SXM, self
+// 12288 B=48: 3.92 ms, against 4.12 at 72 registers; scripts/tune_search_q.py).
+template <int K, int Q>
+__global__ void __launch_bounds__(TILE_Q / Q, K == 16 ? 4 : 1) knn_topk_mxu_kernel(
+    const float4* __restrict__ q, const float4* __restrict__ keys, int nq, int nk,
+    int n_scan, int k, int* __restrict__ idx_out, float* __restrict__ score_out) {
+  extern __shared__ float4 smem[];
   const int b = blockIdx.y;
-  const int qi = blockIdx.x * TILE_Q + threadIdx.x;
-  const bool active = qi < nq;
-  const size_t row = (size_t)b * nq + qi;
-  const float4 qv = active ? q[row] : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 q2 = make_float4(-2.f * qv.x, -2.f * qv.y, -2.f * qv.z,
-                                -2.f * qv.w);
-  const float4* kb = keys + (size_t)b * nk;
+  int rows[Q];
+  float4 qv[Q];
+  bool use[Q];
+  float tile_x, warp_x;
+  tile_queries<Q>(smem, q + (size_t)b * nq, nullptr, nq, blockIdx.x, rows, qv, use, tile_x,
+                  warp_x);
+  const bool live = __any_sync(0xffffffffu, use[0]);
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    qv[j] = make_float4(__fmul_rn(-2.f, qv[j].x), __fmul_rn(-2.f, qv[j].y),
+                        __fmul_rn(-2.f, qv[j].z), 0.f);
+  }
 
-  TopK<K> top;
-  top.init();
-  for (int c0 = 0; c0 < nk_pad; c0 += CHUNK) {
-    const int n = min(CHUNK, nk_pad - c0);
-    __syncthreads();
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const int p = c0 + t;
-      const float4 kv = p < nk ? kb[p] : make_float4(0.f, 0.f, 0.f, PAD_W);
-      slab[t] = kv;
-      norms[t] = sq_norm(kv);
-    }
-    __syncthreads();
-    if (active) {
-      for (int t = 0; t < n; ++t) {
-        const float s = expanded_score(q2, slab[t], norms[t]);
-        if (top.admits(s)) top.push(s, c0 + t);
-      }
+  TopK<K> top[Q];
+  search_tile<Expanded, K, Q>(smem, keys + (size_t)b * nk, nk, 0, n_scan, tile_x, warp_x,
+                              live, qv, top);
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    if (rows[j] < nq) {  // use[j]: no query mask (one register less)
+      const size_t row = (size_t)b * nq + rows[j];
+      store_list<K>(top[j], k, idx_out + row * k, score_out + row * k);
     }
   }
-  if (active) store_list<K>(top, k, idx_out + row * k, score_out + row * k);
 }
 
-template <int K>
-static void launch_mxu(const float4* q, const float4* keys, int B, int nq,
-                       int nk, int nk_pad, int k, int* idx, float* score,
-                       cudaStream_t stream) {
+template <int K, int Q>
+static int launch_mxu(const float4* q, const float4* keys, int B, int nq, int nk, int n_scan,
+                      int k, int* idx, float* score, cudaStream_t stream) {
+  static std::atomic<unsigned long long> ready{0};
+  const cudaError_t e = allow_search_smem(knn_topk_mxu_kernel<K, Q>, ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((nq + TILE_Q - 1) / TILE_Q, B);
-  knn_topk_mxu_kernel<K><<<grid, TILE_Q, 0, stream>>>(
-      q, keys, nq, nk, nk_pad, k, idx, score);
+  knn_topk_mxu_kernel<K, Q><<<grid, TILE_Q / Q, search_smem_bytes(n_scan), stream>>>(
+      q, keys, nq, nk, n_scan, k, idx, score);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace m3d
@@ -202,13 +188,13 @@ extern "C" int m3d_knn_topk(const void* q, const void* keys,
   return launch<32, 1>(qp, kp, bp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
 }
 
-// K7. q (B, nq, 4) f32 centred queries; keys (B, nk, 4) f32 centred keys
-// (w = 0 valid, 1e4 pad); nk_pad key positions scanned (a multiple of 512:
-// positions at or past nk are pad rows). Writes idx (B, nq, k) i32 and the
-// expanded scores |k|^2 - 2 q.k (B, nq, k) f32, ascending, ties to the
-// lower key index. 1 <= k <= 32.
+// K7. q (B, nq, 4) f32 centred queries (w read as 0); keys (B, nk, 4) f32
+// centred keys (w = 0 valid, 1e4 pad); n_scan key positions scanned
+// (positions at or past nk are virtual pad rows). Writes idx (B, nq, k) i32
+// and the expanded scores |k|^2 - 2 q.k (B, nq, k) f32, ascending, ties to
+// the lower key index. 1 <= k <= 32.
 extern "C" int m3d_knn_topk_mxu(const void* q, const void* keys, int B,
-                                int nq, int nk, int nk_pad, int k, void* idx,
+                                int nq, int nk, int n_scan, int k, void* idx,
                                 void* score, void* stream) {
   using namespace m3d;
   auto s = static_cast<cudaStream_t>(stream);
@@ -216,12 +202,7 @@ extern "C" int m3d_knn_topk_mxu(const void* q, const void* keys, int B,
   auto kp = static_cast<const float4*>(keys);
   auto ip = static_cast<int*>(idx);
   auto sp = static_cast<float*>(score);
-  if (k == 1) {
-    launch_mxu<1>(qp, kp, B, nq, nk, nk_pad, k, ip, sp, s);
-  } else if (k == 16) {
-    launch_mxu<16>(qp, kp, B, nq, nk, nk_pad, k, ip, sp, s);
-  } else {
-    launch_mxu<32>(qp, kp, B, nq, nk, nk_pad, k, ip, sp, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (k == 1) return launch_mxu<1, 2>(qp, kp, B, nq, nk, n_scan, k, ip, sp, s);
+  if (k == 16) return launch_mxu<16, 1>(qp, kp, B, nq, nk, n_scan, k, ip, sp, s);
+  return launch_mxu<32, 1>(qp, kp, B, nq, nk, n_scan, k, ip, sp, s);
 }

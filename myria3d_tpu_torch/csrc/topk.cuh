@@ -1,17 +1,22 @@
-// Shared search of the exact windowed kNN kernels K1 (knn.cu) and K3
-// (interp.cu), and the K-list that K7 (knn.cu) also keeps.
+// Shared search of the exact kNN kernels K1 and K7 (knn.cu) and K3
+// (interp.cu).
 //
 // One block covers one tile of 256 queries of one cloud and the tile's
 // window of x-sorted key positions (``ops/cuda_knn.py::window_bases``);
 // positions at or past ``nk`` are the virtual pad rows (0, 0, 0, PAD_W).
 // Selection is exact: the K smallest (d2, index) pairs of the window in
-// lexicographic order, d2 summed in the plain version's association.
+// lexicographic order, the score summed in the plain version's association.
+// The score of a pair is a policy of the search: the squared distance
+// (``SqDist``: K1, K3) or the expanded score |k|^2 - 2 q.k (``Expanded``:
+// K7), whose selection and order are the same wherever the scan goes.
 //
 // Bound on the H100: FP32 issue. A (query, key) pair costs 3 subtractions,
-// 3 products and 3 sums, each rounded on its own (no FMA, for the plain
-// version's bits), plus the compare against the K-th best; the bound that
-// chip_smoke.py prints counts 8 instructions per pair at 33.5 T/s. The
-// design keeps everything else off that path:
+// 3 products and 3 sums (SqDist), each rounded on its own (no FMA, for the
+// plain version's bits), plus the compare against the K-th best; the
+// expanded score filters on a product and 3 FMAs and scores exactly only
+// what passes (``Gate``). The bound that chip_smoke.py prints counts 8
+// instructions per pair at 33.5 T/s. The design keeps everything else off
+// that path:
 //
 // 1. The K-list is a compile-time size held in registers (``TopK<K>``):
 //    K = 16 (encoder self-kNN), 1 (decoder searches), 10 (K3), and one
@@ -33,7 +38,9 @@
 //    far faster than Q = 4), Q = 2 for K = 1 (40 registers; its insertion
 //    is cheap, so sharing the reads wins: 11 % faster than Q = 4), Q = 1
 //    for the generic 32-slot list (two such lists spilled at 168
-//    registers). Four blocks of a 56 KB window fit an SM.
+//    registers). Four blocks of a 56 KB window fit an SM. K7's full scans
+//    (self 12288, B=48) keep the same choices: Q = 2 for K = 16 was 33 %
+//    slower, Q = 1 for K = 1 18 % slower and Q = 4 3 % slower.
 // 3. Near keys first. Each warp binary-searches its queries' mean x into
 //    the staged (x-sorted) keys and walks outward, alternately right and
 //    left, to both ends: the list fills with near keys at once and later
@@ -48,8 +55,10 @@
 //    once. Longer windows and full scans stream through a double-buffered
 //    ring of RING-key chunks, the next chunk's copy in flight while the
 //    current one is scanned, the chunks taken centre-out from the chunk
-//    that holds the tile's middle x. The loading thread squares w once per
-//    key, so the pad term costs nothing per pair.
+//    that holds the tile's middle x (RING = 1024: a 32 KB ring lets four
+//    blocks share an SM; 2048 measured 4-16 % slower on K3's and K7's full
+//    scans). The loading thread prepares each key's w slot once (w^2, or
+//    |k|^2 for the expanded score), so that term costs one add per pair.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,27 +71,83 @@ namespace m3d {
 
 constexpr int TILE_Q = 256;      // queries per block == window tile
 constexpr int BINS = 512;        // window base granularity (key positions)
-constexpr int CHUNK = 1024;      // K7's staging chunk (keys)
 constexpr int STAGE_MAX = 5120;  // longest window staged whole (80 KB)
-constexpr int RING = 2048;       // ring chunk of longer scans (2 x 32 KB)
+constexpr int RING = 1024;       // ring chunk of longer scans (2 x 16 KB)
 constexpr float PAD_W = 1e4f;    // 4th coordinate of pad keys
 
-// Dynamic shared memory of a K1/K3 block scanning ``win_len`` positions.
+// Dynamic shared memory of a block scanning ``win_len`` positions (at least
+// the 512 words that ``tile_queries`` borrows).
 inline size_t search_smem_bytes(int win_len) {
-  return static_cast<size_t>(win_len <= STAGE_MAX ? win_len : 2 * RING) * sizeof(float4);
+  const size_t slab = static_cast<size_t>(win_len <= STAGE_MAX ? win_len : 2 * RING);
+  return slab * sizeof(float4) > 2 * TILE_Q * sizeof(float) ? slab * sizeof(float4)
+                                                              : 2 * TILE_Q * sizeof(float);
 }
 
-// Squared distance to a staged key whose w already holds w * w, in the
-// association of the plain version ((w^2 + dx^2) + dy^2) + dz^2, every op
-// rounded on its own (no FMA contraction). Queries carry w = 0.
-__device__ __forceinline__ float sq_dist(float4 q, float4 k) {
-  const float dx = __fsub_rn(q.x, k.x);
-  float s = __fadd_rn(k.w, __fmul_rn(dx, dx));
-  const float dy = __fsub_rn(q.y, k.y);
-  s = __fadd_rn(s, __fmul_rn(dy, dy));
-  const float dz = __fsub_rn(q.z, k.z);
-  return __fadd_rn(s, __fmul_rn(dz, dz));
-}
+// The scores of the search. ``prepare`` is what the loading thread writes
+// once into a staged key's w slot, ``score`` a pair's score against that
+// staged key, every op rounded on its own (no FMA contraction), in the
+// association of the plain version. Queries carry w = 0. A virtual pad row
+// (0, 0, 0, PAD_W) prepares to PAD_W^2 under both, which stage_async writes.
+//
+// ``bounded``: the scan filters pairs on a cheaper bound first (``Gate``).
+//
+// SqDist (K1, K3): the squared distance ((w^2 + dx^2) + dy^2) + dz^2.
+struct SqDist {
+  static constexpr bool bounded = false;
+  static __device__ __forceinline__ float prepare(float4 k) { return __fmul_rn(k.w, k.w); }
+  static __device__ __forceinline__ float score(float4 q, float4 k) {
+    const float dx = __fsub_rn(q.x, k.x);
+    float s = __fadd_rn(k.w, __fmul_rn(dx, dx));
+    const float dy = __fsub_rn(q.y, k.y);
+    s = __fadd_rn(s, __fmul_rn(dy, dy));
+    const float dz = __fsub_rn(q.z, k.z);
+    return __fadd_rn(s, __fmul_rn(dz, dz));
+  }
+};
+
+// Expanded (K7): kn + (-2q).k with kn = ((x*x + y*y) + z*z) + w*w, the
+// products summed x, y, z, w in order; the query comes scaled by -2 (exact).
+// The w product is left out, and that is exact: the query's w is +-0, so
+// (-2 q.w) k.w is +-0, and c + (+-0) differs from c at most in the sign of
+// a zero c, which kn + c (kn >= +0) does not see.
+struct Expanded {
+  static constexpr bool bounded = true;
+  static __device__ __forceinline__ float prepare(float4 k) {
+    float s = __fmul_rn(k.x, k.x);
+    s = __fadd_rn(s, __fmul_rn(k.y, k.y));
+    s = __fadd_rn(s, __fmul_rn(k.z, k.z));
+    return __fadd_rn(s, __fmul_rn(k.w, k.w));
+  }
+  static __device__ __forceinline__ float score(float4 q2, float4 k) {
+    float c = __fmul_rn(q2.x, k.x);
+    c = __fadd_rn(c, __fmul_rn(q2.y, k.y));
+    c = __fadd_rn(c, __fmul_rn(q2.z, k.z));
+    return __fadd_rn(k.w, c);
+  }
+  // The filter's bound, a product and 3 FMAs: kn (1 - 2^-19) + (-2q).k,
+  // one rounding an op. With u = 2^-24, S = kn + (-2q).k exactly and M =
+  // kn + sum |q2_i k_i| <= 2 kn + |q|^2 (Cauchy-Schwarz, kn >= |k|^2): the
+  // score is within 4 u M of S (3 products, 3 sums) and the bound within
+  // u kn + 3 u M of S - 32 u kn, so
+  //   bound <= score + 7 u M + u kn - 32 u kn <= score + 7 u |q|^2 (1 + 4u).
+  // A pair whose score is at most the K-th best s_K thus has a bound below
+  // s_K + 2^-19 |q|^2 (``limit``, rounded up; 2^-120 more covers the
+  // absolute error of ops in the subnormal range): the bound lets through
+  // every pair the score would, and the score then decides as before.
+  static __device__ __forceinline__ float bound(float4 q2, float4 k) {
+    float r = __fmul_rn(k.w, 1.f - 0x1p-19f);
+    r = __fmaf_rn(q2.x, k.x, r);
+    r = __fmaf_rn(q2.y, k.y, r);
+    return __fmaf_rn(q2.z, k.z, r);
+  }
+  // 2^-19 |q|^2 + 2^-120 from q2 = -2q (2^-19 |q|^2 = 2^-21 |q2|^2).
+  static __device__ __forceinline__ float slack(float4 q2) {
+    return 0x1p-21f * (q2.x * q2.x + q2.y * q2.y + q2.z * q2.z) + 0x1p-120f;
+  }
+  static __device__ __forceinline__ float limit(float worst, float slack) {
+    return __fadd_ru(worst, slack);
+  }
+};
 
 // (da, ia) before (db, ib): the order of the plain version's int64 keys.
 __device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
@@ -144,7 +209,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Start the copy of key positions [first, first + n) into ``slab``: rows
 // of the cloud by cp.async, virtual pad rows (at or past nk) written
-// directly with w already squared. One commit group.
+// directly, already prepared. One commit group.
 __device__ __forceinline__ void stage_async(float4* slab, const float4* __restrict__ keys,
                                             int nk, int first, int n) {
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
@@ -157,11 +222,12 @@ __device__ __forceinline__ void stage_async(float4* slab, const float4* __restri
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// After the wait: square w in the rows this thread copied (the same rows
-// as stage_async's), so the scan adds w^2 without a product per pair.
-__device__ __forceinline__ void square_w(float4* slab, int nk, int first, int n) {
+// After the wait: prepare the w slot of the rows this thread copied (the
+// same rows as stage_async's), once per key rather than per pair.
+template <typename Score>
+__device__ __forceinline__ void prepare_keys(float4* slab, int nk, int first, int n) {
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    if (first + t < nk) slab[t].w = __fmul_rn(slab[t].w, slab[t].w);
+    if (first + t < nk) slab[t].w = Score::prepare(slab[t]);
   }
 }
 
@@ -173,56 +239,126 @@ __device__ __forceinline__ int centre_out(int s, int c, int n) {
   return n - 1 - c > c ? s : n - 1 - s;
 }
 
+// The filter of the scan. Without ``Score::bounded`` it is the list's own
+// test on the score (``admits``). With it, a pair is first tested by the
+// cheaper ``Score::bound`` (never above the score by more than the slack
+// that ``Score::limit`` adds to the K-th best): only a pair that passes is
+// scored and tested as before, so the same candidates reach the list.
+template <typename Score, int K, int Q, bool = Score::bounded>
+struct Gate {
+  __device__ __forceinline__ Gate(const float4 (&)[Q], const TopK<K> (&)[Q]) {}
+};
+
+template <typename Score, int K, int Q>
+struct Gate<Score, K, Q, true> {
+  float lim[Q];  // Score::limit of each query's K-th best
+
+  __device__ __forceinline__ Gate(const float4 (&qv)[Q], const TopK<K> (&top)[Q]) {
+    update(qv, top);
+  }
+
+  // after insertions (the slack is recomputed: one register less a query)
+  __device__ __forceinline__ void update(const float4 (&qv)[Q], const TopK<K> (&top)[Q]) {
+#pragma unroll
+    for (int j = 0; j < Q; ++j) lim[j] = Score::limit(top[j].d[K - 1], Score::slack(qv[j]));
+  }
+};
+
+// A staged key read again inside the branch of admitted candidates: a
+// volatile load, so the compiler keeps no copy of the key in registers
+// across the filter, which would cost the scan's occupancy.
+__device__ __forceinline__ float4 reload(const float4* key) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(key))));
+  return v;
+}
+
 // Test staged position p against the thread's Q queries.
-template <int K, int Q>
+template <typename Score, int K, int Q>
 __device__ __forceinline__ void visit(const float4* slab, int p, int base,
-                                      const float4 (&qv)[Q], TopK<K> (&top)[Q]) {
+                                      const float4 (&qv)[Q], TopK<K> (&top)[Q],
+                                      Gate<Score, K, Q>& gate) {
   const float4 kv = slab[p];
   float d[Q];
   bool hit = false;
 #pragma unroll
   for (int j = 0; j < Q; ++j) {
-    d[j] = sq_dist(qv[j], kv);
-    hit |= top[j].admits(d[j]);
+    if constexpr (Score::bounded) {
+      d[j] = Score::bound(qv[j], kv);
+      hit |= d[j] <= gate.lim[j];
+    } else {
+      d[j] = Score::score(qv[j], kv);
+      hit |= top[j].admits(d[j]);
+    }
   }
   if (hit) {
 #pragma unroll
     for (int j = 0; j < Q; ++j) {
-      if (top[j].admits(d[j])) top[j].push(d[j], base + p);
+      if constexpr (Score::bounded) {
+        if (d[j] <= gate.lim[j]) {
+          const float dn = Score::score(qv[j], reload(slab + p));
+          if (top[j].admits(dn)) top[j].push(dn, base + p);
+        }
+      } else {
+        if (top[j].admits(d[j])) top[j].push(d[j], base + p);
+      }
     }
+    if constexpr (Score::bounded) gate.update(qv, top);
   }
 }
 
 // Two positions at once: both keys' distances are computed before the one
 // branch, which gives the scheduler 2 Q independent sums.
-template <int K, int Q>
+template <typename Score, int K, int Q>
 __device__ __forceinline__ void visit2(const float4* slab, int pa, int pb, int base,
-                                       const float4 (&qv)[Q], TopK<K> (&top)[Q]) {
+                                       const float4 (&qv)[Q], TopK<K> (&top)[Q],
+                                       Gate<Score, K, Q>& gate) {
   const float4 ka = slab[pa];
   const float4 kb = slab[pb];
   float da[Q], db[Q];
   bool hit = false;
 #pragma unroll
   for (int j = 0; j < Q; ++j) {
-    da[j] = sq_dist(qv[j], ka);
-    db[j] = sq_dist(qv[j], kb);
-    hit |= top[j].admits(da[j]) || top[j].admits(db[j]);
+    if constexpr (Score::bounded) {
+      da[j] = Score::bound(qv[j], ka);
+      db[j] = Score::bound(qv[j], kb);
+      hit |= da[j] <= gate.lim[j] || db[j] <= gate.lim[j];
+    } else {
+      da[j] = Score::score(qv[j], ka);
+      db[j] = Score::score(qv[j], kb);
+      hit |= top[j].admits(da[j]) || top[j].admits(db[j]);
+    }
   }
   if (hit) {
 #pragma unroll
     for (int j = 0; j < Q; ++j) {
-      if (top[j].admits(da[j])) top[j].push(da[j], base + pa);
-      if (top[j].admits(db[j])) top[j].push(db[j], base + pb);
+      if constexpr (Score::bounded) {
+        if (da[j] <= gate.lim[j]) {
+          const float dn = Score::score(qv[j], reload(slab + pa));
+          if (top[j].admits(dn)) top[j].push(dn, base + pa);
+        }
+        if (db[j] <= gate.lim[j]) {
+          const float dn = Score::score(qv[j], reload(slab + pb));
+          if (top[j].admits(dn)) top[j].push(dn, base + pb);
+        }
+      } else {
+        if (top[j].admits(da[j])) top[j].push(da[j], base + pa);
+        if (top[j].admits(db[j])) top[j].push(db[j], base + pb);
+      }
     }
+    if constexpr (Score::bounded) gate.update(qv, top);
   }
 }
 
 // Scan the n staged keys (global positions base + p) centre-out from the
 // first one at or past the warp's centre x. ``cx`` is warp-uniform, so the
 // whole warp reads one key at a time (a shared-memory broadcast).
-template <int K, int Q>
+template <typename Score, int K, int Q>
 __device__ __forceinline__ void scan_slab(const float4* slab, int n, int base, float cx,
                                           const float4 (&qv)[Q], TopK<K> (&top)[Q]) {
+  Gate<Score, K, Q> gate(qv, top);
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -234,19 +370,19 @@ __device__ __forceinline__ void scan_slab(const float4* slab, int n, int base, f
   }
   const int c = min(lo, n - 1);
   const int m = min(c, n - 1 - c);
-  visit<K, Q>(slab, c, base, qv, top);
+  visit<Score>(slab, c, base, qv, top, gate);
 #pragma unroll 2
-  for (int s = 1; s <= m; ++s) visit2<K, Q>(slab, c + s, c - s, base, qv, top);
+  for (int s = 1; s <= m; ++s) visit2<Score>(slab, c + s, c - s, base, qv, top, gate);
   if (n - 1 - c > c) {
     int p = c + m + 1;
 #pragma unroll 2
-    for (; p + 1 < n; p += 2) visit2<K, Q>(slab, p, p + 1, base, qv, top);
-    if (p < n) visit<K, Q>(slab, p, base, qv, top);
+    for (; p + 1 < n; p += 2) visit2<Score>(slab, p, p + 1, base, qv, top, gate);
+    if (p < n) visit<Score>(slab, p, base, qv, top, gate);
   } else {
     int p = c - m - 1;
 #pragma unroll 2
-    for (; p > 0; p -= 2) visit2<K, Q>(slab, p, p - 1, base, qv, top);
-    if (p == 0) visit<K, Q>(slab, 0, base, qv, top);
+    for (; p > 0; p -= 2) visit2<Score>(slab, p, p - 1, base, qv, top, gate);
+    if (p == 0) visit<Score>(slab, 0, base, qv, top, gate);
   }
 }
 
@@ -257,7 +393,7 @@ __device__ __forceinline__ void scan_slab(const float4* slab, int n, int base, f
 // ``live`` is warp-uniform, and a warp that is not live stages and
 // synchronises with the block but scans nothing. Every thread of the
 // block must call this.
-template <int K, int Q>
+template <typename Score, int K, int Q>
 __device__ __forceinline__ void search_tile(float4* smem, const float4* __restrict__ keys,
                                             int nk, int start, int win_len, float tile_x,
                                             float warp_x, bool live, const float4 (&qv)[Q],
@@ -287,9 +423,9 @@ __device__ __forceinline__ void search_tile(float4* smem, const float4* __restri
     } else {
       cp_async_wait<0>();
     }
-    square_w(slab, nk, start + first, n);
+    prepare_keys<Score>(slab, nk, start + first, n);
     __syncthreads();
-    if (live) scan_slab<K, Q>(slab, n, start + first, warp_x, qv, top);
+    if (live) scan_slab<Score, K, Q>(slab, n, start + first, warp_x, qv, top);
     __syncthreads();
     first = next;
   }
@@ -356,7 +492,7 @@ __device__ __forceinline__ void tile_queries(float4* scratch, const float4* __re
   __syncthreads();  // the scratch is the window's staging buffer
 }
 
-// Let a K1/K3 instantiation take the largest block's shared memory, once
+// Let a search kernel take the largest block's shared memory, once
 // per device (``ready`` holds a bit per device, one word per kernel): the
 // attribute calls cost host time that a launch-sized search would pay on
 // every call.

@@ -22,7 +22,9 @@ squared distances, ties to the lower key index; distances are full f32.
 keys by ``|k|^2 - 2 q.k`` in f32 and adds ``|q|^2`` back afterwards,
 clamped at 0 (``pallas_knn.py:857-858``). The expanded form cancels: its
 d2 carries an error of about ``eps * (|q|^2 + |k|^2)``, so it may order
-near-equal neighbours otherwise than K1's difference form.
+near-equal neighbours otherwise than K1's difference form. The kernel scans
+every real key and only the first ``k`` virtual pad rows
+(:func:`mxu_scan_len`), its plain version every padded position.
 """
 
 from __future__ import annotations
@@ -171,6 +173,16 @@ def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
     return idx.to(torch.int32).contiguous(), d2.contiguous()
 
 
+def mxu_scan_len(nk: int, k: int) -> int:
+    """Key positions K7 scans: the ``nk`` keys and the first ``k`` of the
+    virtual pad rows that fill the cloud to a multiple of 512 (its plain
+    version scans them all). Every virtual row (0, 0, 0, PAD_W) scores
+    exactly ``PAD_W**2`` and ties go to the lower index, so a row at or past
+    ``nk + k`` has ``k`` rows before it that are no worse: it can never be
+    among the ``k`` best."""
+    return min(_ceil_to(nk, BINS), nk + k)
+
+
 def _flip_negative(bits: torch.Tensor) -> torch.Tensor:
     """The int32 bits of f32 scores mapped so that signed int order is
     float order, negatives included (the low 31 bits of a negative float
@@ -184,12 +196,23 @@ def _expanded_d2(q4: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
     return (score + (q4 * q4).sum(dim=-1, keepdim=True)).clamp(min=0.0)
 
 
+def expanded_scores(q2: torch.Tensor, kp: torch.Tensor, kn: torch.Tensor) -> torch.Tensor:
+    """(B, T, n) scores ``kn + (-2q).k`` of the queries ``q2 = -2 q``
+    (B, T, 4) against the keys ``kp`` (B, n, 4) with ``kn = |k|^2`` (B, n):
+    the products summed x, y, z, w in order, each op rounded."""
+    c = q2[..., 0, None] * kp[:, None, :, 0]
+    for d in range(1, 4):
+        c = c + q2[..., d, None] * kp[:, None, :, d]
+    return kn[:, None, :] + c
+
+
 def knn_topk_mxu_plain(q4: torch.Tensor, k4: torch.Tensor, k: int):
     """Plain PyTorch version of K7: every key of the cloud (padded to a
-    multiple of 512 with pad rows) scored ``kn + (-2q).k`` in the kernel's
-    association (``kn = ((x*x + y*y) + z*z) + w*w``; the products summed
-    x, y, z, w; each op rounded), ranked on int64 keys (order-preserving
-    score bits << 32 | key position), so ties go to the lower index.
+    multiple of 512 with virtual pad rows) scored ``kn + (-2q).k`` in the
+    kernel's association (``kn = ((x*x + y*y) + z*z) + w*w``;
+    :func:`expanded_scores`), ranked on int64 keys (order-preserving score
+    bits << 32 | key position), so ties go to the lower index. The query's
+    w is read as 0, as the kernel reads it.
     Scores are mostly negative (``d2 - |q|^2``): K1's unsigned ranking of
     the raw bits would reverse them.
     Returns ``(idx, d2)`` as :func:`knn_topk`."""
@@ -204,15 +227,12 @@ def knn_topk_mxu_plain(q4: torch.Tensor, k4: torch.Tensor, k: int):
     for c in range(1, 4):
         kn = kn + kp[..., c] * kp[..., c]
     q2 = q4 * -2.0
+    q2[..., 3] = 0.0
     ar = torch.arange(nk_pad, device=q4.device)
     step = max(1, _PLAIN_ELEMS // (b * nk_pad))
     idx_parts, score_parts = [], []
     for q0 in range(0, nq, step):
-        qq = q2[:, q0:q0 + step, None, :]                        # (B, T, 1, 4)
-        c = qq[..., 0] * kp[:, None, :, 0]
-        for d in range(1, 4):
-            c = c + qq[..., d] * kp[:, None, :, d]
-        s = kn[:, None, :] + c
+        s = expanded_scores(q2[:, q0:q0 + step], kp, kn)
         key = (_flip_negative(s.view(torch.int32)).to(torch.int64) << 32) | ar
         top = key.topk(k, dim=-1, largest=False, sorted=True).values
         idx_parts.append(top & 0xFFFFFFFF)
@@ -224,7 +244,10 @@ def knn_topk_mxu_plain(q4: torch.Tensor, k4: torch.Tensor, k: int):
 def knn_topk_mxu(q4: torch.Tensor, k4: torch.Tensor, k: int):
     """K7 on CUDA tensors (the wrapper :func:`knn_topk` calls for
     ``variant="mxu"``): ``(idx (B, Nq, k) int32, d2 (B, Nq, k) float32)``,
-    ascending by the expanded score."""
+    ascending by the expanded score. The kernel leaves the query's w
+    product out of the score: it reads the query's w as 0, as the plain
+    version does, which is the JAX kernel's score where queries carry w = 0
+    (as ``ops.knn.centred_clouds`` builds them)."""
     _check(q4, k4, k)
     _ext.require_cuda("knn_topk_mxu", q4, k4)
     require_float4("knn_topk_mxu", q4, k4)
@@ -236,7 +259,7 @@ def knn_topk_mxu(q4: torch.Tensor, k4: torch.Tensor, k: int):
         return idx, score
     with torch.cuda.device(q4.device):
         code = _ext.lib().m3d_knn_topk_mxu(
-            q4.data_ptr(), k4.data_ptr(), b, nq, nk, _ceil_to(nk, BINS), k,
+            q4.data_ptr(), k4.data_ptr(), b, nq, nk, mxu_scan_len(nk, k), k,
             idx.data_ptr(), score.data_ptr(), _ext.stream_of(q4),
         )
     _ext.check(code, "m3d_knn_topk_mxu")

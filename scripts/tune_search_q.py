@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Queries per thread (Q) of the K1/K3 search (``csrc/topk.cuh``) on the
+"""Queries per thread (Q) of the K1/K3/K7 search (``csrc/topk.cuh``) on the
 card: each variant of the dispatch in ``csrc/knn.cu`` and ``csrc/interp.cu``
 is built from a copy of the sources into its own library, loaded in place
-of the package's, checked bit-equal (K1) or equal (K3) to the shipped
+of the package's, checked bit-equal (K1, K7) or equal (K3) to the shipped
 choice, and timed at the predict step's shapes (B=48 subtiles as
-``chip_smoke.py`` builds them) with its registers, stack frame and spills.
+``chip_smoke.py`` builds them; K7 at phase 9's full scans) with its
+registers, stack frame and spills. Times are the card's, with the host
+running ahead (``chip_smoke.cuda_ms(..., ahead=True)``).
 
-    python3 scripts/tune_search_q.py [--variants 1:4,16:2,10:2 1:2,16:2,10:2 ...]
+    python3 scripts/tune_search_q.py [--variants 1:4,16:2,10:2 m16:2,ring:1024 ...]
 
 A variant lists ``K:Q`` for the K1 K=1 and K=16 lists and the K3 k=10
-list. Run from the repository root on a machine with a CUDA card and
-``nvcc``. The first variant is the shipped dispatch.
+list, ``mK:Q`` for K7's K=1, K=16 and generic K=32 lists,
+``ring:N`` for the keys of a ring chunk of the scans longer than the
+staged window (``RING`` in ``topk.cuh``), and ``gate:false`` for K7's
+filter on the score itself (``Gate``); what it does not name keeps the
+shipped value. Run from the repository root on a machine with a CUDA card
+and ``nvcc``. The first variant is the shipped dispatch.
 """
 
 from __future__ import annotations
@@ -30,26 +36,32 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from myria3d_tpu_torch import _ext  # noqa: E402
 
-SHIPPED = "1:2,16:1,10:1"
-DEFAULT = [SHIPPED, "1:4,16:2,10:2", "1:1,16:1,10:1", "1:8,16:4,10:4"]
-# the dispatch lines each variant rewrites: (file, K, text with {q})
-DISPATCH = [("knn.cu", 1, "launch<1, {q}>(qp, kp, bp"),
-            ("knn.cu", 16, "launch<16, {q}>(qp, kp, bp"),
-            ("interp.cu", 10, "launch<10, {q}>(xp, qp, kp")]
+SHIPPED = "1:2,16:1,10:1,m1:2,m16:1,m32:1"
+DEFAULT = [SHIPPED, "gate:false", "m1:4,m16:2", "ring:2048", "1:4,16:2,10:2"]
+# what a variant rewrites: (file, name, pattern (before)(value)(after))
+DISPATCH = [("knn.cu", "1", r"(launch<1, )(\d+)(>\(qp, kp, bp)"),
+            ("knn.cu", "16", r"(launch<16, )(\d+)(>\(qp, kp, bp)"),
+            ("interp.cu", "10", r"(launch<10, )(\d+)(>\(xp, qp, kp)"),
+            ("knn.cu", "m1", r"(launch_mxu<1, )(\d+)(>\(qp, kp)"),
+            ("knn.cu", "m16", r"(launch_mxu<16, )(\d+)(>\(qp, kp)"),
+            ("knn.cu", "m32", r"(launch_mxu<32, )(\d+)(>\(qp, kp)"),
+            ("topk.cuh", "ring", r"(constexpr int RING = )(\d+)(;)"),
+            ("topk.cuh", "gate",
+             r"(struct Expanded \{\n  static constexpr bool bounded = )(\w+)(;)")]
 
 
 def build_variant(spec: str, out_dir: Path) -> subprocess.Popen:
     """Start building the library of ``spec`` into ``out_dir``."""
-    q_of = {int(k): int(q) for k, q in (item.split(":") for item in spec.split(","))}
+    value_of = dict(item.split(":") for item in spec.split(","))
     src = out_dir / "csrc"
     shutil.copytree(_ext.CSRC, src)
-    for name, k, text in DISPATCH:
+    for name, key, pattern in DISPATCH:
+        if key not in value_of:
+            continue
         path = src / name
-        code = path.read_text()
-        shipped = re.escape(text.format(q="QQ")).replace("QQ", r"\d+")
-        code, n = re.subn(shipped, text.format(q=q_of[k]), code)
+        code, n = re.subn(pattern, rf"\g<1>{value_of[key]}\g<3>", path.read_text())
         if n != 1:
-            raise RuntimeError(f"{name}: the K={k} dispatch was not found")
+            raise RuntimeError(f"{name}: {key} was not found")
         path.write_text(code)
     nvcc = _ext._nvcc()
     sources = " ".join(str(src / n) for n in ("knn.cu", "interp.cu"))
@@ -68,7 +80,8 @@ def load(library: Path) -> ctypes.CDLL:
 
 
 def cases(dev):
-    """(label, call) of K1 and K3 at the predict step's shapes."""
+    """(label, call) of K1 and K3 at the predict step's shapes, and of K7 at
+    phase 9's full scans (k = 16, and k = 1 and 10 for its other lists)."""
     import torch
 
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp
@@ -97,7 +110,13 @@ def cases(dev):
     q4, k4 = centred_clouds(full_pos, pos, mask)
     for w in (stage_window(chip_smoke.WINDOW, chip_smoke.N), 0):
         out.append((f"K3 k=10 32768<-12288 ({f'window {w}' if w else 'full scan'})",
-                    lambda w=w: knn_interp(logits, q4, k4, 10, window=w, query_mask=full_mask)))
+                    lambda w=w, q4=q4, k4=k4:
+                    knn_interp(logits, q4, k4, 10, window=w, query_mask=full_mask)))
+    stages = chip_smoke.knn_mxu_stages(dev)
+    for i, k in ((0, 16), (2, 16), (3, 16), (0, 1), (1, 10)):
+        q4, k4 = centred_clouds(stages[i][0], stages[i][0], stages[i][1])
+        out.append((f"K7 k={k} self {q4.shape[1]}",
+                    lambda q4=q4, k4=k4, k=k: knn_topk(q4, k4, k, variant="mxu")))
     return out
 
 
@@ -139,14 +158,15 @@ def main() -> int:
                 reference = reference or outs
                 same = all(all(torch.equal(a, b) for a, b in zip(as_tuple(o), as_tuple(r)))
                            for o, r in zip(outs, reference))
-                times = [chip_smoke.cuda_ms(fn, 10, warmup=2) for _, fn in calls]
+                times = [chip_smoke.cuda_ms(fn, 10, warmup=2, ahead=True) for _, fn in calls]
                 print(f"variant {spec}{' (shipped)' if spec == SHIPPED else ''}: equal to the "
                       f"shipped outputs {same}; " + "; ".join(
                           f"{label} {ms:.3f} ms" for (label, _), ms in zip(calls, times)))
                 print("  resources: " + "; ".join(
                     f"{n} {u.get('reg')} registers, stack frame {u.get('stack')} B, "
                     f"spill stores {u.get('spill_stores')} B" for n, u in sorted(usage.items())
-                    if n.startswith(("knn_topk_kernel<", "knn_interp_kernel<"))))
+                    if n.startswith(("knn_topk_kernel<", "knn_interp_kernel<",
+                                     "knn_topk_mxu_kernel<"))))
     _ext._lib = None
     return 0
 

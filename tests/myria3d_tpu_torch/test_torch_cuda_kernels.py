@@ -15,7 +15,9 @@ are held to their plain versions in float64 (K5 1e-5; K6 recomputes the forward 
 1e-3 on the heavily cancelling d(att_w) and BN sums). K2 and K6 run their
 attention products in 3xTF32, which keeps them at f32 grade
 (``test_torch_lfa_tf32.py``), at every width the model uses. K7 shares its plain
-version's association and ranking, so indices and d2 are equal.
+version's association and ranking, so indices and d2 are equal, whatever
+order its scan takes the keys in and wherever it stops among the virtual
+pad rows.
 """
 
 import numpy as np
@@ -77,7 +79,10 @@ def _clouds(kind, nq, nk, dev, seed):
     uniform subtiles centred as the model centres them (the second cloud's
     last fifth is padding); "unsorted": the same rows in random order (full
     scans only); "grid": ``_grid_cloud`` queries and keys, the second
-    cloud's last tenth of keys pad keys (w = 1e4) and of queries masked."""
+    cloud's last tenth of keys pad keys (w = 1e4) and of queries masked;
+    "few": sorted clouds whose keys are pad keys but for the first 7 of the
+    first cloud (fewer valid keys than k, so pad keys and the virtual pad
+    rows past Nk compete for the list)."""
     if kind == "grid":
         rng = np.random.default_rng(seed)
         q, kp = _grid_cloud(rng, nq), _grid_cloud(rng, nk)
@@ -91,6 +96,9 @@ def _clouds(kind, nq, nk, dev, seed):
                 torch.from_numpy(qm).to(dev))
     qp, qm = _sorted_cloud(2, nq, dev, seed)
     kp, km = _sorted_cloud(2, nk, dev, seed + 1)
+    if kind == "few":
+        km = torch.zeros_like(km)
+        km[0, :7] = True
     if kind == "unsorted":
         g = torch.Generator(device="cpu").manual_seed(seed)
         qo, ko = torch.randperm(nq, generator=g).to(dev), torch.randperm(nk, generator=g).to(dev)
@@ -123,11 +131,23 @@ def test_k1_matches_plain(cuda_device, k, window, nq, nk, kind):
     assert torch.equal(idx, pidx)
 
 
-@pytest.mark.parametrize("k,nq,nk", [(16, 768, 768), (1, 1000, 300), (32, 4096, 1500)])
-def test_k7_matches_plain(cuda_device, k, nq, nk):
-    qp, _ = _sorted_cloud(2, nq, cuda_device, 4)
-    kp, km = _sorted_cloud(2, nk, cuda_device, 5)
-    q4, k4 = centred_clouds(qp, kp, km)
+# the shipped k with Nk at and off a multiple of 512; every k the tests name,
+# with ties; unsorted clouds; Nk above the 5120-position shared-memory
+# budget (the ring); fewer valid keys than k, Nk no multiple of 512 (and a
+# scan of 101 positions, under the block's 128-row scratch); nq % 256 != 0
+K7_CASES = ([(16, 768, 768, "sorted"), (16, 1000, 700, "sorted"), (1, 1000, 300, "sorted"),
+             (32, 4096, 1500, "sorted")]
+            + [(k, 1000, 4096, "grid") for k in (1, 2, 10, 16, 17, 32)]
+            + [(16, 1500, 12288, "unsorted"), (10, 700, 3000, "unsorted"),
+               (1, 2000, 12288, "unsorted")]
+            + [(16, 2000, 40960, "sorted"), (32, 1000, 40960, "grid"), (1, 1000, 6000, "sorted")]
+            + [(16, 1000, 700, "few"), (32, 600, 1100, "few"), (1, 300, 100, "few"),
+               (17, 500, 5130, "few")])
+
+
+@pytest.mark.parametrize("k,nq,nk,kind", K7_CASES)
+def test_k7_matches_plain(cuda_device, k, nq, nk, kind):
+    q4, k4, _ = _clouds(kind, nq, nk, cuda_device, 5)
     before = knn_topk_mxu.launches, knn_topk.launches
     idx, d2 = knn_topk(q4, k4, k, variant="mxu")
     assert (knn_topk_mxu.launches, knn_topk.launches) == (before[0] + 1, before[1])
