@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the PyTorch port's predict, train and test paths
-(one NVIDIA GPU).
+"""On-card smoke test of the PyTorch port's predict, train, test and
+finetune paths (one NVIDIA GPU).
 
     python3 chip_smoke.py
 
@@ -70,10 +70,36 @@ PyTorch built for CUDA. Phases, one line each:
    pair, its filter (the exact score of the few pairs that pass is not
    counted);
 10. the full-cloud test path: ``Trainer.test`` on the toy-tile subtiles
-   (with their full-cloud copies) and phase 7's B=32 checkpoint; K1, K2 and
+   (with their full-cloud copies) and phase 7's B=16 checkpoint; K1, K2 and
    K3 launched, ``test/loss_epoch`` and the mean IoU printed, and held
    against the same test on the plain versions (loss within 1e-3 relative,
-   IoU within 0.01).
+   IoU within 0.01);
+11. finetuning: ``Trainer.fit(..., finetune=True)`` from phase 7's B=16
+   checkpoint with the ``finetuning`` callbacks (``overfit_batches: 1``, 4
+   epochs, B=16): after each epoch its seconds and the largest |change| of
+   each group's parameters from the checkpoint (the last FC, the rest of
+   the FC head, the decoder, the encoder); the last FC moves from epoch 0,
+   the FC head from epoch 1, the decoder from epoch 3, the encoder never
+   (bit-equal); finite losses, K1, K4, K5 and K6 launched;
+12. the LR range test (``train.lr_range_test`` at its defaults: 100 steps
+   from 1e-4 to 3.0) on phase 7's B=16 toy subtiles: the suggestion, the
+   steps taken before its stop and the seconds; a suggestion in the range,
+   the net's state dict bit-equal after the sweep, K1, K4, K5, K6 launched;
+13. ``model.grad_microbatch`` at ``bench.py --train``'s shape: B=32 at
+   mb=16 (fused chunks) and B=16 at mb=8 (unfused chunks); one microbatched
+   grad step against a manual accumulation of the same chunks on the same
+   generators (loss within 1e-5 relative, every gradient within 1e-5 of
+   the largest, BN running stats within 1e-6 relative of the chunks'
+   mean), its launches (twice a chunk's), then ms/step, peak memory and
+   device kernels and copies a step (a ``torch.profiler`` trace) of the
+   microbatched train step beside the monolithic one at the same B;
+14. the profiler: a 3-step fit with ``trainer.profiler=torch``; the Chrome
+   trace under ``$LOGS_DIR/profile`` must name K1's and K4's kernels and
+   hold the three "train_step" regions; its size and the hand kernels it
+   names are printed.
+
+Phases 11-14 each set the launch counts to 0 before their path and read
+them after it.
 
 Every kernel line of phases 3, 6 and 9 carries ``bound_ms``: the larger of
 the bytes its call must move (inputs read once, outputs written once) over
@@ -861,6 +887,38 @@ class TileDataModule:
         return self._loader("eval")
 
 
+# phase 11's groups of the net, by top-level module (the finetuning
+# callback's: the last FC, the rest of the FC head, the decoder)
+FT_GROUPS = {"fc_classif": ("fc_classif",), "FC head": ("mlp_classif",),
+             "decoder": ("fp1", "fp2", "fp3", "fp4", "mlp_summit"),
+             "encoder": ("fc0", "block1", "block2", "block3", "block4")}
+FT_UNFROZEN_FROM = {"fc_classif": 0, "FC head": 1, "decoder": 3}   # configs/callbacks/finetuning.yaml
+FT_EPOCHS = 4
+MICROBATCH_CASES = ((32, 16, "fused"), (16, 8, "unfused"))          # (B, grad_microbatch, chunk route)
+HAND_KERNELS = ("knn_topk_kernel", "knn_topk_mxu_kernel", "knn_interp_kernel", "lfa_kernel",
+                "gather_bwd_kernel", "inverse_count_kernel", "inverse_fill_kernel",
+                "inverse_order_kernel", "relstats_kernel", "reduce_chunks_kernel",
+                "lfa_bwd_kernel")
+
+
+def fit_config(run_dir: str, batch: int, *overrides: str) -> dict:
+    """The toy-tile train config at ``batch``, writing under ``run_dir``
+    (16 m subtiles: the 100 m toy tile gives 49 of up to ~1.5k points)."""
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+
+    return compose_config(CONFIG_DIR, "config.yaml", [
+        "dataset_description=toy_synthetic", "logger=csv", f"hydra.run.dir={run_dir}",
+        f"datamodule.batch_size={batch}", "datamodule.subtile_width=16",
+        f"callbacks.model_checkpoint.dirpath={run_dir}/checkpoints", *overrides])
+
+
+def reset_launches() -> dict:
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
 def phase_fit(dev, work: str):
     """The port's Trainer.fit on toy-tile subtiles under each auto route,
     then predict() with the checkpoint it wrote. Returns the launches and
@@ -871,20 +929,12 @@ def phase_fit(dev, work: str):
     from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
     from myria3d_tpu_torch.train import build_trainer
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_launches()
     runs = []
-    # 16 m subtiles: the 100 m toy tile gives 49 of up to ~1.5k points
     for batch in (4, FUSED_TRAIN_MIN_BATCH):
-        run_dir = os.path.join(work, f"b{batch}")
-        cfg = compose_config(CONFIG_DIR, "config.yaml", [
-            "task.task_name=fit", "dataset_description=toy_synthetic", "logger=csv",
-            f"hydra.run.dir={run_dir}", "trainer.overfit_batches=1",
-            f"trainer.max_epochs={FIT_STEPS}", f"trainer.min_epochs={FIT_STEPS}",
-            f"datamodule.batch_size={batch}", "datamodule.subtile_width=16",
-            f"callbacks.model_checkpoint.dirpath={run_dir}/checkpoints",
-        ])
+        cfg = fit_config(os.path.join(work, f"b{batch}"), batch, "task.task_name=fit",
+                         "trainer.overfit_batches=1", f"trainer.max_epochs={FIT_STEPS}",
+                         f"trainer.min_epochs={FIT_STEPS}")
         trainer, model = build_trainer(cfg)
         route = "fused" if batch >= FUSED_TRAIN_MIN_BATCH else "unfused"
         before = {n: fn.launches for n, fn in counters.items()}
@@ -1130,6 +1180,261 @@ def phase_test(dev, cfg: dict, ckpt: str):
           f"per class {per_class}, launches {launches}")
 
 
+def phase_finetune(dev, work: str, ckpt: str):
+    """``task.task_name=finetune`` from phase 7's B=16 checkpoint with the
+    ``finetuning`` callbacks, across both unfreeze epochs: after each
+    epoch the largest |change| of each group's parameters from the
+    checkpoint; a group moves exactly from its unfreeze epoch, the
+    encoder never."""
+    import torch
+
+    from myria3d_tpu_torch.models.modules.randla_net import FUSED_TRAIN_MIN_BATCH
+    from myria3d_tpu_torch.train import build_trainer
+    from myria3d_tpu_torch.utils.checkpoint import load_state_dict
+
+    cfg = fit_config(os.path.join(work, "finetune"), FUSED_TRAIN_MIN_BATCH,
+                     "task.task_name=finetune", "callbacks=finetuning",
+                     "trainer.overfit_batches=1", f"trainer.max_epochs={FT_EPOCHS}",
+                     f"trainer.min_epochs={FT_EPOCHS}")
+    trainer, model = build_trainer(cfg)
+    need(trainer.finetune_cb is not None, "the finetuning callback was not built")
+    start = load_state_dict(ckpt, dev)
+    names = [k for k, _ in model.net.named_parameters()]
+    epochs = []
+
+    class EpochProbe:
+        """The trainer's logger: reads the parameters at each epoch's end."""
+
+        def log_metrics(self, metrics, step=None):
+            if "epoch" not in metrics:
+                return
+            now = model.net.state_dict()
+            delta = {g: max(float((now[k] - start[k]).abs().max()) for k in names
+                            if k.split(".")[0] in tops) for g, tops in FT_GROUPS.items()}
+            epochs.append((int(metrics["epoch"]), time.perf_counter(), delta))
+
+    trainer.logger = EpochProbe()
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(model, TileDataModule(cfg), ckpt_path=ckpt, finetune=True)
+    torch.cuda.synchronize()
+    used = {n: fn.launches for n, fn in counters.items()}
+    losses = trainer.train_losses
+    need(len(epochs) == FT_EPOCHS and len(losses) == FT_EPOCHS and all(np.isfinite(losses)),
+         f"finetune: {len(epochs)} epochs, losses {losses}")
+    need(all(used[k] > 0 for k in ("K1", "K4", "K5", "K6")), f"finetune: launches {used}")
+    last = t0
+    for epoch, t, delta in epochs:
+        for group, d in delta.items():
+            moves = epoch >= FT_UNFROZEN_FROM.get(group, FT_EPOCHS)
+            need((d > 0) == moves, f"finetune epoch {epoch}: {group} moved by {d:.3g}")
+        print(f"phase 11 finetune B={FUSED_TRAIN_MIN_BATCH} epoch {epoch}: {t - last:.2f} s, "
+              "max |change| from the checkpoint: "
+              + ", ".join(f"{g} {d:.3g}" for g, d in delta.items()))
+        last = t
+    print(f"phase 11 finetune: {FT_EPOCHS} epochs in {last - t0:.2f} s "
+          f"({(last - t0) / FT_EPOCHS:.2f} s an epoch), losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f", launches {used}")
+
+
+def phase_lr_range(dev, cfg: dict):
+    """``lr_range_test`` at its defaults (100 steps, 1e-4 to 3.0) on the
+    toy subtiles of phase 7's B=16 fit: a finite suggestion in the range,
+    and the net's state dict as it was before the sweep."""
+    import torch
+
+    from myria3d_tpu_torch.train import build_trainer, lr_range_test
+
+    _, model = build_trainer(cfg)
+    model.to(dev)
+    before = {k: v.clone() for k, v in model.net.state_dict().items()}
+    steps = []
+    step = model.train_step
+    model.train_step = lambda *a: (steps.append(1), step(*a))[1]
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    lr = lr_range_test(model, TileDataModule(cfg), seed=int(cfg["seed"]))
+    dt = time.perf_counter() - t0
+    used = {n: fn.launches for n, fn in counters.items()}
+    need(np.isfinite(lr) and 1e-4 <= lr <= 3.0, f"LR range test suggested {lr}")
+    after = model.net.state_dict()
+    need(all(torch.equal(before[k], after[k]) for k in before),
+         "the LR range test left the net's state changed")
+    need(all(used[k] > 0 for k in ("K1", "K4", "K5", "K6")), f"LR range test: launches {used}")
+    print(f"phase 12 LR range test B={cfg['datamodule']['batch_size']}: suggested lr {lr:.6g} "
+          f"after {len(steps)} of 100 steps in {dt:.2f} s; state dict bit-equal after; "
+          f"launches {used}")
+
+
+def device_ops_per_step(step, reps: int = 2):
+    """Device kernels and copies per call of ``step`` in a ``torch.profiler``
+    trace (None when the trace holds no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    n = sum(ev.device_type == DeviceType.CUDA for ev in prof.events())
+    return n / reps if n else None
+
+
+def phase_microbatch(dev):
+    """``model.grad_microbatch`` at ``bench.py --train``'s shape: one
+    microbatched grad step against a manual accumulation of the same chunks
+    on the same generators, then the microbatched train step timed beside
+    the monolithic one at the same B."""
+    import torch
+
+    from myria3d_tpu_torch.models.model import build_model, chunk_generator
+
+    def make(mb):
+        torch.manual_seed(0)
+        model = build_model("RandLANet", {
+            "num_features": 9, "num_classes": 7, "num_neighbors": 16, "decimation": 4,
+            "knn_window": WINDOW, "sort_inputs": True, "fused_train_lfa": "auto"}, lr=0.001,
+            grad_microbatch=mb)
+        model.to(dev)
+        model.init_train_state()
+        return model
+
+    def timed(model, batch, reps=5):
+        def step(i):
+            return model.train_step(*batch, torch.Generator(device=dev).manual_seed(i))
+        step(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for i in range(reps):
+            loss, _ = step(i + 1)
+        chk = sum(float(p.detach().sum()) for p in model.net.parameters())
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        need(np.isfinite(float(loss)) and np.isfinite(chk), "non-finite train step")
+        ops = device_ops_per_step(lambda: step(0))
+        return ms, torch.cuda.max_memory_allocated(dev) / 2**30, ops
+
+    for b, mb, route in MICROBATCH_CASES:
+        batch = [torch.from_numpy(a).to(dev) for a in train_batch(b, seed=3)]
+        x, pos, y, mask = batch
+        micro, ref = make(mb), make(0)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        counters = reset_launches()
+        loss, logits = micro.grad_step(x, pos, y, mask, gen)
+        torch.cuda.synchronize()
+        used = {n: fn.launches for n, fn in counters.items() if fn.launches}
+        want = ({"K4": 16, "K5": 8, "K6": 16} if route == "fused" else {"K4": 16, "K5": 0, "K6": 0})
+        got = {k: used.get(k, 0) for k in want}
+        need(got == want, f"B={b} grad_microbatch={mb}: launches {used}")
+
+        # the same chunks, one after another from the same BN stats
+        stats = [t for t in ref.net.buffers() if t.is_floating_point()]
+        start = [t.clone() for t in stats]
+        ref.net.train()
+        losses, outs, grads, chunk_stats = [], [], [], []
+        for i in range(b // mb):
+            for t, s0 in zip(stats, start):
+                t.copy_(s0)
+            ref.optimizer.zero_grad(set_to_none=True)
+            rows = slice(i * mb, (i + 1) * mb)
+            out = ref.net(x[rows], pos[rows], mask[rows], chunk_generator(gen, i))
+            chunk_loss = ref.criterion(out, y[rows])
+            chunk_loss.backward()
+            losses.append(float(chunk_loss.detach()))
+            outs.append(out.detach())
+            grads.append([p.grad.clone() for p in ref.net.parameters()])
+            chunk_stats.append([t.clone() for t in stats])
+        k = b // mb
+        mean_loss = sum(losses) / k
+        need(abs(float(loss) - mean_loss) <= 1e-5 * abs(mean_loss),
+             f"B={b}: loss {float(loss)} vs the chunks' mean {mean_loss}")
+        need(logits.shape == (b, TRAIN_N, 7), f"B={b}: logits shape {tuple(logits.shape)}")
+        mean_grads = [sum(g) / k for g in zip(*grads)]
+        scale = max(float(g.abs().max()) for g in mean_grads)
+        g_err = max(float((p.grad - g).abs().max()) for p, g in zip(micro.net.parameters(),
+                                                                     mean_grads))
+        need(g_err <= 1e-5 * scale, f"B={b}: gradients off the chunks' mean by {g_err:.3g} "
+             f"(scale {scale:.3g})")
+        s_err = 0.0
+        for t, *per_chunk in zip([t for t in micro.net.buffers() if t.is_floating_point()],
+                                 *chunk_stats):
+            want_t = sum(per_chunk) / k
+            s_err = max(s_err, float((t - want_t).abs().max()) / float(want_t.abs().max()))
+        need(s_err <= 1e-6, f"B={b}: BN running stats off the chunks' mean by {s_err:.3g}")
+        l_err = float((logits - torch.cat(outs)).abs().max())
+        del ref, grads, chunk_stats, outs
+
+        micro.optimizer.zero_grad(set_to_none=True)
+        ms, mem, ops = timed(micro, batch)
+        mono = make(0)
+        mono_ms, mono_mem, mono_ops = timed(mono, batch)
+        print(f"phase 13 grad_microbatch B={b} mb={mb} ({route} chunks): loss {float(loss):.6f} "
+              f"= the chunks' mean, gradients within {g_err / scale:.3g} of scale, BN stats "
+              f"within {s_err:.3g}, logits within {l_err:.3g}; microbatched {ms:.1f} ms/step, "
+              f"peak {mem:.2f} GiB, {ops} device kernels and copies a step, launches {used}; "
+              f"monolithic {mono_ms:.1f} ms/step, peak {mono_mem:.2f} GiB, {mono_ops} a step")
+        del micro, mono, batch
+        torch.cuda.empty_cache()
+
+
+def phase_profiler(dev, work: str):
+    """A 3-step fit with ``trainer.profiler=torch``: the Chrome trace of
+    epoch 0's train loop under ``$LOGS_DIR/profile`` names the hand kernels
+    the fit launched and the "train_step" regions, and the fit logs the
+    host's time in those steps (``StageTimer``)."""
+    import re
+
+    from myria3d_tpu_torch.models.modules.randla_net import FUSED_TRAIN_MIN_BATCH
+    from myria3d_tpu_torch.train import build_trainer
+
+    logs = os.path.join(work, "logs")
+    cfg = fit_config(os.path.join(work, "profiled"), FUSED_TRAIN_MIN_BATCH, "trainer.profiler=torch",
+                     "trainer.max_epochs=1", "trainer.limit_train_batches=3",
+                     "trainer.limit_val_batches=1")
+    trainer, model = build_trainer(cfg)
+    rows = []
+
+    class Rows:
+        """The trainer's logger: keeps every row."""
+
+        def log_metrics(self, metrics, step=None):
+            rows.append(metrics)
+
+    trainer.logger = Rows()
+    saved = os.environ.get("LOGS_DIR")
+    os.environ["LOGS_DIR"] = logs
+    try:
+        counters = reset_launches()
+        t0 = time.perf_counter()
+        trainer.fit(model, TileDataModule(cfg))
+        dt = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("LOGS_DIR")
+        else:
+            os.environ["LOGS_DIR"] = saved
+    used = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    need(trainer.global_step == 3, f"profiled fit took {trainer.global_step} steps")
+    files = [os.path.join(logs, "profile", f) for f in os.listdir(os.path.join(logs, "profile"))]
+    need(len(files) == 1 and files[0].endswith(".json"), f"profile files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {ev.get("name", "") for ev in events}
+    kernels = sorted({m.group(1) for n in names for m in [re.search(r"(\w+_kernel)\b", n)]
+                      if m and m.group(1) in HAND_KERNELS})
+    regions = sum(ev.get("name") == "train_step" for ev in events)
+    need({"knn_topk_kernel", "gather_bwd_kernel"} <= set(kernels),
+         f"the trace names the hand kernels {kernels}")
+    need(regions >= 3, f"the trace holds {regions} train_step regions")
+    timed = [r["profile/train_step_mean_s"] for r in rows if "profile/train_step_mean_s" in r]
+    need(len(timed) == 1 and timed[0] > 0, f"the profiled epoch logged the step time {timed}")
+    print(f"phase 14 profiler: 3-step fit in {dt:.2f} s, trace {os.path.getsize(files[0]) / 2**20:.2f} "
+          f"MiB, {len(events)} events, {regions} train_step regions, hand kernels {kernels}; "
+          f"host {1e3 * timed[0]:.1f} ms a traced step; launches {used}")
+
+
 def foreign_modules() -> list:
     """Modules of JAX, flax or the JAX package loaded in this process."""
     return sorted(m for m in sys.modules
@@ -1176,6 +1481,10 @@ def main() -> int:
             with torch.inference_mode():
                 stats["K7"], launches["K7"] = phase_knn_mxu(dev)
             phase_test(dev, *runs[-1])
+            phase_finetune(dev, work, runs[-1][1])
+            phase_lr_range(dev, runs[-1][0])
+            phase_microbatch(dev)
+            phase_profiler(dev, work)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")

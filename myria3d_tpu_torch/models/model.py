@@ -3,13 +3,19 @@
 Port of ``myria3d_tpu/models/model.py``. The JAX package keeps an immutable
 ``TrainState`` (params, BN stats, optimizer state, step) and pure jitted
 steps; here the train state lives in place: the net's parameters and BN
-buffers, the ``torch.optim`` optimizer and the step count.
+buffers, the ``torch.optim`` optimizer (one parameter group, or when
+finetuning one per top-level module of the net with its ``lr_mult``), the
+step count and the count of batches in the open accumulation group.
 
-- ``train_step`` (``model.py:238-352``): forward in training mode (batch
-  moment BN, dropout and decimation drawn from the step's generator), the
-  criterion, backward, and an optimizer update every
-  ``accumulate_grad_batches`` batches on the mean of their gradients (optax
-  ``MultiSteps``); BN running stats move every batch.
+- ``grad_step`` (``build_grad_step``, ``model.py:238-323``): forward in
+  training mode (batch moment BN, dropout and decimation drawn from the
+  step's generator), the criterion and backward into ``.grad``; BN running
+  stats move every batch. With ``grad_microbatch`` it runs over chunks of
+  the batch (per-chunk BN moments, the mean of the chunks' gradients and
+  running stats).
+- ``train_step`` (``model.py:325-352``): ``grad_step``, then an optimizer
+  update every ``accumulate_grad_batches`` batches on the mean of their
+  gradients (optax ``MultiSteps``).
 - ``eval_step`` (``model.py:354-363``): eval-mode forward and loss.
 - ``interp_step`` (``model.py:366-398``): the predict and test step,
   forward on the sampled points then the k-NN interpolation of the logits
@@ -30,7 +36,7 @@ from torch import nn
 
 from myria3d_tpu_torch.models.criterion import CrossEntropyLoss
 from myria3d_tpu_torch.models.modules.randla_net import RandLANet
-from myria3d_tpu_torch.models.optimizers import adam
+from myria3d_tpu_torch.models.optimizers import adam, set_learning_rate_scale
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
 from myria3d_tpu_torch.ops.interpolate import knn_interpolate
 
@@ -38,6 +44,16 @@ from myria3d_tpu_torch.ops.interpolate import knn_interpolate
 # backward keeps what autograd needs, and K1 is exact within its window
 _IGNORED_NET_HPARAMS = {"remat", "exact_knn"}
 TRAIN_STATE = "train_state.pt"
+
+
+def chunk_generator(generator: torch.Generator | None, i: int) -> torch.Generator | None:
+    """The generator of chunk ``i`` of a microbatched step, seeded from the
+    step's generator's seed (JAX folds the chunk index into the step's
+    keys, ``model.py:292-296``); None stays None."""
+    if generator is None:
+        return None
+    seed = (generator.initial_seed() * 1_000_003 + i + 1) % (2**63 - 1)
+    return torch.Generator(device=generator.device).manual_seed(seed)
 
 
 def build_net(neural_net_class_name: str, neural_net_hparams: Dict[str, Any]) -> nn.Module:
@@ -61,7 +77,8 @@ class Model(nn.Module):
     def __init__(self, net: RandLANet, interpolation_k: int = 10, *, lr: float = 1e-3,
                  optimizer: Optional[Callable] = None, lr_scheduler: Optional[Callable] = None,
                  criterion: Optional[Callable] = None, monitor: str = "val/loss_epoch",
-                 accumulate_grad_batches: int = 1, hparams: Optional[dict] = None):
+                 accumulate_grad_batches: int = 1, grad_microbatch: int = 0,
+                 hparams: Optional[dict] = None):
         super().__init__()
         self.net = net
         self.interpolation_k = int(interpolation_k)
@@ -71,9 +88,12 @@ class Model(nn.Module):
         self.criterion = criterion if criterion is not None else CrossEntropyLoss()
         self.monitor = monitor
         self.accumulate_grad_batches = max(1, int(accumulate_grad_batches or 1))
+        self.grad_microbatch = int(grad_microbatch or 0)
         self.hparams = hparams
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0   # train batches taken
+        self.accum = 0  # batches in the open accumulation group
+        self.lr_scale = 1.0
 
     def set_sorted_window(self, window: int) -> None:
         """Window every search (the encoder graphs, the decoder's k=1
@@ -87,26 +107,104 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # train state
 
-    def init_train_state(self) -> None:
-        """A fresh optimizer over the net's parameters, step 0."""
-        self.optimizer = self.optimizer_factory(lr=self.lr)(self.net.parameters())
+    def init_train_state(self, per_module: bool = False) -> None:
+        """A fresh optimizer over the net's parameters, step 0: one
+        parameter group, or with ``per_module`` (finetuning) one group per
+        top-level module, each at ``lr_mult`` 1. The optimizer runs its
+        update once per group, so a fit without multipliers keeps one."""
+        params: Any = self.net.parameters()
+        if per_module:
+            groups: Dict[str, list] = {}
+            for name, p in self.net.named_parameters():
+                groups.setdefault(name.split(".", 1)[0], []).append(p)
+            params = [{"params": ps, "name": top, "lr_mult": 1.0} for top, ps in groups.items()]
+        self.optimizer = self.optimizer_factory(lr=self.lr)(params)
         self.optimizer.zero_grad(set_to_none=True)
         self.step = 0
+        self.accum = 0
+        self.lr_scale = 1.0
+
+    def set_lr_scale(self, scale: float) -> None:
+        """Every group's learning rate to ``lr * scale * lr_mult``."""
+        self.lr_scale = float(scale)
+        set_learning_rate_scale(self.optimizer, self.lr, self.lr_scale)
+
+    def set_lr_mult(self, mults: Dict[str, float]) -> None:
+        """The finetuning multipliers ``{parameter name: multiplier}``
+        (``FinetuningFreezeUnfreeze.lr_mult_for_epoch``) written into the
+        parameter groups, at the current LR scale. The parameters of one
+        group (a top-level module) share one multiplier; the optimizer has
+        the groups per module (``init_train_state(per_module=True)``)."""
+        if "name" not in self.optimizer.param_groups[0]:
+            raise ValueError("set_lr_mult needs init_train_state(per_module=True)")
+        per_group: Dict[str, set] = {}
+        for name, m in mults.items():
+            per_group.setdefault(name.split(".", 1)[0], set()).add(float(m))
+        for group in self.optimizer.param_groups:
+            found = per_group.get(group["name"], set())
+            if len(found) != 1:
+                raise ValueError(f"parameter group {group['name']}: multipliers {sorted(found)}")
+            group["lr_mult"] = found.pop()
+        self.set_lr_scale(self.lr_scale)
+
+    def grad_step(self, x, pos, y, mask, generator: torch.Generator | None = None):
+        """Forward and backward of one batch in training mode, the gradients
+        added to ``.grad`` over ``accumulate_grad_batches``: ``(loss,
+        logits)``, both detached.
+
+        With ``grad_microbatch`` = mb > 0 and a batch B > mb that mb divides,
+        the step runs over the k = B / mb chunks in order, each on its own
+        generator (``chunk_generator``) and from the same BN running stats,
+        which end as the mean of the chunks' (``model.py:277-321``); the
+        loss is the mean of the chunks' and each chunk's gradient enters
+        scaled by 1 / k. The net routes each chunk by the chunk's batch
+        (``fused_train_lfa: auto``): B=32 at mb=16 takes the fused route,
+        B=16 at mb=8 the unfused one. Any other B is the monolithic step."""
+        self.net.train()
+        b, mb = x.shape[0], self.grad_microbatch
+        if mb <= 0 or b <= mb or b % mb:
+            logits = self.net(x, pos, mask, generator)
+            loss = self.criterion(logits, y)
+            (loss / self.accumulate_grad_batches).backward()
+            return loss.detach(), logits.detach()
+        k = b // mb
+        # the net updates its BN buffers in place on every forward: each
+        # chunk starts from the step's stats, and the buffers end as the
+        # chunks' mean
+        stats = [t for t in self.net.buffers() if t.is_floating_point()]
+        start = torch._foreach_mul(stats, 1.0)
+        losses, logits = [], []
+        for i in range(k):
+            rows = slice(i * mb, (i + 1) * mb)
+            if i:
+                torch._foreach_copy_(stats, start)
+            out = self.net(x[rows], pos[rows], mask[rows], chunk_generator(generator, i))
+            loss = self.criterion(out, y[rows])
+            (loss / (k * self.accumulate_grad_batches)).backward()
+            if i:
+                torch._foreach_add_(total, stats)
+            else:
+                total = torch._foreach_mul(stats, 1.0)
+            losses.append(loss.detach())
+            logits.append(out.detach())
+        torch._foreach_mul_(total, 1.0 / k)
+        torch._foreach_copy_(stats, total)
+        return sum(losses[1:], losses[0]) * (1.0 / k), torch.cat(logits)
 
     def train_step(self, x, pos, y, mask, generator: torch.Generator | None = None):
-        """One training batch: ``(loss, logits)``, both detached. The
-        optimizer updates when the batch completes an accumulation group."""
+        """One training batch (``grad_step``): ``(loss, logits)``, both
+        detached. The optimizer updates when the batch completes an
+        accumulation group."""
         if self.optimizer is None:
             self.init_train_state()
-        self.net.train()
-        logits = self.net(x, pos, mask, generator)
-        loss = self.criterion(logits, y)
-        (loss / self.accumulate_grad_batches).backward()
+        loss, logits = self.grad_step(x, pos, y, mask, generator)
         self.step += 1
-        if self.step % self.accumulate_grad_batches == 0:
+        self.accum += 1
+        if self.accum == self.accumulate_grad_batches:
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
-        return loss.detach(), logits.detach()
+            self.accum = 0
+        return loss, logits
 
     @torch.no_grad()
     def eval_step(self, x, pos, y, mask, generator: torch.Generator | None = None):
@@ -151,20 +249,27 @@ class Model(nn.Module):
         torch.save(train_state, os.path.join(ckpt_dir, TRAIN_STATE))
         return ckpt_dir
 
-    def restore_train_state(self, ckpt_dir: str) -> None:
-        """Load a checkpoint's weights and BN buffers (strict) and, when
-        stored, its optimizer state and step (resuming a fit)."""
+    def restore_train_state(self, ckpt_dir: str, optimizer: bool = True) -> None:
+        """Load a checkpoint's weights and BN buffers (strict) and its step.
+        ``optimizer=True`` resumes a fit: the stored optimizer state, and
+        the accumulation group at ``step % accumulate_grad_batches``.
+        ``optimizer=False`` is the finetune restore (``restore_opt_state=
+        False``, ``model.py:474-503``): a fresh optimizer with the groups
+        per module and a fresh accumulation group, as a fresh optax
+        ``MultiSteps`` state."""
         from myria3d_tpu_torch.utils.checkpoint import load_state_dict
 
         device = next(self.net.parameters()).device
         self.net.load_state_dict(load_state_dict(ckpt_dir, device), strict=True)
-        self.init_train_state()
+        self.init_train_state(per_module=not optimizer)
         path = os.path.join(ckpt_dir, TRAIN_STATE)
         if os.path.isfile(path):
             stored = torch.load(path, map_location=device, weights_only=True)
             self.step = int(stored.get("step", 0))
-            if "optimizer" in stored:
-                self.optimizer.load_state_dict(stored["optimizer"])
+            if optimizer:
+                if "optimizer" in stored:
+                    self.optimizer.load_state_dict(stored["optimizer"])
+                self.accum = self.step % self.accumulate_grad_batches
 
 
 def build_model(neural_net_class_name: str, neural_net_hparams: Dict[str, Any],
@@ -177,8 +282,6 @@ def build_model(neural_net_class_name: str, neural_net_hparams: Dict[str, Any],
     """:class:`Model` from the keyword arguments of the JAX ``Model``
     (``configs/model/*.yaml``); the checkpoint hparams are the model
     section's plain entries, as the JAX package stores them."""
-    if grad_microbatch:
-        raise NotImplementedError("model.grad_microbatch is not ported yet")
     hp = dict(neural_net_hparams)
     hparams = {
         "neural_net_class_name": neural_net_class_name,
@@ -191,4 +294,4 @@ def build_model(neural_net_class_name: str, neural_net_hparams: Dict[str, Any],
     return Model(build_net(neural_net_class_name, hp), interpolation_k, lr=lr,
                  optimizer=optimizer, lr_scheduler=lr_scheduler, criterion=criterion,
                  monitor=monitor, accumulate_grad_batches=accumulate_grad_batches,
-                 hparams=hparams)
+                 grad_microbatch=grad_microbatch, hparams=hparams)

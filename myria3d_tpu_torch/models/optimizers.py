@@ -11,6 +11,14 @@ optax's ``lr (u + wd p)``, and SGD's momentum buffer starts at the first
 gradient in both. The trainer rescales the learning rate in place
 (:func:`set_learning_rate_scale`); the schedulers are host-side
 controllers that return that scale.
+
+A parameter group may carry ``lr_mult`` (default 1), the finetuning
+multiplier of its subtree. The JAX package multiplies each leaf's update
+after the optimizer (``myria3d_tpu/models/model.py:339-343``); the updates
+of Adam, AdamW (decoupled decay included) and SGD are linear in the
+group's learning rate, so a group at ``base_lr * scale * lr_mult`` takes
+the same step. A group at ``lr_mult`` 0 still moves its moments, as there,
+and its parameters stay bit-equal.
 """
 
 from __future__ import annotations
@@ -41,22 +49,25 @@ def sgd(lr: float, momentum: float = 0.9) -> Factory:
 
 def set_learning_rate_scale(optimizer: torch.optim.Optimizer, base_lr: float,
                             scale: float) -> None:
-    """Set every parameter group's learning rate to ``base_lr * scale``."""
+    """Set every parameter group's learning rate to ``base_lr * scale``
+    times the group's ``lr_mult``."""
     for group in optimizer.param_groups:
-        group["lr"] = base_lr * scale
+        group["lr"] = base_lr * scale * group.get("lr_mult", 1.0)
 
 
 @dataclasses.dataclass
 class ReduceLROnPlateau:
     """Host-side plateau controller (torch ``ReduceLROnPlateau`` semantics;
     reference config mode=min, factor=0.5, patience=20, cooldown=5). Call
-    ``step(metric)`` once per validation epoch; it returns the LR scale."""
+    ``step(metric)`` once per validation epoch; it returns the LR scale.
+    ``min_lr`` is accepted and, as in the JAX package, not read."""
 
     mode: str = "min"
     factor: float = 0.5
     patience: int = 10
     cooldown: int = 0
     threshold: float = 1e-4
+    min_lr: float = 0.0
 
     def __post_init__(self):
         self.best: Optional[float] = None

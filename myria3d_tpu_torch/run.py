@@ -1,13 +1,17 @@
 """CLI of the port — ``python -m myria3d_tpu_torch.run
-task.task_name={fit,fit+test,test,predict,create_hdf5} [--config-path DIR]
+task.task_name={fit,fit+test,test,finetune,predict,create_hdf5} [--config-path DIR]
 [--config-name NAME] [a.b=value ...]``.
 
 Mirrors ``run.py``. ``fit`` (the default task) composes the config tree
 under ``configs/`` (default experiment ``RandLaNetDebug``), enters the
 per-run directory ``hydra.run.dir`` like hydra, and runs
 ``myria3d_tpu_torch.train.train``: fit, then the full-cloud test on the
-best checkpoint. ``test`` evaluates the checkpoint ``model.ckpt_path`` on
-the test split, full-cloud. ``predict`` (``launch_predict``, ``run.py:92``)
+best checkpoint (``task.auto_lr_find=true`` runs the LR range test first
+and fits from its suggestion). ``test`` evaluates the checkpoint
+``model.ckpt_path`` on the test split, full-cloud. ``finetune`` (e.g.
+``experiment=DebugFineTune``) fits from the weights of ``model.ckpt_path``
+with a fresh optimizer, unfreezing the net's subtrees by epoch through the
+``finetune`` callback. ``predict`` (``launch_predict``, ``run.py:92``)
 composes with ``experiment=predict`` (unless a frozen config is given),
 ``predict.src_las`` may be a glob, the next tile is read in the background
 while the current one streams through the device, and ``predict.resume``
@@ -15,7 +19,7 @@ skips inputs whose output already exists. ``create_hdf5`` builds the HDF5
 sample cache of ``datamodule.hdf5_file_path`` from the LAS corpus
 (``launch_hdf5``, ``run.py:157``). Every task runs on the first CUDA
 device, and raises when there is none; ``trainer.accelerator=cpu`` runs it
-on the CPU. ``finetune`` is not ported yet.
+on the CPU.
 """
 
 from __future__ import annotations
@@ -148,9 +152,9 @@ def main(argv: List[str]):
     config_dir, config_name, overrides, task = parse_cli(argv)
     if task == "predict":
         return launch_predict(compose_config(config_dir, config_name, overrides))
-    if task not in ("fit", "fit+test", "test", "create_hdf5"):
-        raise NotImplementedError(
-            f"task.task_name={task} is not ported yet (fit, fit+test, test, predict, create_hdf5)")
+    if task not in ("fit", "fit+test", "test", "finetune", "create_hdf5"):
+        raise ValueError(
+            f"task.task_name={task}: fit, fit+test, test, finetune, predict or create_hdf5")
     config = compose_config(config_dir, config_name, overrides)
     enter_run_dir(config)
     if task == "create_hdf5":

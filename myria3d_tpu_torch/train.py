@@ -1,13 +1,15 @@
-"""Training loop of the port: ``Trainer.fit``, ``Trainer.test`` and
-``train(config)``.
+"""Training loop of the port: ``Trainer.fit``, ``Trainer.test``,
+``lr_range_test`` and ``train(config)``.
 
-Port of ``myria3d_tpu/train.py:33-582,646-741`` without JAX: an explicit
+Port of ``myria3d_tpu/train.py:33-741`` without JAX: an explicit
 loop over fixed-shape padded batches on one device, with the host-side
 control plane of the JAX package: sanity-val steps, ``limit_*_batches``,
 ``overfit_batches``, the val epoch, the LR scheduler (plateau per val
 epoch, one-cycle per step), the best/last checkpoints, early stopping, and
 the SIGTERM/SIGINT save (the in-flight step finishes, the "last"
-checkpoint is written, a second signal stops at once). ``Trainer.test`` is
+checkpoint is written, a second signal stops at once), the finetune regime
+(weights only, the ``finetune`` callback's multipliers per epoch) and the
+``trainer.profiler`` trace of epoch 0's train loop. ``Trainer.test`` is
 the full-cloud evaluation: each test batch's logits are interpolated back
 to every raw point of its subtiles (``Model.interp_step``: K1, K2 and K3 on
 the card) before the loss and the confusion matrix.
@@ -16,8 +18,9 @@ the card) before the loss and the confusion matrix.
 targets name the JAX package's classes: :func:`port_targets` redirects
 every one of them to the port's counterpart (and raises
 ``NotImplementedError`` for one the port lacks). ``fit`` and ``fit+test``
-run the test after fit on the best checkpoint; ``test`` evaluates
-``model.ckpt_path``. ``finetune`` and the LR range test are not ported yet.
+run the LR range test first under ``task.auto_lr_find`` and the test after
+fit on the best checkpoint; ``test`` evaluates ``model.ckpt_path``;
+``finetune`` fits from its weights.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from myria3d_tpu_torch.pctl.batching import pad_full_cloud, pad_sampled_pos
 from myria3d_tpu_torch.pctl.loader import BackgroundIterator
 from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
 from myria3d_tpu_torch.utils.config import instantiate
+from myria3d_tpu_torch.utils.profiling import StageTimer, annotate, trace
 
 log = logging.getLogger(__name__)
 
@@ -86,7 +90,9 @@ def port_targets(node: Any) -> Any:
 class TrainerConfig:
     """Trainer knobs (``configs/trainer/default.yaml``). ``accelerator``:
     "auto", "gpu" and "cuda" take the first CUDA device and raise when
-    there is none; "cpu" the CPU. One device per process."""
+    there is none; "cpu" the CPU. One device per process. Other keys land
+    in ``extra``: ``profiler`` "torch" (or "jax", the JAX package's value)
+    traces epoch 0's train loop to ``$LOGS_DIR/profile``."""
 
     min_epochs: int = 1
     max_epochs: int = 1
@@ -128,6 +134,15 @@ def _limited(loader: Iterable, limit: Optional[int]) -> Iterable:
         yield item
 
 
+def _arrays(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+            for k, v in batch.device_arrays().items()}
+
+
+def _generator(device: torch.device, seed: int, offset: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + offset)
+
+
 class Trainer:
     """Explicit training loop owning callbacks, logger and scheduler state."""
 
@@ -141,6 +156,7 @@ class Trainer:
         self.checkpoint_cb = self.callbacks.get("model_checkpoint")
         self.early_stopping = self.callbacks.get("early_stopping")
         self.lr_monitor = self.callbacks.get("lr_monitor")
+        self.finetune_cb = self.callbacks.get("finetune")
         self.device = trainer_config.device()
         self.global_step = 0
         self.interrupted = False
@@ -189,32 +205,27 @@ class Trainer:
         if self.logger is not None:
             self.logger.log_metrics(metrics, step=self.global_step)
 
-    def _arrays(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
-                for k, v in batch.device_arrays().items()}
-
-    def _generator(self, offset: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + offset)
-
-    def _apply_lr(self, model: Model, scale: float) -> None:
-        set_learning_rate_scale(model.optimizer, model.lr, scale)
-
     # ------------------------------------------------------------------
 
-    def fit(self, model: Model, datamodule, ckpt_path: Optional[str] = None) -> Model:
+    def fit(self, model: Model, datamodule, ckpt_path: Optional[str] = None,
+            finetune: bool = False) -> Model:
+        """Fit ``model``; ``ckpt_path`` resumes from a checkpoint, or with
+        ``finetune`` takes its weights only (a fresh optimizer) and applies
+        the ``finetune`` callback's multipliers at each epoch's start."""
         datamodule.prepare_data()
         datamodule.setup("fit")
         model.to(self.device)
-        model.init_train_state()
+        model.init_train_state(per_module=finetune)
         if ckpt_path:
-            log.info(f"Restoring weights and optimizer state from {ckpt_path}")
-            model.restore_train_state(ckpt_path)
+            log.info(f"Restoring weights{'' if finetune else ' and optimizer state'} "
+                     f"from {ckpt_path}")
+            model.restore_train_state(ckpt_path, optimizer=not finetune)
         log.info(f"Model has {sum(p.numel() for p in model.parameters()):,} parameters")
-        self._apply_lr(model, 1.0)
+        model.set_lr_scale(1.0)
         scheduler = model.lr_scheduler_factory() if model.lr_scheduler_factory else None
         per_step = bool(getattr(scheduler, "per_step", False))
         if per_step:
-            self._apply_lr(model, scheduler.scale)  # one-cycle starts below max_lr
+            model.set_lr_scale(scheduler.scale)  # one-cycle starts below max_lr
 
         if self.cfg.num_sanity_val_steps:
             self._val_epoch(model, datamodule, limit=self.cfg.num_sanity_val_steps,
@@ -223,13 +234,20 @@ class Trainer:
         if self.cfg.overfit_batches:
             overfit = [b for b in _limited(datamodule.train_dataloader(seed=self.seed),
                                            self.cfg.overfit_batches) if b is not None]
+        profile_dir = None
+        if self.cfg.extra.get("profiler") in ("torch", "jax"):
+            profile_dir = os.path.join(os.environ.get("LOGS_DIR", "logs"), "profile")
+            log.info(f"Profiling epoch 0 to {profile_dir}")
 
         epoch = 0
         with self._graceful_interrupts():
             for epoch in range(self.cfg.max_epochs):
                 if self.interrupted:
                     break
-                stop = self._fit_one_epoch(model, datamodule, epoch, scheduler, per_step, overfit)
+                if finetune and self.finetune_cb is not None:
+                    model.set_lr_mult(self.finetune_cb.lr_mult_for_epoch(model.net, epoch))
+                stop = self._fit_one_epoch(model, datamodule, epoch, scheduler, per_step,
+                                           overfit, profile_dir if epoch == 0 else None)
                 if self.interrupted:
                     break
                 if stop and epoch + 1 >= self.cfg.min_epochs:
@@ -243,37 +261,46 @@ class Trainer:
                      + (f"; resumable checkpoint: {path}" if path else ""))
         return model
 
-    def _fit_one_epoch(self, model, datamodule, epoch, scheduler, per_step, overfit):
+    def _fit_one_epoch(self, model, datamodule, epoch, scheduler, per_step, overfit,
+                       profile_dir=None):
         """One train + val epoch; returns the early-stopping decision, or
-        None when interrupted before it was taken."""
+        None when interrupted before it was taken. ``profile_dir`` traces
+        the train loop, each step the region "train_step", and logs the
+        host's time in the steps (``profile/train_step_s`` and ``_mean_s``,
+        the time to enqueue them where the device runs behind)."""
         losses: List[torch.Tensor] = []
+        timer = StageTimer()
         iterator: Iterable = overfit if overfit is not None else BackgroundIterator(
             _limited(datamodule.train_dataloader(seed=self.seed + epoch),
                      self.cfg.limit_train_batches), max_prefetch=2)
         try:
-            for batch in iterator:
-                if batch is None:
-                    continue
-                a = self._arrays(batch)
-                loss, logits = model.train_step(a["x"], a["pos"], a["y"], a["mask"],
-                                                self._generator(model.step))
-                self.global_step += 1
-                losses.append(loss)
-                if self.metrics is not None:
-                    self.metrics.update("train", logits, a["y"], a["mask"])
-                if self.global_step % max(1, self.cfg.log_every_n_steps) == 0:
-                    row = {"train/loss_step": float(loss)}
-                    if self.lr_monitor is not None and scheduler is not None:
-                        row.update(self.lr_monitor.metrics(
-                            model.lr * getattr(scheduler, "scale", 1.0)))
-                    self._log(row)
-                if per_step:
-                    self._apply_lr(model, scheduler.step())
-                if self.interrupted:
-                    break
+            with trace(profile_dir):
+                for batch in iterator:
+                    if batch is None:
+                        continue
+                    with annotate("train_step"), timer.stage("train_step"):
+                        a = _arrays(batch, self.device)
+                        gen = _generator(self.device, self.seed, model.step)
+                        loss, logits = model.train_step(a["x"], a["pos"], a["y"], a["mask"], gen)
+                    self.global_step += 1
+                    losses.append(loss)
+                    if self.metrics is not None:
+                        self.metrics.update("train", logits, a["y"], a["mask"])
+                    if self.global_step % max(1, self.cfg.log_every_n_steps) == 0:
+                        row = {"train/loss_step": float(loss)}
+                        if self.lr_monitor is not None and scheduler is not None:
+                            row.update(self.lr_monitor.metrics(
+                                model.lr * getattr(scheduler, "scale", 1.0)))
+                        self._log(row)
+                    if per_step:
+                        model.set_lr_scale(scheduler.step())
+                    if self.interrupted:
+                        break
         finally:
             if hasattr(iterator, "close"):
                 iterator.close()
+        if profile_dir:
+            self._log(timer.metrics())
         step_losses = torch.stack(losses).tolist() if losses else []
         self.train_losses.extend(step_losses)
         if self.interrupted:
@@ -295,7 +322,7 @@ class Trainer:
         stop = False
         monitor_value = epoch_metrics.get(model.monitor)
         if scheduler is not None and not per_step and monitor_value is not None:
-            self._apply_lr(model, scheduler.step(monitor_value))
+            model.set_lr_scale(scheduler.step(monitor_value))
         if self.checkpoint_cb is not None:
             self.checkpoint_cb.on_validation_end(model, None, epoch_metrics, epoch)
         if self.early_stopping is not None:
@@ -312,9 +339,9 @@ class Trainer:
         for batch in iterator:
             if batch is None:
                 continue
-            a = self._arrays(batch)
+            a = _arrays(batch, self.device)
             loss, logits = model.eval_step(a["x"], a["pos"], a["y"], a["mask"],
-                                           self._generator(-1))
+                                           _generator(self.device, self.seed, -1))
             losses.append(loss)
             if self.metrics is not None and log_prefix:
                 self.metrics.update(log_prefix, logits, a["y"], a["mask"])
@@ -367,7 +394,7 @@ class Trainer:
         for batch in _limited(datamodule.test_dataloader(), self.cfg.limit_test_batches):
             if batch is None:
                 continue
-            a = self._arrays(batch)
+            a = _arrays(batch, self.device)
             full = pad_full_cloud(batch.copies)
             sampled_pos = pad_sampled_pos(batch.copies, batch.num_points)
             if full is None or sampled_pos is None or "full_y" not in full:
@@ -388,7 +415,7 @@ class Trainer:
                         "predict.strict_full_cloud=true to make this an error. This warning "
                         "is logged once per run.")
                 loss, logits = model.eval_step(a["x"], a["pos"], a["y"], a["mask"],
-                                               self._generator(-777))
+                                               _generator(self.device, self.seed, -777))
                 losses.append(loss)
                 if self.metrics is not None:
                     self.metrics.update("test", logits, a["y"], a["mask"])
@@ -398,7 +425,7 @@ class Trainer:
                                 ("full_mask", full["full_mask"]), ("full_y", full["full_y"]))}
             full_logits = model.interp_step(a["x"], a["pos"], a["mask"], dev["sampled_pos"],
                                             dev["full_pos"], dev["full_mask"],
-                                            self._generator(-777), fused=fused)
+                                            _generator(self.device, self.seed, -777), fused=fused)
             full_y = dev["full_y"].long()
             losses.append(model.criterion(full_logits, full_y))
             if self.metrics is not None:
@@ -445,18 +472,80 @@ def build_trainer(config: dict):
     return trainer, model
 
 
+def lr_range_test(model: Model, datamodule, seed: int = 12345, min_lr: float = 1e-4,
+                  max_lr: float = 3.0, num_steps: int = 100, beta: float = 0.98) -> float:
+    """LR range test (``myria3d_tpu/train.py:592-643``; reference
+    ``auto_lr_find``): train on up to 8 cached batches while the LR grows
+    geometrically from ``min_lr`` to ``max_lr``, track the bias-corrected
+    EMA of the loss, stop on a non-finite loss or once the smoothed loss
+    exceeds 4x its minimum after step 10, and suggest the LR of the
+    steepest descent of the smoothed loss over log(LR) (``model.lr`` when
+    fewer than 3 points were taken).
+
+    The sweep runs on the model's device with a fresh optimizer (under a
+    per-step scheduler its step i runs at ``lr_i * scale_at(i)``, as the
+    JAX optimizer's fused one-cycle schedule does); the net's state dict,
+    the step and the optimizer are restored afterwards."""
+    import math
+
+    datamodule.prepare_data()
+    datamodule.setup("fit")
+    batches = [b for b in _limited(datamodule.train_dataloader(seed=seed), 8) if b is not None]
+    if not batches:
+        raise RuntimeError("No batches for the LR range test")
+    device = next(model.net.parameters()).device
+    arrays = [_arrays(b, device) for b in batches]
+    probe = model.lr_scheduler_factory() if model.lr_scheduler_factory else None
+    schedule = probe.scale_at if getattr(probe, "per_step", False) else None
+    saved = ({k: v.detach().clone() for k, v in model.net.state_dict().items()},
+             model.step, model.accum, model.optimizer, model.lr_scale, model.net.training)
+    model.init_train_state()
+
+    gamma = (max_lr / min_lr) ** (1.0 / max(1, num_steps - 1))
+    lrs, losses = [], []
+    avg = 0.0
+    try:
+        for i in range(num_steps):
+            lr_i = min_lr * gamma**i
+            updates = i // model.accumulate_grad_batches   # the schedule's count
+            set_learning_rate_scale(model.optimizer, lr_i, schedule(updates) if schedule else 1.0)
+            a = arrays[i % len(arrays)]
+            loss, _ = model.train_step(a["x"], a["pos"], a["y"], a["mask"],
+                                       _generator(device, seed, i))
+            loss = float(loss)
+            if not math.isfinite(loss):
+                break
+            avg = beta * avg + (1 - beta) * loss
+            smoothed = avg / (1 - beta ** (i + 1))
+            lrs.append(lr_i)
+            losses.append(smoothed)
+            if i > 10 and smoothed > 4 * min(losses):
+                break  # diverged
+    finally:
+        state, model.step, model.accum, model.optimizer, model.lr_scale, training = saved
+        model.net.load_state_dict(state)
+        model.net.train(training)
+    if len(losses) < 3:
+        return model.lr
+    grads = np.gradient(np.asarray(losses), np.log(np.asarray(lrs)))
+    suggestion = float(lrs[int(np.argmin(grads))])
+    log.info(f"LR range test suggests lr={suggestion:.6g} ({len(losses)} steps)")
+    return suggestion
+
+
 def train(config: dict) -> Trainer:
     """Instantiate the datamodule, model, callbacks and logger from the
     composed config and run ``task.task_name``: ``fit`` and ``fit+test``
-    (fit, then the full-cloud test on the best checkpoint, or on the trained
-    model when no checkpoint was kept; none after a SIGTERM stop) or
-    ``test`` (the checkpoint directory ``model.ckpt_path``)."""
+    (the LR range test first under ``task.auto_lr_find``, fit, then the
+    full-cloud test on the best checkpoint, or on the trained model when no
+    checkpoint was kept; none after a SIGTERM stop), ``test`` (the
+    checkpoint directory ``model.ckpt_path``) or ``finetune`` (fit from
+    ``model.ckpt_path``'s weights with the ``finetune`` callback; no test
+    after it)."""
     task = config.get("task") or {}
     task_name = task.get("task_name", "fit")
-    if task_name not in ("fit", "fit+test", "test"):
-        raise NotImplementedError(f"task.task_name={task_name} is not ported yet (fit, test)")
-    if task.get("auto_lr_find") and task_name != "test":
-        raise NotImplementedError("task.auto_lr_find (the LR range test) is not ported yet")
+    if task_name not in ("fit", "fit+test", "test", "finetune"):
+        raise ValueError(f"Unknown task for train(): {task_name}")
     ckpt_path = config["model"].get("ckpt_path")
     if task_name == "test" and not (ckpt_path and os.path.isdir(ckpt_path)):
         raise ValueError("task=test requires model.ckpt_path pointing to a checkpoint dir")
@@ -468,6 +557,14 @@ def train(config: dict) -> Trainer:
         log.info("Starting testing!")
         trainer.test(model, datamodule, ckpt_path=ckpt_path)
         return trainer
+    if task_name == "finetune":
+        log.info("Starting finetuning!")
+        trainer.fit(model, datamodule, ckpt_path=ckpt_path, finetune=True)
+        return trainer
+    if task.get("auto_lr_find"):
+        # fit starts from model.lr and re-applies it to every group
+        model.to(trainer.device)
+        model.lr = lr_range_test(model, datamodule, seed=trainer.seed)
     log.info("Starting training!")
     trainer.fit(model, datamodule, ckpt_path=ckpt_path)
     if trainer.interrupted:

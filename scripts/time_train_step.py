@@ -5,10 +5,13 @@ as ``chip_smoke.py`` phase 8 times it, for one tree and one route at a
 time, so that two trees can be run in many alternating turns on one card:
 
     python3 scripts/time_train_step.py [--port-root DIR] [--batches 16 32]
-        [--route fused|unfused] [--reps 10] [--turns 2]
+        [--route fused|unfused] [--reps 10] [--turns 2] [--per-module]
 
 ``--port-root`` imports ``myria3d_tpu_torch`` from another tree (an older
-commit unpacked with ``git archive``). Per batch size: ms/step of each turn
+commit unpacked with ``git archive``). ``--per-module`` builds the
+optimizer with one parameter group per top-level module of the net, as a
+finetune fit does (``Model.init_train_state(per_module=True)``; trees that
+have it). Per batch size: ms/step of each turn
 (``--reps`` steps, each reading the parameters the last one wrote, one
 synchronisation at the end), then a ``torch.profiler`` trace of three
 steps: device kernels and copies per step, device busy time per step and
@@ -38,6 +41,8 @@ def main() -> int:
     ap.add_argument("--route", choices=("fused", "unfused"), default="fused")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--per-module", action="store_true",
+                    help="one optimizer parameter group per top-level module")
     args = ap.parse_args()
     spec = importlib.util.spec_from_file_location("smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -63,7 +68,10 @@ def main() -> int:
             "knn_window": smoke.WINDOW, "sort_inputs": True,
             "fused_train_lfa": args.route == "fused"}, lr=0.001)
         model.to(dev)
-        model.init_train_state()
+        if args.per_module:
+            model.init_train_state(per_module=True)
+        else:
+            model.init_train_state()
         batch = [torch.from_numpy(a).to(dev) for a in smoke.train_batch(b)]
 
         def step(i):
@@ -87,7 +95,8 @@ def main() -> int:
             torch.cuda.synchronize()
         spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
                        if ev.device_type == DeviceType.CUDA)
-        row = {"batch": b, "route": args.route, "ms_per_step": turns}
+        row = {"batch": b, "route": args.route, "per_module": args.per_module,
+               "param_groups": len(model.optimizer.param_groups), "ms_per_step": turns}
         if spans:      # an empty trace leaves the device numbers unmeasured
             busy, end = 0.0, spans[0][0]
             for t0, t1 in spans:
@@ -97,7 +106,8 @@ def main() -> int:
             row.update(device_ops_per_step=len(spans) / 3, device_busy_ms=busy / 3e3,
                        idle_share=1 - busy / window)
         results.append(row)
-        print(f"B={b} {args.route}: " + ", ".join(f"{t:.1f}" for t in turns) + " ms/step; "
+        print(f"B={b} {args.route}, {row['param_groups']} parameter groups: "
+              + ", ".join(f"{t:.1f}" for t in turns) + " ms/step; "
               + (f"{row['device_ops_per_step']:.0f} device kernels and copies a step, device busy "
                  f"{row['device_busy_ms']:.2f} ms/step, idle {100 * row['idle_share']:.1f} %"
                  if spans else "device profile not measured (empty trace)"))

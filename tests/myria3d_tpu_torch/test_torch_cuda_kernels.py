@@ -475,3 +475,67 @@ def test_train_step_runs_its_kernels(cuda_device, fused):
     assert torch.isfinite(loss) and logits.shape == (2, 4096, 7)
     assert [f.launches - b for f, b in zip(counters, before)] == ([8, 4, 8, 4] if fused
                                                                   else [8, 0, 0, 4])
+
+
+def _card_train_model(cuda_device, **kw):
+    torch.manual_seed(0)
+    model = build_model("RandLANet", {"num_features": 9, "num_classes": 7, "knn_window": 4608,
+                                      "sort_inputs": True, "fused_train_lfa": True}, **kw)
+    model.to(cuda_device)
+    model.init_train_state()
+    pos, mask = _sorted_cloud(4, 4096, cuda_device, 12)
+    x = torch.rand((4, 4096, 9), device=cuda_device)
+    y = torch.randint(0, 7, (4, 4096), device=cuda_device).masked_fill(~mask, 65)
+    return model, (x, pos, y, mask)
+
+
+def test_finetune_step_runs_its_kernels(cuda_device):
+    """A finetune step at epoch 0 on the fused route: the last FC moves,
+    every other parameter stays bit-equal (its group at ``lr_mult`` 0); K4,
+    K5 and K6 launched."""
+    from myria3d_tpu_torch.callbacks.finetuning_callbacks import FinetuningFreezeUnfreeze
+
+    model, batch = _card_train_model(cuda_device)
+    model.init_train_state(per_module=True)
+    model.set_lr_mult(FinetuningFreezeUnfreeze().lr_mult_for_epoch(model.net, 0))
+    before = {k: p.detach().clone() for k, p in model.net.named_parameters()}
+    counters = (gather_bwd, rel_stats, lfa_train_bwd)
+    start = [f.launches for f in counters]
+    loss, _ = model.train_step(*batch, torch.Generator(device=cuda_device).manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert all(f.launches > s for f, s in zip(counters, start))
+    for k, p in model.net.named_parameters():
+        assert torch.equal(p, before[k]) != k.startswith("fc_classif."), k
+
+
+def test_microbatched_step_runs_its_kernels(cuda_device):
+    """B=4 at ``grad_microbatch=2`` on the fused route: each chunk launches
+    what a step does (K4 8, K5 4, K6 8), the loss is the chunks' mean and
+    the BN running stats the mean of the chunks' (within 1e-6 relative)."""
+    from myria3d_tpu_torch.models.model import chunk_generator
+
+    model, (x, pos, y, mask) = _card_train_model(cuda_device, grad_microbatch=2)
+    stats = [t for t in model.net.buffers()]
+    start = [t.clone() for t in stats]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    counters = (gather_bwd, rel_stats, lfa_train_bwd)
+    before = [f.launches for f in counters]
+    loss, logits = model.grad_step(x, pos, y, mask, gen)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [16, 8, 16]
+    got = [t.clone() for t in stats]
+    losses, chunk_stats = [], []
+    with torch.no_grad():
+        for i in range(2):
+            for t, s in zip(stats, start):
+                t.copy_(s)
+            out = model.net(x[2 * i:2 * i + 2], pos[2 * i:2 * i + 2], mask[2 * i:2 * i + 2],
+                            chunk_generator(gen, i))
+            losses.append(model.criterion(out, y[2 * i:2 * i + 2]))
+            chunk_stats.append([t.clone() for t in stats])
+    assert float((loss - (losses[0] + losses[1]) / 2).abs()) <= 1e-5 * float(loss.abs())
+    assert logits.shape == (4, 4096, 7)
+    for t, a, b in zip(got, *chunk_stats):
+        want = (a + b) / 2
+        assert float((t - want).abs().max()) <= 1e-6 * float(want.abs().max())

@@ -88,9 +88,15 @@ def test_exact_interpolation_reaches_the_interpolation(small_tile, tmp_path, mon
     assert seen == [fused, fused]          # one full-cloud interpolation a batch
 
 
-@pytest.mark.parametrize("task", ["finetune"])
-def test_other_tasks_are_not_ported(task):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("task", ["finetune", "bogus"])
+def test_other_tasks_are_not_ported(task, monkeypatch, tmp_path):
+    """``finetune`` goes to ``train`` and, like every entry point, runs on
+    CUDA unless asked for the CPU (no card: the device error); a task the
+    CLI does not know raises before composing anything."""
+    monkeypatch.chdir(tmp_path)     # the run directory is made under the cwd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError if task == "finetune" else ValueError,
+                       match="runs on CUDA" if task == "finetune" else "bogus"):
         run.main([f"task.task_name={task}"])
 
 

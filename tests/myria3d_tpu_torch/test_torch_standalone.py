@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``myria3d_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax or the JAX package, statically or on
-the paths they run (predict, fit, test), and the host modules the port
+the paths they run (predict, fit, test, finetune, the LR range test), and the host modules the port
 copied from the JAX package give the same outputs as their originals on
 the same seeded inputs."""
 
@@ -64,8 +64,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 
 # A sys.meta_path finder refusing JAX, flax and the JAX package, then the
-# port's modules, its predict path and two fit steps plus the test after
-# fit from the toy HDF5, all on the CPU.
+# port's modules, its predict path, two fit steps plus the test after fit
+# from the toy HDF5, a finetune from the fit's checkpoint and a three-step
+# LR range test, all on the CPU.
 _GUARDED_RUN = r'''
 import importlib, os, pkgutil, sys
 FOREIGN = {"jax", "jaxlib", "flax", "myria3d_tpu"}
@@ -96,6 +97,20 @@ trainer = run.main(["task.task_name=fit", "dataset_description=toy_synthetic",
                     "trainer.limit_test_batches=1", f"hydra.run.dir={work}/run",
                     "logger=csv", "datamodule.num_workers=1"])
 assert trainer.global_step == 2, trainer.global_step
+ckpt = os.path.abspath(trainer.checkpoint_cb.last_model_path)
+ft = run.main(["task.task_name=finetune", "experiment=DebugFineTune",
+               "dataset_description=toy_synthetic", f"datamodule.hdf5_file_path={hdf5}",
+               "trainer.accelerator=cpu", f"model.ckpt_path={ckpt}", f"hydra.run.dir={work}/ft",
+               "logger=csv", "datamodule.num_workers=1"])
+assert ft.global_step == 1, ft.global_step
+from myria3d_tpu_torch.train import build_trainer, lr_range_test, port_targets
+from myria3d_tpu_torch.utils.config import instantiate
+cfg = run.compose_config(run.CONFIG_DIR, "config.yaml", [
+    "dataset_description=toy_synthetic", f"datamodule.hdf5_file_path={hdf5}",
+    "datamodule.num_workers=1", "trainer.accelerator=cpu"])
+_, model = build_trainer(cfg)
+lr = lr_range_test(model, instantiate(port_targets(cfg["datamodule"])), num_steps=3)
+assert 1e-4 <= lr <= 3.0, lr
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 assert not bad, bad
 print("STANDALONE_OK")
