@@ -96,9 +96,29 @@ PyTorch built for CUDA. Phases, one line each:
 14. the profiler: a 3-step fit with ``trainer.profiler=torch``; the Chrome
    trace under ``$LOGS_DIR/profile`` must name K1's and K4's kernels and
    hold the three "train_step" regions; its size and the hand kernels it
-   names are printed.
+   names are printed;
+15. data parallel (``myria3d_tpu_torch/parallel``), at full width with
+   deterministic decimation and no dropout: (a) two gloo ranks sharing the
+   card (``parallel.spawn`` over ``["cuda:0", "cuda:0"]``), B=32 split
+   16/16 on the fused route, one DDP grad step with sync BN against the
+   one-process B=32 step and with local BN against the mean of two
+   one-process B=16 steps on the halves (loss within 1e-5 relative, each
+   gradient's cosine >= 0.999 where it is not analytically zero, BN stats
+   within 1e-5 of scale, both ranks' gradients equal), then each rank's
+   ms per train step and the bytes it all-reduces a step; (b) one NCCL
+   rank with the whole batch, sync BN, against the one-process step; (c)
+   ``Trainer.fit`` over two ranks on the toy-tile subtiles (16 a rank,
+   early stopping after the second epoch), rank 0 writing each checkpoint
+   once and rank 1 none, both ranks taking the same steps and losses,
+   then ``Trainer.test`` of the last checkpoint over the ranks, its IoU
+   within 0.01 of a one-process test; (d) ``predict()`` with its rows
+   split over two replicas on the card (batch 5, padded to 6) against the
+   one-device predict: argmax agreement >= 0.999 and the largest logit
+   difference against the logits' scale. The ranks run in processes of
+   their own, joined with a timeout; each reads its launch counts around
+   its own path (K1, K2, K4, K5 and K6 must launch there; K1-K3 in (d)).
 
-Phases 11-14 each set the launch counts to 0 before their path and read
+Phases 11-15 each set the launch counts to 0 before their path and read
 them after it.
 
 Every kernel line of phases 3, 6 and 9 carries ``bound_ms``: the larger of
@@ -837,9 +857,11 @@ class TileDataModule:
     straight from the LAS file: the card has no ``h5py`` for the HDF5
     sample cache, so the train and eval transforms of the config run on
     ``TileSampleStream`` samples of the committed tile (the test split is
-    the tile again, with its full-cloud copies)."""
+    the tile again, with its full-cloud copies). ``shard``: the samples are
+    listed first, so the loader shards them over the ranks of a process
+    group."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, shard: bool = False):
         from myria3d_tpu_torch.train import port_targets
         from myria3d_tpu_torch.utils.config import instantiate
 
@@ -851,6 +873,7 @@ class TileDataModule:
             ("train", "preparations_train_list"), ("eval", "preparations_eval_list"),
             ("normalize", "normalizations_list"), ("augment", "augmentations_list"))}
         self._dataset = None
+        self.shard = shard
         self.dm = dm
         self.batch_size = int(dm["batch_size"])
         self.pre_transform = instantiate(port_targets(dm["points_pre_transform"]))
@@ -874,6 +897,9 @@ class TileDataModule:
             os.path.join(ASSETS, "toy_tile.las"), self.dm.get("epsg"),
             self.dm["tile_width"], self.dm["subtile_width"], 0, self.pre_transform,
             pre_filter=self.pre_filter, transform=CustomCompose(stages))
+        if self.shard:
+            return PaddedBatchLoader(list(stream), batch_size=self.batch_size, num_workers=1,
+                                     seed=seed)
         return PaddedBatchLoader(stream, batch_size=self.batch_size, num_workers=1,
                                  seed=seed, process_index=0, process_count=1)
 
@@ -1435,6 +1461,306 @@ def phase_profiler(dev, work: str):
           f"host {1e3 * timed[0]:.1f} ms a traced step; launches {used}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data parallel (parallel/ddp.py)
+# ---------------------------------------------------------------------------
+
+DP_BATCH = 32                  # split 16/16 over the two ranks
+DP_REPS = 5                    # timed train steps a rank
+DP_TIMEOUT = 300               # seconds for a spawn of ranks to finish
+DP_HPARAMS = {"num_features": 9, "num_classes": 7, "num_neighbors": 16, "decimation": 4,
+              "knn_window": WINDOW, "sort_inputs": True, "fused_train_lfa": True}
+DP_CARD2 = ["cuda:0", "cuda:0"]  # two ranks share the card (gloo)
+DP_NCCL = ["cuda:0"]             # one rank with the card to itself (NCCL)
+
+
+def det_decimation(mask, decimation, generator=None):
+    """Deterministic decimation (the first ``max(1, valid // decimation)``
+    slots of each cloud), as the parity tests use: the ranks' draws and the
+    one-process draws cannot match otherwise."""
+    import torch
+
+    b, n = mask.shape
+    n_out = n // decimation
+    idx = torch.arange(n_out, device=mask.device).expand(b, n_out)
+    valid = mask.sum(1)
+    kept = torch.where(valid > 0, (valid // decimation).clamp(min=1), 0)
+    new_mask = torch.arange(n_out, device=mask.device)[None, :] < kept[:, None]
+    return torch.where(new_mask, idx, 0), new_mask
+
+
+@contextlib.contextmanager
+def deterministic_decimation():
+    import myria3d_tpu_torch.models.modules.randla_net as rl
+
+    real = rl.random_decimation
+    rl.random_decimation = det_decimation
+    try:
+        yield
+    finally:
+        rl.random_decimation = real
+
+
+def synchronize(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_model(state, dev):
+    """Phase 15's net from ``state`` (no dropout) with a fresh optimizer."""
+    from myria3d_tpu_torch.models.model import build_model
+
+    model = build_model("RandLANet", DP_HPARAMS, lr=0.001)
+    model.net.load_state_dict(state, strict=True)
+    model.net.mlp_classif.dropout = [0.0, 0.0]
+    model.to(dev)
+    model.init_train_state()
+    return model
+
+
+def dp_grads(model):
+    """Copies of the gradients and BN buffers (later steps update both in place)."""
+    return ({k: p.grad.detach().cpu().clone() for k, p in model.net.named_parameters()},
+            {k: b.detach().cpu().clone() for k, b in model.net.named_buffers()})
+
+
+def dp_step_rank(out: str, state, batch, modes):
+    """A rank of phase 15 (a) and (b): for each BN mode, one DDP grad step on
+    this rank's rows (loss, gradients, BN buffers, launches), then
+    ``DP_REPS`` timed train steps and the bytes all-reduced a step."""
+    import torch
+
+    from myria3d_tpu_torch.parallel import ParallelSteps, ddp
+
+    r, world, dev = ddp.rank(), ddp.world_size(), ddp.device()
+    rows = batch[0].shape[0] // world
+    x, pos, y, mask = (torch.from_numpy(a[r * rows:(r + 1) * rows]).to(dev) for a in batch)
+    res = {}
+    with deterministic_decimation():
+        for sync_bn in modes:
+            model = dp_model(state, dev)
+            par = ParallelSteps(model, sync_bn=sync_bn)
+            counters = reset_launches()
+            loss, _ = par.grad_step(x, pos, y, mask)
+            synchronize(dev)
+            launches = {n: fn.launches for n, fn in counters.items()}
+            grads, stats = dp_grads(model)
+            before = ddp.all_reduce.bytes
+            par.train_step(x, pos, y, mask)
+            step_bytes = ddp.all_reduce.bytes - before + par.grad_bytes
+            synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(DP_REPS):
+                par.train_step(x, pos, y, mask)
+            synchronize(dev)
+            res["sync" if sync_bn else "local"] = dict(
+                loss=float(loss), grads=grads, stats=stats, launches=launches,
+                ms=(time.perf_counter() - t0) * 1e3 / DP_REPS, bytes=step_bytes,
+                backend=torch.distributed.get_backend())
+    torch.save(res, f"{out}.rank{r}")
+
+
+def dp_fit_rank(out: str, work: str):
+    """A rank of phase 15 (c): ``Trainer.fit`` on its shard of the toy-tile
+    subtiles (early stopping after the second epoch), the checkpoint writes
+    recorded, then ``Trainer.test`` of the last checkpoint on its shard."""
+    import torch
+
+    from myria3d_tpu_torch.parallel import ddp
+    from myria3d_tpu_torch.train import build_trainer
+    from myria3d_tpu_torch.utils import checkpoint
+
+    writes = []
+    real_save = checkpoint.save_checkpoint
+
+    def save(ckpt_dir, *args, **kwargs):
+        writes.append(os.path.basename(ckpt_dir))
+        return real_save(ckpt_dir, *args, **kwargs)
+
+    checkpoint.save_checkpoint = save
+    cfg = dp_fit_config(work)
+    with deterministic_decimation():
+        trainer, model = build_trainer(cfg)
+        model.net.mlp_classif.dropout = [0.0, 0.0]
+        counters = reset_launches()
+        trainer.fit(model, TileDataModule(cfg, shard=True))
+        launches = {n: fn.launches for n, fn in counters.items()}
+        ckpt = os.path.abspath(trainer.checkpoint_cb.last_model_path)
+        out_test = trainer.test(model, TileDataModule(cfg, shard=True), ckpt_path=ckpt)
+    torch.save({"writes": writes, "steps": trainer.global_step, "losses": trainer.train_losses,
+                "launches": launches, "ckpt": ckpt, "test": out_test}, f"{out}.rank{ddp.rank()}")
+
+
+def dp_fit_config(work: str) -> dict:
+    # 16 subtiles a rank (the fused route); the first epoch improves, the
+    # second cannot (min_delta), so early stopping ends the fit after it;
+    # every subtile tested
+    from myria3d_tpu_torch.models.modules.randla_net import FUSED_TRAIN_MIN_BATCH
+
+    return fit_config(os.path.join(work, "dp"), FUSED_TRAIN_MIN_BATCH, "task.task_name=fit",
+                      "trainer.max_epochs=4", "trainer.limit_train_batches=1",
+                      "trainer.limit_val_batches=1", "trainer.limit_test_batches=null",
+                      "callbacks.early_stopping.patience=1",
+                      "callbacks.early_stopping.min_delta=1000000.0")
+
+
+def cosines(a: dict, b: dict) -> float:
+    """The least cosine over the tensors of ``a`` against the reference
+    ``b``. Tensors whose reference gradient is below 1e-6 of the largest
+    tensor's norm are left out: the biases right before a BatchNorm have an
+    exact-zero gradient, which both sides give as f32 noise (~1e-8 of it)."""
+    top = max(float(g.double().norm()) for g in b.values())
+    worst = 1.0
+    for k, g in b.items():
+        u, v = a[k].double().flatten(), g.double().flatten()
+        if float(v.norm()) > 1e-6 * top:
+            worst = min(worst, float(u @ v / (u.norm() * v.norm()).clamp(min=1e-300)))
+    return worst
+
+
+def scale_gap(a: dict, b: dict) -> float:
+    """max |a - b| / max |b| over the tensors."""
+    return max(float((a[k] - v).abs().max() / v.abs().max().clamp(min=1e-30)) for k, v in b.items())
+
+
+def phase_data_parallel(dev, work: str):
+    """Phase 15: data parallel over ranks sharing the card, one NCCL rank,
+    a two-rank fit and test, and predict over two replicas."""
+    import torch
+
+    from myria3d_tpu_torch.parallel import spawn
+    from myria3d_tpu_torch.pctl.io.las import read_las
+    from myria3d_tpu_torch.predict import predict
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+    from myria3d_tpu_torch.train import build_trainer
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    batch = train_batch(DP_BATCH)
+    torch.manual_seed(0)
+    from myria3d_tpu_torch.models.model import build_model
+
+    state = {k: v.detach().clone() for k, v in
+             build_model("RandLANet", DP_HPARAMS).net.state_dict().items()}
+    half = DP_BATCH // 2
+    with deterministic_decimation():
+        def one(rows):
+            model = dp_model(state, dev)
+            x, pos, y, mask = (torch.from_numpy(a[rows]).to(dev) for a in batch)
+            loss, _ = model.grad_step(x, pos, y, mask)
+            return (float(loss),) + dp_grads(model)
+        ref = {"sync": one(slice(0, DP_BATCH))}
+        halves = [one(slice(0, half)), one(slice(half, DP_BATCH))]
+    ref["local"] = (float(np.mean([h[0] for h in halves])),
+                    {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in halves[0][1]},
+                    {k: (halves[0][2][k] + halves[1][2][k]) / 2 for k in halves[0][2]})
+
+    def held(res, mode, what):
+        loss, grads, stats = ref[mode]
+        got = res[mode]
+        rel = abs(got["loss"] - loss) / abs(loss)
+        cos, gap = cosines(got["grads"], grads), scale_gap(got["stats"], stats)
+        need(rel <= 1e-5, f"{what} {mode} BN: loss {got['loss']:.7f} vs one process {loss:.7f}")
+        need(cos >= 0.999, f"{what} {mode} BN: gradient cosine {cos:.6f}")
+        need(gap <= 1e-5, f"{what} {mode} BN: BN running stats {gap:.3g} of scale")
+        used = {k: v for k, v in got["launches"].items() if v}
+        need(all(used.get(k, 0) > 0 for k in ("K1", "K2", "K4", "K5", "K6")),
+             f"{what} {mode} BN: launches {used}")
+        return (f"loss rel err {rel:.2e}, least gradient cosine {cos:.6f}, BN stats "
+                f"{gap:.2e} of scale, {got['ms']:.1f} ms/step, {got['bytes'] / 2**20:.2f} MiB "
+                f"all-reduced a step ({got['backend']}), launches {used}")
+
+    # (a) two gloo ranks share the card, 16 clouds each
+    out = os.path.join(work, "dp_step")
+    t0 = time.perf_counter()
+    spawn(dp_step_rank, DP_CARD2, args=(out, state, batch, (True, False)), timeout=DP_TIMEOUT)
+    ranks = [torch.load(f"{out}.rank{r}", weights_only=True) for r in range(2)]
+    for mode in ("sync", "local"):
+        need(all(torch.equal(ranks[0][mode]["grads"][k], ranks[1][mode]["grads"][k])
+                 for k in ranks[0][mode]["grads"]), f"(a) {mode} BN: the ranks' gradients differ")
+        print(f"phase 15 (a) 2 gloo ranks on one card B={DP_BATCH} ({half} a rank, fused) {mode} "
+              f"BN against one process: {held(ranks[0], mode, '(a)')}; rank 1 "
+              f"{ranks[1][mode]['ms']:.1f} ms/step")
+    print(f"phase 15 (a) spawn to exit: {time.perf_counter() - t0:.1f} s")
+
+    # (b) one NCCL rank, the whole batch
+    out = os.path.join(work, "dp_nccl")
+    spawn(dp_step_rank, DP_NCCL, args=(out, state, batch, (True,)), timeout=DP_TIMEOUT)
+    res = torch.load(f"{out}.rank0", weights_only=True)
+    need(res["sync"]["backend"] == "nccl", f"(b) backend {res['sync']['backend']}")
+    print(f"phase 15 (b) 1 NCCL rank B={DP_BATCH} sync BN against one process: "
+          f"{held(res, 'sync', '(b)')}")
+
+    # (c) two ranks fit and test on the toy-tile subtiles
+    out = os.path.join(work, "dp_fit")
+    t0 = time.perf_counter()
+    spawn(dp_fit_rank, DP_CARD2, args=(out, work), timeout=DP_TIMEOUT)
+    dt = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.rank{r}", weights_only=False) for r in range(2)]
+    need(ranks[1]["writes"] == [], f"(c) rank 1 wrote {ranks[1]['writes']}")
+    writes = ranks[0]["writes"]
+    need(writes.count("last") == 2 and len(writes) == len(set(writes)) + 1,
+         f"(c) rank 0 writes {writes}")
+    need(ranks[0]["steps"] == ranks[1]["steps"] == 2 and ranks[0]["losses"] == ranks[1]["losses"],
+         f"(c) steps {ranks[0]['steps']}/{ranks[1]['steps']}, losses {ranks[0]['losses']} / "
+         f"{ranks[1]['losses']}")
+    need(all(np.isfinite(ranks[0]["losses"])), f"(c) losses {ranks[0]['losses']}")
+    need(all(ranks[0]["launches"].get(k, 0) > 0 for k in ("K1", "K2", "K4", "K5", "K6")),
+         f"(c) launches {ranks[0]['launches']}")
+    cfg = dp_fit_config(work)
+    with deterministic_decimation():
+        trainer, model = build_trainer(cfg)
+        one_test = trainer.test(model, TileDataModule(cfg), ckpt_path=ranks[0]["ckpt"])
+    iou, one_iou = ranks[0]["test"]["test/iou"], one_test["test/iou"]
+    need(ranks[1]["test"]["test/iou"] == iou, "(c) the ranks' test IoU differ")
+    need(abs(iou - one_iou) <= 0.01, f"(c) test IoU {iou:.4f} vs one process {one_iou:.4f}")
+    print(f"phase 15 (c) 2-rank fit + test: {dt:.1f} s, {ranks[0]['steps']} steps a rank (early "
+          f"stop after epoch 1 on both), rank 0 wrote {writes}, rank 1 none; test IoU {iou:.4f} "
+          f"(one process {one_iou:.4f}), launches {ranks[0]['launches']}")
+
+    # (d) predict over two replicas on the card, batch 5 padded to 6
+    tile = os.path.join(ASSETS, "toy_tile.las")
+    from myria3d_tpu_torch.models.interpolation import Interpolator
+
+    logits, classes = {}, {}
+    real_store = Interpolator.store_predictions
+    counters = launch_counters()
+    for name, kw in (("one", {"device": DP_CARD2[0]}), ("two", {"devices": DP_CARD2})):
+        seen = logits[name] = []
+
+        def store(self, lg, idx, _seen=seen):
+            _seen.append(np.asarray(lg, np.float32).copy())
+            return real_store(self, lg, idx)
+
+        pcfg = compose_config(CONFIG_DIR, "config.yaml", [
+            "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={ASSETS}",
+            f"predict.output_dir={work}/dp_pred_{name}", "datamodule.batch_size=5"])
+        Interpolator.store_predictions = store
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            with deterministic_decimation():
+                res = read_las(predict(pcfg, **kw)).points
+        finally:
+            Interpolator.store_predictions = real_store
+        classes[name] = np.asarray(res["PredictedClassification"])
+        if name == "two":
+            used = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    pairs = list(zip(logits["two"], logits["one"]))
+    need(len(logits["two"]) == len(logits["one"]) and all(a.shape == b.shape for a, b in pairs),
+         f"(d) logits {[a.shape for a in logits['two']]} vs {[b.shape for b in logits['one']]}")
+    diff = max(float(np.abs(a - b).max()) for a, b in pairs)
+    scale = max(float(np.abs(b).max()) for _, b in pairs)
+    agree = float((classes["one"] == classes["two"]).mean())
+    need(agree >= 0.999, f"(d) argmax agreement {agree:.5f}")
+    need(all(used.get(k, 0) > 0 for k in ("K1", "K2", "K3")), f"(d) launches {used}")
+    print(f"phase 15 (d) predict over 2 replicas on one card (batch 5 -> 6 rows): argmax "
+          f"agreement {agree:.6f}, max logit diff {diff:.3g} of scale {scale:.3g}, launches "
+          f"{used}")
+
+
 def foreign_modules() -> list:
     """Modules of JAX, flax or the JAX package loaded in this process."""
     return sorted(m for m in sys.modules
@@ -1485,6 +1811,7 @@ def main() -> int:
             phase_lr_range(dev, runs[-1][0])
             phase_microbatch(dev)
             phase_profiler(dev, work)
+            phase_data_parallel(dev, work)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")

@@ -2,11 +2,16 @@
 (``configs/callbacks/default.yaml:25-31``: monitor val/loss_epoch, patience 6).
 
 Copied from ``myria3d_tpu/callbacks/early_stopping.py``; imports point at the port.
+In data-parallel training the ranks decide on the same reduced metrics and
+take rank 0's decision, so they stop together: a rank that stopped alone
+would hang the others' next collective.
 """
 
 from __future__ import annotations
 
 import math
+
+from myria3d_tpu_torch.parallel import ddp
 
 
 class EarlyStopping:
@@ -43,4 +48,5 @@ class EarlyStopping:
             # Lightning semantics: stop once wait_count >= patience.
             if self.wait >= self.patience:
                 self.should_stop = True
+        self.should_stop = bool(ddp.from_rank_zero(self.should_stop))
         return self.should_stop

@@ -5,7 +5,9 @@ matrix per phase accumulates on the logits' device (a ``bincount`` of
 ``target * C + prediction``); every metric derives from it on the host at
 epoch end: micro accuracy/precision/recall/F1, macro IoU over the classes
 present, and per-class precision/recall/F1/IoU (reference
-``metric_callbacks.py:60-88`` naming).
+``metric_callbacks.py:60-88`` naming). In data-parallel training
+``compute_and_reset`` sums the phase's matrix over the ranks first, so every
+rank computes the metrics of the whole epoch.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from myria3d_tpu_torch.parallel import ddp
 
 
 def confusion_matrix_update(cm: torch.Tensor, logits: torch.Tensor, targets: torch.Tensor,
@@ -89,6 +93,14 @@ class ModelMetrics:
         return cm.cpu().numpy()
 
     def compute_and_reset(self, phase: str) -> Dict[str, float]:
+        """The phase's metrics, from its matrix summed over the ranks (each
+        rank calls this in turn, a rank without a batch with zeros)."""
+        if ddp.world_size() > 1:
+            cm = self._cms.get(phase)
+            if cm is None:
+                cm = torch.zeros((self.num_classes, self.num_classes), dtype=torch.float64,
+                                 device=ddp.device())
+            self._cms[phase] = ddp.all_reduce(cm)
         cm = self.confusion_matrix(phase)
         self._cms.pop(phase, None)
         return metrics_from_confusion_matrix(cm, self.class_names, prefix=f"{phase}/")

@@ -8,7 +8,8 @@ lazily once, and every loader comes out of one padded-loader factory with
 bucketed point counts.
 
 Copied from ``myria3d_tpu/pctl/datamodule/hdf5.py``; imports point at the
-port. The port runs one process, so every loader is process 0 of 1.
+port. Every loader is sharded over the ranks of the process group, as in
+the JAX package over its processes (``pctl/loader.py``).
 """
 
 from __future__ import annotations
@@ -207,8 +208,6 @@ class HDF5LidarDataModule:
             buckets=self.buckets,
             seed=seed,
             num_features=self.num_features,
-            process_index=0,
-            process_count=1,
         )
 
     def train_dataloader(self, seed: Optional[int] = None) -> PaddedBatchLoader:

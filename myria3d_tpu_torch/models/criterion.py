@@ -25,6 +25,12 @@ class CrossEntropyLoss:
         self.weight = None if weight is None else torch.as_tensor(weight, dtype=torch.float32)
 
     def __call__(self, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        total, weight = self.sum_and_weight(logits, targets)
+        return total / weight.clamp(min=1e-12)
+
+    def sum_and_weight(self, logits: torch.Tensor, targets: torch.Tensor):
+        """``(sum(w_y * nll), sum(w_y))``: the data-parallel step adds both
+        over the ranks for the global mean."""
         num_classes = logits.shape[-1]
         targets = targets.long()
         counted = (targets != self.ignore_index) & (targets >= 0) & (targets < num_classes)
@@ -37,4 +43,4 @@ class CrossEntropyLoss:
         w = counted.float()
         if self.weight is not None:
             w = self.weight.to(logits.device)[safe_t] * w
-        return (nll * w).sum() / w.sum().clamp(min=1e-12)
+        return (nll * w).sum(), w.sum()

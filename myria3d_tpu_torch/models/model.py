@@ -12,7 +12,8 @@ step count and the count of batches in the open accumulation group.
   step's generator), the criterion and backward into ``.grad``; BN running
   stats move every batch. With ``grad_microbatch`` it runs over chunks of
   the batch (per-chunk BN moments, the mean of the chunks' gradients and
-  running stats).
+  running stats). Under DDP (``parallel/ddp.py``) it is one rank's share of
+  the data-parallel step.
 - ``train_step`` (``model.py:325-352``): ``grad_step``, then an optimizer
   update every ``accumulate_grad_batches`` batches on the mean of their
   gradients (optax ``MultiSteps``).
@@ -28,6 +29,7 @@ the step (``utils.checkpoint``).
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Callable, Dict, Optional
 
@@ -94,6 +96,9 @@ class Model(nn.Module):
         self.step = 0   # train batches taken
         self.accum = 0  # batches in the open accumulation group
         self.lr_scale = 1.0
+        # parallel.ParallelSteps under DDP (a plain attribute: not a module
+        # of the model's state)
+        self.data_parallel: Any = None
 
     def set_sorted_window(self, window: int) -> None:
         """Window every search (the encoder graphs, the decoder's k=1
@@ -159,37 +164,54 @@ class Model(nn.Module):
         loss is the mean of the chunks' and each chunk's gradient enters
         scaled by 1 / k. The net routes each chunk by the chunk's batch
         (``fused_train_lfa: auto``): B=32 at mb=16 takes the fused route,
-        B=16 at mb=8 the unfused one. Any other B is the monolithic step."""
+        B=16 at mb=8 the unfused one. Any other B is the monolithic step.
+
+        Under DDP (``data_parallel``, set by ``parallel.ParallelSteps``) the
+        forward runs through the DDP wrapper, the loss and the running stats
+        take that step's reductions, and only the backward that completes an
+        accumulation group (its last chunk) all-reduces the gradients: the
+        others run under ``no_sync``. Chunks are the rank's own rows."""
         self.net.train()
         b, mb = x.shape[0], self.grad_microbatch
-        if mb <= 0 or b <= mb or b % mb:
-            logits = self.net(x, pos, mask, generator)
-            loss = self.criterion(logits, y)
-            (loss / self.accumulate_grad_batches).backward()
-            return loss.detach(), logits.detach()
-        k = b // mb
+        k = b // mb if 0 < mb < b and b % mb == 0 else 1
+        par = self.data_parallel
+        net = self.net if par is None else par.ddp
+        if par is not None:
+            par.begin(mask)
+        syncs = self.accum + 1 >= self.accumulate_grad_batches
         # the net updates its BN buffers in place on every forward: each
         # chunk starts from the step's stats, and the buffers end as the
         # chunks' mean
         stats = [t for t in self.net.buffers() if t.is_floating_point()]
-        start = torch._foreach_mul(stats, 1.0)
+        start = torch._foreach_mul(stats, 1.0) if k > 1 else None
         losses, logits = [], []
         for i in range(k):
-            rows = slice(i * mb, (i + 1) * mb)
+            rows = slice(i * mb, (i + 1) * mb) if k > 1 else slice(None)
             if i:
                 torch._foreach_copy_(stats, start)
-            out = self.net(x[rows], pos[rows], mask[rows], chunk_generator(generator, i))
-            loss = self.criterion(out, y[rows])
-            (loss / (k * self.accumulate_grad_batches)).backward()
-            if i:
-                torch._foreach_add_(total, stats)
-            else:
-                total = torch._foreach_mul(stats, 1.0)
-            losses.append(loss.detach())
+            no_sync = par is not None and not (syncs and i == k - 1)
+            with net.no_sync() if no_sync else contextlib.nullcontext():
+                out = net(x[rows], pos[rows], mask[rows],
+                          chunk_generator(generator, i) if k > 1 else generator)
+                if par is None:
+                    loss = shown = self.criterion(out, y[rows])
+                else:
+                    loss, shown = par.chunk_loss(self.criterion, out, y[rows])
+                (loss / (k * self.accumulate_grad_batches)).backward()
+            if k > 1:
+                if i:
+                    torch._foreach_add_(total, stats)
+                else:
+                    total = torch._foreach_mul(stats, 1.0)
+            losses.append(shown.detach())
             logits.append(out.detach())
-        torch._foreach_mul_(total, 1.0 / k)
-        torch._foreach_copy_(stats, total)
-        return sum(losses[1:], losses[0]) * (1.0 / k), torch.cat(logits)
+        if k > 1:
+            torch._foreach_mul_(total, 1.0 / k)
+            torch._foreach_copy_(stats, total)
+        loss = losses[0] if k == 1 else sum(losses[1:], losses[0]) * (1.0 / k)
+        if par is not None:
+            loss = par.finish(stats, loss)
+        return loss, logits[0] if k == 1 else torch.cat(logits)
 
     def train_step(self, x, pos, y, mask, generator: torch.Generator | None = None):
         """One training batch (``grad_step``): ``(loss, logits)``, both

@@ -12,7 +12,8 @@ pyg parameter names (``lins.{i}``, ``norms.{i}``), so the state dict that
   encoder), normalization uses the biased variance and the running
   variance is updated with the unbiased estimate ``var * n / (n - 1)``
   (torch semantics). At eval BN is the affine of its running stats, so
-  padded rows need no mask.
+  padded rows need no mask. Under sync BN (``set_sync_batchnorm``, data
+  parallel training) the moments and ``n`` span every rank's batch.
 - Layer order Linear -> BN -> act -> dropout, the last layer included (pyg
   MLP ``plain_last=False``). Dense layers stay ``nn.Linear``. Dropout
   draws its keep mask from an explicit ``torch.Generator``.
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from myria3d_tpu_torch.ops.masked import masked_mean, masked_var
+from myria3d_tpu_torch.parallel.ddp import all_reduce_with_grad
 
 LRELU_SLOPE = 0.2
 BN_MOMENTUM = 0.01
@@ -41,10 +43,40 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, LRELU_SLOPE)
 
 
+def set_sync_batchnorm(net: nn.Module, enabled: bool) -> None:
+    """Sync BN on (or off) for every BatchNorm of ``net``, and for the
+    fused train route's rel statistics (``DilatedResidualBlock``)."""
+    for m in net.modules():
+        if hasattr(type(m), "sync_bn"):
+            m.sync_bn = bool(enabled)
+
+
+def global_moments(x: torch.Tensor, valid: Optional[torch.Tensor], dims: tuple):
+    """(mean, biased var, count) of the rows of every rank (``valid`` None
+    counts every row) in two passes, as GSPMD takes them over the global
+    batch: the masked sums and the count are all-reduced, then the centred
+    second moment. The gradients flow through both sums."""
+    m = None if valid is None else valid[..., None].to(x.dtype)
+    if m is None:
+        num = x.sum(dim=dims)
+        cnt = torch.full((1,), float(x.numel() // x.shape[-1]), dtype=x.dtype, device=x.device)
+    else:
+        num = (x * m).sum(dim=dims)
+        cnt = m.sum().reshape(1)
+    tot = all_reduce_with_grad(torch.cat([num, cnt]))
+    n = tot[-1].clamp(min=1.0)
+    mean = tot[:-1] / n
+    d2 = (x - mean) ** 2
+    var = all_reduce_with_grad((d2 if m is None else d2 * m).sum(dim=dims)) / n
+    return mean, var, n
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over the last axis of a padded batch: training mode
     normalizes with masked batch moments over every other axis (``valid``
     None counts every row), eval mode with the running stats."""
+
+    sync_bn = False   # moments over every rank's batch (set_sync_batchnorm)
 
     def __init__(self, features: int, momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
         super().__init__()
@@ -63,6 +95,8 @@ class MaskedBatchNorm(nn.Module):
     def batch_moments(self, x: torch.Tensor, valid: Optional[torch.Tensor]):
         """(mean, biased var, count) over every axis but the last."""
         dims = tuple(range(x.dim() - 1))
+        if self.sync_bn:
+            return global_moments(x, valid, dims)
         if valid is None:
             mean = x.mean(dim=dims)
             var = x.var(dim=dims, unbiased=False)

@@ -38,7 +38,7 @@ from myria3d_tpu_torch.models.modules.nn import SharedMLP, lrelu
 from myria3d_tpu_torch.ops.cuda_gather import gather_neighbors, inverse_map
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
 from myria3d_tpu_torch.ops.cuda_lfa import idx_with_invalid, lfa_attention
-from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train, locse, rel_stats
+from myria3d_tpu_torch.ops.cuda_lfa_train import all_reduce_stats, lfa_train, locse, rel_stats
 from myria3d_tpu_torch.ops.interpolate import knn_interpolate
 from myria3d_tpu_torch.ops.knn import gather_rows, knn_graph
 from myria3d_tpu_torch.ops.masked import masked_softmax
@@ -113,6 +113,8 @@ class LocalFeatureAggregation(nn.Module):
 class DilatedResidualBlock(nn.Module):
     """Reference ``DilatedResidualBlock`` (``pyg_randla_net.py:155-189``)."""
 
+    sync_bn = False   # the fused route's rel statistics over every rank (nn.set_sync_batchnorm)
+
     def __init__(self, num_neighbors: int, d_in: int, d_out: int, bn_momentum: float):
         super().__init__()
         self.num_neighbors = num_neighbors
@@ -137,8 +139,10 @@ class DilatedResidualBlock(nn.Module):
                 # what depends on the graph alone, once for both LFAs: the
                 # kernels' marked indices and K5's rel statistics
                 idx_marked = idx_with_invalid(idx, neigh_valid) if pos.is_cuda else None
-                shared = dict(inv=inv, fused=True, idx_marked=idx_marked,
-                              stats=rel_stats(pos, idx, neigh_valid, idx_marked))
+                stats = rel_stats(pos, idx, neigh_valid, idx_marked)
+                if self.sync_bn:
+                    stats = all_reduce_stats(stats)   # once per block
+                shared = dict(inv=inv, fused=True, idx_marked=idx_marked, stats=stats)
                 x = self.lfa1(x, pos, idx, neigh_valid, mask, **shared)
                 x = self.lfa2(x, pos, idx, neigh_valid, mask, **shared)
             else:

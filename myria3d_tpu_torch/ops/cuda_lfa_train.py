@@ -27,6 +27,20 @@ computes the rel statistics in every LFA; they depend on the graph alone,
 so here the two LFAs of a block share one K5 call (``lfa_train(...,
 stats=...)``), as they share the inverse map and the marked indices, with
 the same results bit for bit.
+
+Sync BN (data-parallel training, ``parallel/ddp.py``): the block sums K5's
+per-cloud statistics over its rank's clouds and all-reduces that sum once
+(:func:`all_reduce_stats`) before :func:`moments`, so ``mu``, ``var``,
+``n``, ``sum_rel`` and ``srr`` are global. K6's backward then needs no
+collective of its own. With the moments global, ``_LFATrain.backward``
+gives ``d_w = inv_sigma (M1 - S1 sum_rel^T / n - S2 e_rel / n)`` where
+``M1``, ``S1``, ``S2`` are sums over the rank's slots and every other
+factor is global: ``d_w`` is linear in the rank's sums, so the ranks'
+``d_w`` add up to the one of the global batch, which DDP's gradient
+reduction forms (with the loss of each rank scaled to the global mean).
+``d_gamma``, ``d_beta`` and ``d(att_w)`` are sums over slots, ``dx``
+belongs to the rank's own points, ``d_b_e`` is 0 and ``rel`` depends on
+no parameter, so no other term crosses the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from myria3d_tpu_torch.ops.cuda_gather import InverseMap, _launch_scatter, gathe
 from myria3d_tpu_torch.ops.cuda_lfa import WIDTHS, idx_with_invalid, lfa_attention, read_launch_info
 from myria3d_tpu_torch.ops.knn import gather_rows
 from myria3d_tpu_torch.ops.masked import masked_softmax
+from myria3d_tpu_torch.parallel.ddp import all_reduce
 
 MAX_K = 16
 N_SUMS = 14          # dgamma, dbeta, S1, S2, M1[10] per encoder channel
@@ -159,6 +174,13 @@ def rel_stats(pos: torch.Tensor, idx: torch.Tensor, neigh_valid: torch.Tensor,
 
 
 rel_stats.launches = 0
+
+
+def all_reduce_stats(stats: torch.Tensor) -> torch.Tensor:
+    """Sync BN: K5's ``(B, 16, 16)`` statistics summed over this rank's
+    clouds, then over the ranks (float32, as K5 returns them): ``(1, 16,
+    16)``, which :func:`moments` reads as one cloud."""
+    return all_reduce(stats.sum(dim=0, keepdim=True))
 
 
 def moments(stats: torch.Tensor, w_e: torch.Tensor, b_e: torch.Tensor):

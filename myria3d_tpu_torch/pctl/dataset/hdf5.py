@@ -9,7 +9,7 @@ parts: the h5py choreography lives in ``HDF5SampleStore``
 only composes them.
 
 Copied from ``myria3d_tpu/pctl/dataset/hdf5.py``; imports point at the port,
-and the cache is built without the multi-host barrier (one process).
+and the multi-host barrier is the process group's (``parallel/ddp.py``).
 """
 
 from __future__ import annotations
@@ -95,13 +95,18 @@ class HDF5Dataset:
         self.store = HDF5SampleStore(hdf5_file_path)
 
         if las_paths_by_split_dict:
-            # one process builds the cache (no multi-host barrier: the port
-            # runs one process until DDP is ported)
-            create_hdf5(
-                las_paths_by_split_dict, hdf5_file_path, epsg,
-                tile_width, subtile_width, pre_filter,
-                subtile_overlap_train, points_pre_transform,
-            )
+            # Data parallel: only rank 0 builds the cache (reference rank
+            # guard, ``myria3d/pctl/datamodule/hdf5.py:104``); the others
+            # open it after a barrier.
+            from myria3d_tpu_torch.parallel import ddp
+
+            if ddp.is_rank_zero():
+                create_hdf5(
+                    las_paths_by_split_dict, hdf5_file_path, epsg,
+                    tile_width, subtile_width, pre_filter,
+                    subtile_overlap_train, points_pre_transform,
+                )
+            ddp.barrier()
         elif not _file_exists(hdf5_file_path):
             raise FileNotFoundError(
                 f"No LAS paths given and no precomputed HDF5 at {hdf5_file_path}"

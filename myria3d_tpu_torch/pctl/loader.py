@@ -10,7 +10,9 @@ Prefetching overlaps host-side sample preparation with device compute — the
 "overlapped host I/O" requirement of the BASELINE (see BASELINE.md).
 
 Copied from ``myria3d_tpu/pctl/loader.py``; imports point at the port, and
-an unsharded loader is process 0 of 1 (the port runs one process).
+a sharded loader reads its rank and the world size from the
+``torch.distributed`` process group (``parallel/ddp.py``) and buckets each
+rank's batches on their own.
 """
 
 from __future__ import annotations
@@ -47,9 +49,10 @@ class PaddedBatchLoader:
     the process count, and consumes the ``rank::count`` stride — disjoint
     samples, identical batch counts. Batches are then formed from *fixed
     index groups* (a None sample shrinks its batch instead of shifting
-    batch boundaries), padded to one shared top bucket, so every rank's
-    arrays keep identical shapes for ``make_array_from_process_local_data``
-    and the collective step count stays aligned. Set
+    batch boundaries), so the collective step count stays aligned. Each
+    rank pads its batch to its own bucket: DDP reduces parameter-shaped
+    gradients and needs no common batch shape (the JAX package pads every
+    rank to the top bucket for ``make_array_from_process_local_data``). Set
     ``shard_by_process=False`` to opt out (or pass explicit
     ``process_index``/``process_count`` for testing).
     """
@@ -92,7 +95,9 @@ class PaddedBatchLoader:
             return 0, 1
         if self.process_count is not None:
             return int(self.process_index or 0), int(self.process_count)
-        return 0, 1  # one process until DDP is ported
+        from myria3d_tpu_torch.parallel import ddp
+
+        return ddp.rank(), ddp.world_size()
 
     @property
     def _map_style(self) -> bool:
@@ -127,8 +132,6 @@ class PaddedBatchLoader:
         ]
         if self.drop_last and len(groups[-1]) < self.batch_size:
             groups.pop()
-        # one shared bucket: all ranks must pad the point axis identically
-        top_bucket = (self.buckets[-1],)
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending: "queue.Queue" = queue.Queue()
             it = iter(groups)
@@ -143,7 +146,7 @@ class PaddedBatchLoader:
                     )
                 samples = [f.result() for f in futs]
                 batch = collate_padded(
-                    samples, self.batch_size, top_bucket,
+                    samples, self.batch_size, self.buckets,
                     num_features=self._num_features,
                 )
                 if batch is not None:
@@ -158,7 +161,7 @@ class PaddedBatchLoader:
                             "pass num_features= to PaddedBatchLoader."
                         )
                     batch = filler_batch(
-                        self.batch_size, top_bucket[0], self._num_features
+                        self.batch_size, self.buckets[0], self._num_features
                     )
                 yield batch
 

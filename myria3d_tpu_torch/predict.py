@@ -13,6 +13,13 @@ missing CUDA device is an error, never a CPU fallback. The CPU is taken
 only when the caller asks, with ``predict(config, device="cpu")`` or
 ``trainer.accelerator=cpu`` in the config (the JAX package, too, ignores
 ``predict.gpus: 0``).
+
+Data parallel (``myria3d_tpu/predict.py:83-107,157``): with more than one
+local GPU (and no single device named), each batch's rows are padded with
+filler rows to the GPU count and split over replicas of the model, one per
+GPU (``parallel.auto_parallel``); the rows come back concatenated on the
+first. ``predict(config, devices=[...])`` names the replicas' devices
+(repeats allowed: two replicas may share a device).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from myria3d_tpu_torch.models.interpolation import Interpolator
+from myria3d_tpu_torch.parallel import auto_parallel
 from myria3d_tpu_torch.pctl.batching import DEFAULT_BUCKETS, pad_full_cloud, pad_sampled_pos
 from myria3d_tpu_torch.pctl.dataset.iterable import InferenceDataset
 from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
@@ -76,16 +84,20 @@ def _buckets(dm: dict, stages: list) -> tuple:
 
 
 def predict(config: dict, phases: Optional[dict] = None, preread=None,
-            device: Any = None) -> str:
+            device: Any = None, devices: Optional[list] = None) -> str:
     """Predict one LAS file (``config["predict"]["src_las"]``) and return
     the output path. ``phases``, when given, receives wall-clock phase
     timings in seconds. ``preread`` optionally hands over the tile's
     ``(points, header)``, or a Future of it, read ahead by the caller.
-    ``device`` overrides the device rule of :func:`predict_device`."""
+    ``device`` overrides the device rule of :func:`predict_device`;
+    ``devices`` splits the batches over replicas on those devices."""
     pcfg, dm = config["predict"], config["datamodule"]
     if pcfg.get("compute_dtype"):
         raise NotImplementedError("predict.compute_dtype is not ported yet")
-    device = predict_device(config, device)
+    if devices is None and device is None and not isinstance(pcfg.get("gpus"), (list, tuple)):
+        # no device named: every local GPU (the CPU stays one device)
+        devices = "auto"
+    device = predict_device(config, devices[0] if isinstance(devices, (list, tuple)) else device)
     src_las = pcfg["src_las"]
 
     t0 = time.perf_counter()
@@ -126,6 +138,9 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     # within a window either way)
     model.set_sorted_window(0 if pcfg.get("exact_knn") else sorted_window)
     generator = torch.Generator(device=device).manual_seed(int(config.get("seed", 12345)))
+    par = auto_parallel(model, dm["batch_size"], devices) if devices is not None else None
+    if par is not None:
+        log.info(f"Predicting data-parallel over {len(par.devices)} replicas")
 
     itp = instantiate(port_targets(pcfg["interpolator"]))
     if not isinstance(itp, Interpolator):
@@ -151,7 +166,9 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         t_fetch += tb - ta
         t_merge += time.perf_counter() - tb
 
-    def to_dev(a: np.ndarray) -> torch.Tensor:
+    def to_dev(a: np.ndarray, fill=0) -> torch.Tensor:
+        if par is not None:
+            a = par.pad_rows(a, fill)
         return torch.from_numpy(a).to(device, non_blocking=True)
 
     t_stream0 = time.perf_counter()
@@ -161,13 +178,13 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         if full is None or sampled_pos is None:
             log.warning("Batch without full-cloud copies; skipping.")
             continue
-        logits = model.interp_step(
-            to_dev(batch.x), to_dev(batch.pos), to_dev(batch.mask),
+        logits = (par or model).interp_step(
+            to_dev(batch.x), to_dev(batch.pos), to_dev(batch.mask, False),
             to_dev(sampled_pos), to_dev(full["full_pos"]),
-            to_dev(full["full_mask"]), generator,
+            to_dev(full["full_mask"], False), generator,
             # predict.exact_interpolation: the f32 two-op path instead of K3
             fused=not pcfg.get("exact_interpolation"),
-        )
+        )[: batch.x.shape[0]]   # the real rows
         if device.type == "cuda":
             host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
             host.copy_(logits, non_blocking=True)

@@ -20,6 +20,13 @@ sample cache of ``datamodule.hdf5_file_path`` from the LAS corpus
 (``launch_hdf5``, ``run.py:157``). Every task runs on the first CUDA
 device, and raises when there is none; ``trainer.accelerator=cpu`` runs it
 on the CPU.
+
+``fit``, ``test`` and ``finetune`` run data parallel over
+``trainer.devices`` > 1 (``auto``: every local GPU): this process starts
+one rank per device (``parallel.ddp.spawn``) and waits for them. Under
+torchrun (``RANK`` and ``WORLD_SIZE`` set) each process joins torchrun's
+group instead; ``trainer.num_nodes`` > 1 needs torchrun. Predict splits
+its batches over the local GPUs in one process.
 """
 
 from __future__ import annotations
@@ -156,12 +163,36 @@ def main(argv: List[str]):
         raise ValueError(
             f"task.task_name={task}: fit, fit+test, test, finetune, predict or create_hdf5")
     config = compose_config(config_dir, config_name, overrides)
+    if task != "create_hdf5" and start_ranks(config, argv):
+        return None   # the ranks ran the task
     enter_run_dir(config)
     if task == "create_hdf5":
         return launch_hdf5(config)
     from myria3d_tpu_torch.train import train
 
     return train(config)
+
+
+def start_ranks(config, argv: List[str]) -> bool:
+    """Data parallel: join torchrun's process group, or start one rank per
+    device of ``trainer.devices`` that runs ``main(argv)`` in it; True when
+    the ranks ran the task here."""
+    from myria3d_tpu_torch.parallel import ddp
+
+    trainer = config.get("trainer") or {}
+    accelerator = trainer.get("accelerator", "auto")
+    if ddp.is_initialized():
+        return False
+    if ddp.launched_by_torchrun():
+        ddp.init_from_env(accelerator)
+        return False
+    devices = ddp.rank_devices(trainer.get("devices", "auto"), accelerator)
+    if len(devices) <= 1:
+        return False
+    if int(trainer.get("num_nodes", 1) or 1) > 1:
+        raise NotImplementedError("trainer.num_nodes > 1: start each node's ranks with torchrun")
+    ddp.spawn(main, devices, args=(argv,))
+    return True
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 ``lr_range_test`` and ``train(config)``.
 
 Port of ``myria3d_tpu/train.py:33-741`` without JAX: an explicit
-loop over fixed-shape padded batches on one device, with the host-side
+loop over fixed-shape padded batches on one device per process, with the host-side
 control plane of the JAX package: sanity-val steps, ``limit_*_batches``,
 ``overfit_batches``, the val epoch, the LR scheduler (plateau per val
 epoch, one-cycle per step), the best/last checkpoints, early stopping, and
@@ -13,6 +13,16 @@ checkpoint is written, a second signal stops at once), the finetune regime
 the full-cloud evaluation: each test batch's logits are interpolated back
 to every raw point of its subtiles (``Model.interp_step``: K1, K2 and K3 on
 the card) before the loss and the confusion matrix.
+
+Data parallel (``parallel/ddp.py``): in a process group (``run.py``
+spawns ``trainer.devices`` ranks, or torchrun starts them) each rank fits
+on its shard of every split under DDP, with sync BN or local BN
+(``trainer.sync_batchnorm``) and draws its decimation and dropout from its
+own generators (seed plus rank); the epoch's losses and confusion matrices
+are summed over the ranks, rank 0 writes the checkpoints and logs, and the
+ranks take the same scheduler and early-stopping decisions. In one process,
+``trainer.devices`` > 1 tests over replicas of the model on the local
+devices (``_setup_parallel``).
 
 ``train(config)`` reads the composed config tree of ``configs/``, whose
 targets name the JAX package's classes: :func:`port_targets` redirects
@@ -39,6 +49,7 @@ import torch
 
 from myria3d_tpu_torch.models.model import Model
 from myria3d_tpu_torch.models.optimizers import set_learning_rate_scale
+from myria3d_tpu_torch.parallel import ddp
 from myria3d_tpu_torch.pctl.batching import pad_full_cloud, pad_sampled_pos
 from myria3d_tpu_torch.pctl.loader import BackgroundIterator
 from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
@@ -90,9 +101,13 @@ def port_targets(node: Any) -> Any:
 class TrainerConfig:
     """Trainer knobs (``configs/trainer/default.yaml``). ``accelerator``:
     "auto", "gpu" and "cuda" take the first CUDA device and raise when
-    there is none; "cpu" the CPU. One device per process. Other keys land
-    in ``extra``: ``profiler`` "torch" (or "jax", the JAX package's value)
-    traces epoch 0's train loop to ``$LOGS_DIR/profile``."""
+    there is none; "cpu" the CPU. In a process group each rank takes its
+    own device. ``devices`` and ``num_nodes`` give the ranks that
+    ``run.py`` (or torchrun) starts; ``sync_batchnorm`` picks sync BN (the
+    JAX default) or local BN (the reference's DDP) for data-parallel
+    training. Other keys land in ``extra``: ``profiler`` "torch" (or "jax",
+    the JAX package's value) traces epoch 0's train loop to
+    ``$LOGS_DIR/profile``."""
 
     min_epochs: int = 1
     max_epochs: int = 1
@@ -106,6 +121,9 @@ class TrainerConfig:
     num_sanity_val_steps: int = 0
     accumulate_grad_batches: int = 1
     overfit_batches: int = 0
+    # True: BN moments over the global batch (the JAX package's sync BN);
+    # False: per-rank moments, the reference's DDP
+    sync_batchnorm: bool = True
     save_on_interrupt: bool = True
 
     def __init__(self, **kwargs: Any):
@@ -114,8 +132,11 @@ class TrainerConfig:
         self.extra = kwargs
 
     def device(self) -> torch.device:
-        if self.devices not in ("auto", None, 1, [0]) or int(self.num_nodes or 1) != 1:
-            raise NotImplementedError("multi-device training (DDP) is not ported yet")
+        if ddp.is_initialized():
+            return ddp.device()
+        if int(self.num_nodes or 1) != 1:
+            raise NotImplementedError("trainer.num_nodes > 1: start each node's ranks with "
+                                      "torchrun (the port spawns the ranks of one node)")
         acc = str(self.accelerator).lower()
         if acc == "cpu":
             return torch.device("cpu")
@@ -134,13 +155,24 @@ def _limited(loader: Iterable, limit: Optional[int]) -> Iterable:
         yield item
 
 
-def _arrays(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+def _arrays(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-            for k, v in batch.device_arrays().items()}
+            for k, v in arrays.items()}
 
 
 def _generator(device: torch.device, seed: int, offset: int) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + offset)
+    """The generator of a step: each rank draws from its own (seed plus rank)."""
+    return torch.Generator(device=device).manual_seed((seed + ddp.rank()) * 1_000_003 + offset)
+
+
+def _mean_over_ranks(losses: List[torch.Tensor]) -> float:
+    """The mean of every rank's batch losses (nan when there is none)."""
+    if ddp.world_size() == 1:
+        return float(torch.stack(losses).mean()) if losses else float("nan")
+    total = torch.stack(losses).sum() if losses else torch.zeros((), device=ddp.device())
+    tot = ddp.all_reduce(torch.stack([total.double(), torch.tensor(
+        float(len(losses)), dtype=torch.float64, device=total.device)]))
+    return float(tot[0] / tot[1]) if float(tot[1]) else float("nan")
 
 
 class Trainer:
@@ -158,6 +190,7 @@ class Trainer:
         self.lr_monitor = self.callbacks.get("lr_monitor")
         self.finetune_cb = self.callbacks.get("finetune")
         self.device = trainer_config.device()
+        self.par = None  # parallel.ParallelSteps, set by fit and test
         self.global_step = 0
         self.interrupted = False
         self.train_losses: List[float] = []  # every step's loss, for callers
@@ -202,8 +235,32 @@ class Trainer:
                 signal.signal(s, h)
 
     def _log(self, metrics: Dict[str, float]) -> None:
-        if self.logger is not None:
+        if self.logger is not None and ddp.is_rank_zero():
             self.logger.log_metrics(metrics, step=self.global_step)
+
+    def _setup_parallel(self, model: Model, batch_size: int, train: bool) -> None:
+        """``myria3d_tpu/train.py:114-129``: ``self.par`` for a process
+        group (DDP) or for ``trainer.devices`` > 1 local devices (replicas,
+        which test but do not train), else None."""
+        self.par = ddp.auto_parallel(model, batch_size, self.cfg.devices,
+                                     sync_bn=bool(self.cfg.sync_batchnorm))
+        if self.par is None:
+            return
+        if ddp.is_initialized():
+            if train and ddp.is_rank_zero():
+                log.info(f"Data-parallel over {ddp.world_size()} ranks (batch {batch_size} a "
+                         f"rank, {'sync' if self.cfg.sync_batchnorm else 'local'}-BN)")
+        elif train:
+            raise RuntimeError(
+                f"trainer.devices={self.cfg.devices} trains one process per device: launch "
+                "through myria3d_tpu_torch.run (which starts the ranks) or torchrun")
+        else:
+            log.info(f"Testing over {len(self.par.devices)} replicas (batch {batch_size})")
+
+    def _place(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if self.par is not None:
+            return self.par.place_batch(arrays)
+        return _arrays(arrays, self.device)
 
     # ------------------------------------------------------------------
 
@@ -221,6 +278,7 @@ class Trainer:
                      f"from {ckpt_path}")
             model.restore_train_state(ckpt_path, optimizer=not finetune)
         log.info(f"Model has {sum(p.numel() for p in model.parameters()):,} parameters")
+        self._setup_parallel(model, datamodule.batch_size, train=True)
         model.set_lr_scale(1.0)
         scheduler = model.lr_scheduler_factory() if model.lr_scheduler_factory else None
         per_step = bool(getattr(scheduler, "per_step", False))
@@ -279,9 +337,10 @@ class Trainer:
                     if batch is None:
                         continue
                     with annotate("train_step"), timer.stage("train_step"):
-                        a = _arrays(batch, self.device)
+                        a = _arrays(batch.device_arrays(), self.device)
                         gen = _generator(self.device, self.seed, model.step)
-                        loss, logits = model.train_step(a["x"], a["pos"], a["y"], a["mask"], gen)
+                        step = self.par.train_step if self.par is not None else model.train_step
+                        loss, logits = step(a["x"], a["pos"], a["y"], a["mask"], gen)
                     self.global_step += 1
                     losses.append(loss)
                     if self.metrics is not None:
@@ -339,7 +398,7 @@ class Trainer:
         for batch in iterator:
             if batch is None:
                 continue
-            a = _arrays(batch, self.device)
+            a = _arrays(batch.device_arrays(), self.device)
             loss, logits = model.eval_step(a["x"], a["pos"], a["y"], a["mask"],
                                            _generator(self.device, self.seed, -1))
             losses.append(loss)
@@ -349,8 +408,7 @@ class Trainer:
                 break
         if log_prefix is None:
             return {}
-        out = {f"{log_prefix}/loss_epoch":
-               float(torch.stack(losses).mean()) if losses else float("nan")}
+        out = {f"{log_prefix}/loss_epoch": _mean_over_ranks(losses)}
         if self.metrics is not None:
             out.update(self.metrics.compute_and_reset(log_prefix))
         return out
@@ -389,12 +447,14 @@ class Trainer:
         elif self.sorted_window > 0:
             model.set_sorted_window(self.sorted_window)
         fused = not self.exact_interpolation
+        self._setup_parallel(model, datamodule.batch_size, train=False)
+        interp_step = self.par.interp_step if self.par is not None else model.interp_step
 
         losses: List[torch.Tensor] = []
         for batch in _limited(datamodule.test_dataloader(), self.cfg.limit_test_batches):
             if batch is None:
                 continue
-            a = _arrays(batch, self.device)
+            a = self._place(batch.device_arrays())
             full = pad_full_cloud(batch.copies)
             sampled_pos = pad_sampled_pos(batch.copies, batch.num_points)
             if full is None or sampled_pos is None or "full_y" not in full:
@@ -420,17 +480,18 @@ class Trainer:
                 if self.metrics is not None:
                     self.metrics.update("test", logits, a["y"], a["mask"])
                 continue
-            dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
-                   for k, v in (("sampled_pos", sampled_pos), ("full_pos", full["full_pos"]),
-                                ("full_mask", full["full_mask"]), ("full_y", full["full_y"]))}
-            full_logits = model.interp_step(a["x"], a["pos"], a["mask"], dev["sampled_pos"],
-                                            dev["full_pos"], dev["full_mask"],
-                                            _generator(self.device, self.seed, -777), fused=fused)
+            # the replicas pad the rows to their count: filler rows carry the
+            # ignore code and False masks (myria3d_tpu/train.py:555-563)
+            dev = self._place({"sampled_pos": sampled_pos, "full_pos": full["full_pos"],
+                               "full_mask": full["full_mask"], "full_y": full["full_y"]})
+            full_logits = interp_step(a["x"], a["pos"], a["mask"], dev["sampled_pos"],
+                                      dev["full_pos"], dev["full_mask"],
+                                      _generator(self.device, self.seed, -777), fused=fused)
             full_y = dev["full_y"].long()
             losses.append(model.criterion(full_logits, full_y))
             if self.metrics is not None:
                 self.metrics.update("test", full_logits, full_y, dev["full_mask"])
-        out = {"test/loss_epoch": float(torch.stack(losses).mean()) if losses else float("nan")}
+        out = {"test/loss_epoch": _mean_over_ranks(losses)}
         if self.metrics is not None:
             out.update(self.metrics.compute_and_reset("test"))
         self._log(out)
@@ -494,7 +555,7 @@ def lr_range_test(model: Model, datamodule, seed: int = 12345, min_lr: float = 1
     if not batches:
         raise RuntimeError("No batches for the LR range test")
     device = next(model.net.parameters()).device
-    arrays = [_arrays(b, device) for b in batches]
+    arrays = [_arrays(b.device_arrays(), device) for b in batches]
     probe = model.lr_scheduler_factory() if model.lr_scheduler_factory else None
     schedule = probe.scale_at if getattr(probe, "per_step", False) else None
     saved = ({k: v.detach().clone() for k, v in model.net.state_dict().items()},
@@ -562,9 +623,13 @@ def train(config: dict) -> Trainer:
         trainer.fit(model, datamodule, ckpt_path=ckpt_path, finetune=True)
         return trainer
     if task.get("auto_lr_find"):
-        # fit starts from model.lr and re-applies it to every group
+        # fit starts from model.lr and re-applies it to every group; in a
+        # process group rank 0 runs the range test alone (on its shard) and
+        # every rank takes its suggestion
         model.to(trainer.device)
-        model.lr = lr_range_test(model, datamodule, seed=trainer.seed)
+        datamodule.prepare_data()   # every rank: rank 0 builds the cache
+        lr = lr_range_test(model, datamodule, seed=trainer.seed) if ddp.is_rank_zero() else 0.0
+        model.lr = ddp.from_rank_zero(lr)
     log.info("Starting training!")
     trainer.fit(model, datamodule, ckpt_path=ckpt_path)
     if trainer.interrupted:

@@ -4,9 +4,11 @@
 ``print_config`` (config tree dump), ``log_hyperparameters`` (+ param
 counts), and the ``eval_time`` decorator.
 
-Copied from ``myria3d_tpu/utils/utils.py``; imports point at the port. The
-port runs one process (no DDP yet), so ``get_logger`` has no rank gate, and
-``define_device_from_config_param`` answers from ``torch``.
+Copied from ``myria3d_tpu/utils/utils.py``; imports point at the port,
+``get_logger``'s gate reads the rank of the ``torch.distributed`` process
+group when a record is emitted (the group starts after the module-level
+loggers are made), and ``define_device_from_config_param`` answers from
+``torch``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from typing import Any, Callable, Optional
 
 
 def get_logger(name: str = __name__) -> logging.Logger:
-    """Python logger (reference rank-zero-wrapped logger,
-    ``utils/utils.py:14-32``; one process, so every call logs)."""
+    """Python logger whose records below ERROR only pass on rank 0
+    (reference rank-zero-wrapped logger, ``utils/utils.py:14-32``)."""
     logger = logging.getLogger(name)
     if not logger.handlers:
         handler = logging.StreamHandler()
@@ -30,7 +32,14 @@ def get_logger(name: str = __name__) -> logging.Logger:
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
         logger.propagate = False
+        logger.addFilter(_rank_zero_or_error)
     return logger
+
+
+def _rank_zero_or_error(record: logging.LogRecord) -> bool:
+    from myria3d_tpu_torch.parallel import ddp
+
+    return record.levelno >= logging.ERROR or ddp.is_rank_zero()
 
 
 def extras(config: dict) -> None:

@@ -1,7 +1,8 @@
 """The port's train loop on the CPU at a small size: gradient accumulation,
 the SIGTERM save and resume, the confusion-matrix metrics against the JAX
 package, the redirect of the config's targets to the port, and the parts
-that are not ported yet (Comet, PointNet++, bf16, DDP) raising."""
+that are not ported yet (Comet, PointNet++, bf16, and several nodes without
+torchrun: the port starts the ranks of one node) raising."""
 
 import os
 import signal
@@ -199,7 +200,7 @@ def test_unported_parts_raise(what):
         elif what == "bfloat16":
             build_model("RandLANet", {"num_features": 9, "num_classes": 7, "dtype": "bfloat16"})
         elif what == "devices":
-            Trainer(TrainerConfig(devices=2, accelerator="cpu"))
+            Trainer(TrainerConfig(devices=2, num_nodes=2, accelerator="cpu"))
         else:
             train({"task": {"task_name": "fit"}, "model": {},
                    "logger": {"comet": {"_target_": "myria3d_tpu.callbacks.logging_callbacks.CometLogger"}}})
