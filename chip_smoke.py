@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's predict, train, test and
-finetune paths (one NVIDIA GPU).
+finetune paths, its two nets and its parity harness (one NVIDIA GPU).
 
     python3 chip_smoke.py
 
@@ -12,8 +12,9 @@ PyTorch built for CUDA. Phases, one line each:
    each kernel's registers, stack frame and spill bytes (``cuobjdump
    --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3/K7
    instantiation (K7: K = 1, 16 and the generic 32), every width's K2/K6
-   instantiation, every K4 instantiation and K5 must have neither a stack
-   frame, local memory nor spills; K2's and K6's dynamic shared memory and
+   instantiation, every K4 instantiation, K5 and every K8 instantiation
+   (1, 2, 4, 8 and 12 points a thread in registers, 0: shared memory) must
+   have neither a stack frame, local memory nor spills; K2's and K6's dynamic shared memory and
    blocks per SM at each width;
 3. each kernel against its plain PyTorch version at the predict step's
    stage shapes (B=48 subtiles, N=12288 sampled, M=32768 full points):
@@ -118,8 +119,33 @@ PyTorch built for CUDA. Phases, one line each:
    their own, joined with a timeout; each reads its launch counts around
    its own path (K1, K2, K4, K5 and K6 must launch there; K1-K3 in (d)).
 
-Phases 11-15 each set the launch counts to 0 before their path and read
-them after it.
+16. PointNet++ (``models/modules/pointnet2.py``, full width: 64/128/256/512,
+   32 neighbours, radii 0.05-0.4, decimation 4, 9 features, 7 classes,
+   random weights from a seed): (a) K8 (farthest-point sampling) bit-equal
+   to its plain version at the set abstractions' shapes (N -> m = 12288 ->
+   3072 -> 768 -> 192 -> 48) at B=16 and 48, and at 40960 -> 10240 (its
+   shared-memory route), clouds with an all-pad cloud and one with fewer
+   valid points than m; the card's time with the host ahead, the plain
+   version's, the bound and the rounds; (b) K1 at the PointNet++ searches
+   (B=48, full scans): the K=32 ball queries and the k=3 feature
+   propagation searches, bit-equal and timed; (c) ``Model.interp_step`` at
+   the bench shape (B=48, N=12288, M=32768; x-sorted subtiles in
+   normalized units, window 4608) against the plain path (argmax agreement
+   >= 0.999), ms per batch, Mpts/s, host enqueue, launches per step (K1 8,
+   K3 1, K8 4) and a profile; (d) the train step at B=16, N=12288: the
+   gradient's cosine against the plain path (>= 0.999), ms per step, peak
+   memory, launches per step (K1 8, K4 8, K8 4); then ``Trainer.fit`` with
+   ``model=pointnet2_model`` on the toy-tile subtiles (20 steps; the loss
+   must fall) and ``predict()`` with its checkpoint on the card and on the
+   CPU: GT accuracy within 0.02 and class maps agreeing >= 0.999;
+17. the parity harness (``parity.run_parity``) on the toy tile with a
+   synthetic Lightning checkpoint on the card and on the CPU: class-map
+   agreement >= 0.999 and mIoU within 0.01 (RandLA-Net's decimation made
+   deterministic in both runs), K1 and K2 launched on the card.
+
+Phases 11-17 each set the launch counts to 0 before their path and read
+them after it; the kernels line's K8 launches are phase 16's predict and
+train steps'.
 
 Every kernel line of phases 3, 6 and 9 carries ``bound_ms``: the larger of
 the bytes its call must move (inputs read once, outputs written once) over
@@ -311,13 +337,15 @@ def bench_subtiles(seed: int = 0):
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions."""
-    from myria3d_tpu_torch.models.modules import randla_net
+    from myria3d_tpu_torch.models.modules import pointnet2, randla_net
     from myria3d_tpu_torch.ops import (
+        cuda_fps,
         cuda_gather,
         cuda_interp,
         cuda_knn,
         cuda_lfa,
         cuda_lfa_train,
+        fps,
         interpolate,
         knn,
         nn1,
@@ -344,6 +372,9 @@ def plain_versions():
                (randla_net, "gather_neighbors", gather_neighbors_plain),
                (randla_net, "inverse_map", cuda_gather.inverse_map_plain),
                (randla_net, "rel_stats", rel_stats_plain),
+               (fps, "fps", cuda_fps.farthest_point_sampling_plain),
+               (pointnet2, "gather_neighbors", gather_neighbors_plain),
+               (pointnet2, "inverse_map", cuda_gather.inverse_map_plain),
                (cuda_lfa_train, "inverse_map", cuda_gather.inverse_map_plain),
                (cuda_lfa_train, "lfa_attention", lfa_attention_plain),
                (cuda_lfa_train, "rel_stats", rel_stats_plain),
@@ -373,11 +404,11 @@ def phase_device():
 
 # kernels that must have no stack frame, local memory or spills, and how
 # many instantiations each family has: K1/K3/K7 (topk.cuh's search), K2 and
-# K6 (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows)
-# and K5
+# K6 (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows),
+# K5 and K8 (points a thread)
 CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "knn_topk_mxu_kernel<": 3,
                  "lfa_kernel<": 6, "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2,
-                 "relstats_kernel<": 2}
+                 "relstats_kernel<": 2, "fps_kernel<": 6}
 
 
 def phase_build():
@@ -398,7 +429,7 @@ def phase_build():
     clean = {n: u for n, u in usage.items() if n.startswith(tuple(CLEAN_KERNELS))}
     bad = [n for n, u in clean.items()
            if any(u.get(key) != 0 for key in ("stack", "local", "spill_stores", "spill_loads"))]
-    need(not bad, f"K1-K7 instantiations with a stack frame, local memory or spills: {bad}")
+    need(not bad, f"K1-K8 instantiations with a stack frame, local memory or spills: {bad}")
     from myria3d_tpu_torch.ops.cuda_lfa import WIDTHS, launch_info
     from myria3d_tpu_torch.ops.cuda_lfa_train import bwd_launch_info
 
@@ -517,6 +548,7 @@ def phase_kernels(model, dev):
 
 
 def launch_counters():
+    from myria3d_tpu_torch.ops.cuda_fps import fps
     from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, inverse_map
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp
     from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu
@@ -526,7 +558,7 @@ def launch_counters():
     # K4 counts its kernel's every launch: the gathers' VJP and K6's dx
     # scatter; inverse_map is K4's map, built by the kernels beside it
     return {"K1": knn_topk, "K2": lfa_attention, "K3": knn_interp, "K4": gather_bwd,
-            "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu,
+            "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu, "K8": fps,
             "inverse_map": inverse_map}
 
 
@@ -1172,12 +1204,12 @@ def phase_knn_mxu(dev):
     return stats, launches
 
 
-def phase_test(dev, cfg: dict, ckpt: str):
+def phase_test(dev, cfg: dict, ckpt: str, kernels=("K1", "K2", "K3"), label: str = "phase 10"):
     """``Trainer.test`` on the toy-tile subtiles with the fit checkpoint,
-    through K1-K3, held against the same test on the plain versions."""
+    through ``kernels``, held against the same test on the plain versions."""
     from myria3d_tpu_torch.train import build_trainer
 
-    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K2", "K3")}
+    counters = {k: v for k, v in launch_counters().items() if k in kernels}
     # every subtile of the tile (the debug experiment tests one batch)
     cfg = {**cfg, "trainer": {**cfg["trainer"], "limit_test_batches": None}}
 
@@ -1201,27 +1233,30 @@ def phase_test(dev, cfg: dict, ckpt: str):
     need(abs(iou - ref["test/iou"]) <= 0.01, f"test IoU {iou:.4f} vs plain {ref['test/iou']:.4f}")
     per_class = " ".join(f"{k.split('/')[-1]}={v:.3f}" for k, v in out.items()
                          if k.startswith("test/iou/"))
-    print(f"phase 10 test (full cloud): {dt:.1f} s, test/loss_epoch {loss:.6f} (plain "
+    print(f"{label} test (full cloud): {dt:.1f} s, test/loss_epoch {loss:.6f} (plain "
           f"{ref['test/loss_epoch']:.6f}), mean IoU {iou:.4f} (plain {ref['test/iou']:.4f}), "
           f"per class {per_class}, launches {launches}")
 
 
-def phase_finetune(dev, work: str, ckpt: str):
-    """``task.task_name=finetune`` from phase 7's B=16 checkpoint with the
-    ``finetuning`` callbacks, across both unfreeze epochs: after each
-    epoch the largest |change| of each group's parameters from the
-    checkpoint; a group moves exactly from its unfreeze epoch, the
-    encoder never."""
+def phase_finetune(dev, work: str, ckpt: str, groups=None, unfrozen_from=None,
+                   kernels=("K1", "K4", "K5", "K6"), label: str = "phase 11", *overrides: str):
+    """``task.task_name=finetune`` from phase 7's B=16 checkpoint (or
+    another net's, with ``overrides``) with the ``finetuning`` callbacks,
+    across both unfreeze epochs: after each epoch the largest |change| of
+    each group's parameters from the checkpoint; a group moves exactly from
+    its unfreeze epoch, the encoder never."""
     import torch
 
     from myria3d_tpu_torch.models.modules.randla_net import FUSED_TRAIN_MIN_BATCH
     from myria3d_tpu_torch.train import build_trainer
     from myria3d_tpu_torch.utils.checkpoint import load_state_dict
 
-    cfg = fit_config(os.path.join(work, "finetune"), FUSED_TRAIN_MIN_BATCH,
+    groups, unfrozen_from = groups or FT_GROUPS, unfrozen_from or FT_UNFROZEN_FROM
+    batch = FUSED_TRAIN_MIN_BATCH
+    cfg = fit_config(os.path.join(work, f"finetune_{label.replace(' ', '_')}"), batch,
                      "task.task_name=finetune", "callbacks=finetuning",
                      "trainer.overfit_batches=1", f"trainer.max_epochs={FT_EPOCHS}",
-                     f"trainer.min_epochs={FT_EPOCHS}")
+                     f"trainer.min_epochs={FT_EPOCHS}", *overrides)
     trainer, model = build_trainer(cfg)
     need(trainer.finetune_cb is not None, "the finetuning callback was not built")
     start = load_state_dict(ckpt, dev)
@@ -1236,7 +1271,7 @@ def phase_finetune(dev, work: str, ckpt: str):
                 return
             now = model.net.state_dict()
             delta = {g: max(float((now[k] - start[k]).abs().max()) for k in names
-                            if k.split(".")[0] in tops) for g, tops in FT_GROUPS.items()}
+                            if k.split(".")[0] in tops) for g, tops in groups.items()}
             epochs.append((int(metrics["epoch"]), time.perf_counter(), delta))
 
     trainer.logger = EpochProbe()
@@ -1248,17 +1283,17 @@ def phase_finetune(dev, work: str, ckpt: str):
     losses = trainer.train_losses
     need(len(epochs) == FT_EPOCHS and len(losses) == FT_EPOCHS and all(np.isfinite(losses)),
          f"finetune: {len(epochs)} epochs, losses {losses}")
-    need(all(used[k] > 0 for k in ("K1", "K4", "K5", "K6")), f"finetune: launches {used}")
+    need(all(used[k] > 0 for k in kernels), f"finetune: launches {used}")
     last = t0
     for epoch, t, delta in epochs:
         for group, d in delta.items():
-            moves = epoch >= FT_UNFROZEN_FROM.get(group, FT_EPOCHS)
+            moves = epoch >= unfrozen_from.get(group, FT_EPOCHS)
             need((d > 0) == moves, f"finetune epoch {epoch}: {group} moved by {d:.3g}")
-        print(f"phase 11 finetune B={FUSED_TRAIN_MIN_BATCH} epoch {epoch}: {t - last:.2f} s, "
+        print(f"{label} finetune B={batch} epoch {epoch}: {t - last:.2f} s, "
               "max |change| from the checkpoint: "
               + ", ".join(f"{g} {d:.3g}" for g, d in delta.items()))
         last = t
-    print(f"phase 11 finetune: {FT_EPOCHS} epochs in {last - t0:.2f} s "
+    print(f"{label} finetune: {FT_EPOCHS} epochs in {last - t0:.2f} s "
           f"({(last - t0) / FT_EPOCHS:.2f} s an epoch), losses "
           + ", ".join(f"{v:.4f}" for v in losses) + f", launches {used}")
 
@@ -1761,6 +1796,326 @@ def phase_data_parallel(dev, work: str):
           f"{used}")
 
 
+# PointNet++ (phases 16-17): the sampled counts of its set abstractions at
+# N=12288 (decimation 4), and K8's shapes beside a cloud past the register
+# route (its running distances in shared memory)
+PN2_STAGES = (12_288, 3072, 768, 192, 48)
+FPS_SHAPES = tuple(zip(PN2_STAGES[:-1], PN2_STAGES[1:]))
+FPS_LARGE = (40_960, 10_240)                 # the largest bucket of pctl.batching
+FPS_INSTR = 10                               # per point a round: 3 sub, 3 mul, 2 add, min, compare
+PN2_HPARAMS = {"num_features": 9, "num_classes": 7}   # configs/model/pointnet2_model.yaml
+PN2_TRAIN_B = 16
+# the finetuning callback's groups on PointNet++ (its FC head is RandLA-Net's
+# mlp_classif, as in the JAX package: PointNet++'s "head" stays frozen)
+PN2_FT_GROUPS = {"fc_classif": ("fc_classif",), "head": ("head",),
+                 "decoder": ("fp1", "fp2", "fp3", "fp4"),
+                 "encoder": ("fc0", "sa1", "sa2", "sa3", "sa4")}
+PN2_FT_UNFROZEN_FROM = {"fc_classif": 0, "decoder": 3}
+
+
+def fps_clouds(b: int, n: int, m: int, seed: int = 0):
+    """(pos, mask) of ``b`` clouds of ``n`` slots, uniform in [-1, 1]^3
+    (normalized subtile units): cloud 0 all pads, cloud 1 with fewer valid
+    points than ``m``, the others between ``m`` and ``n``; pads hold
+    garbage."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    counts = rng.integers(m, n + 1, b)
+    counts[0], counts[1] = 0, max(1, m // 2)
+    mask = np.arange(n)[None, :] < counts[:, None]
+    pos[~mask] = rng.uniform(-1e3, 1e3, (int((~mask).sum()), 3)).astype(np.float32)
+    return pos, mask
+
+
+def fps_bound(mask, m: int):
+    """K8's bound from the data: FPS_INSTR a valid point a round over each
+    cloud's min(valid, m) - 1 updates, against reading the cloud and
+    writing the slots; and the rounds the batch runs."""
+    valid = mask.sum(1).astype(np.float64)
+    rounds = np.minimum(valid, m)
+    instr = FPS_INSTR * float((np.maximum(rounds - 1, 0) * valid).sum())
+    n_bytes = mask.size * (3 * 4 + 1) + mask.shape[0] * m * (4 + 1)
+    return bound(instr, n_bytes), int(rounds.sum())
+
+
+def phase_fps(dev):
+    """16a: K8 bit-equal to its plain version at the set abstractions'
+    shapes (B=16 and 48) and past the register route; the card's time with
+    the host ahead, the plain version's, the bound and the rounds."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_fps import farthest_point_sampling_plain, fps
+
+    rows = []
+    cases = [(b, n, m) for b in (PN2_TRAIN_B, B) for n, m in FPS_SHAPES]
+    cases.append((PN2_TRAIN_B, *FPS_LARGE))
+    for b, n, m in cases:
+        pos_np, mask_np = fps_clouds(b, n, m, seed=n + b)
+        pos, mask = torch.from_numpy(pos_np).to(dev), torch.from_numpy(mask_np).to(dev)
+        idx_k, nm_k = fps(pos, mask, m)
+        idx_p, nm_p = farthest_point_sampling_plain(pos, mask, m)
+        need(bool(torch.equal(nm_k, nm_p)), f"K8 B={b} {n}->{m}: masks differ")
+        need(bool(torch.equal(idx_k, idx_p)), f"K8 B={b} {n}->{m}: indices differ at "
+             f"{int((idx_k != idx_p).sum())} slots")
+        ms = cuda_ms(lambda: fps(pos, mask, m), 5, ahead=True)
+        plain_ms = cuda_ms(lambda: farthest_point_sampling_plain(pos, mask, m), 1, warmup=0)
+        bnd, rounds = fps_bound(mask_np, m)
+        route = "registers" if n <= 12 * 1024 else "shared memory"
+        print(f"phase 16a K8 B={b} {n}->{m} ({route}): bit-equal, {ms:.3f} ms, plain "
+              f"{plain_ms:.1f} ms, {rounds} rounds, {bounds_text(bnd)}")
+        if b == B and (n, m) in FPS_SHAPES:
+            rows.append((0.0, ms, plain_ms, bnd, None))
+    return rows
+
+
+def normalized(a: np.ndarray) -> np.ndarray:
+    """Bench-subtile positions (metres in [0, 50]) in normalized subtile
+    units, [-1, 1] (``NormalizePos``): the units of PointNet++'s radii. The
+    map is increasing, so x-sorted clouds stay sorted."""
+    return (a / 25.0 - 1.0).astype(np.float32)
+
+
+def phase_pn2_searches(dev):
+    """16b: K1 at the PointNet++ shapes (B=48, full scans): the K=32 ball
+    queries of the four set abstractions (centroids from K8 into the stage's
+    cloud) and the k=3 searches of the four feature propagations (the
+    stage's cloud into its centroids), bit-equal to the plain version."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_fps import fps
+    from myria3d_tpu_torch.ops.cuda_knn import _windows, knn_topk, knn_topk_plain
+    from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows
+
+    _, pos, mask, _, _ = bench_subtiles(3)
+    pos, mask = torch.from_numpy(normalized(pos)).to(dev), torch.from_numpy(mask).to(dev)
+    stages = [(pos, mask)]
+    for m in PN2_STAGES[1:]:
+        p, v = stages[-1]
+        sel, sel_mask = fps(p, v, m)
+        stages.append((gather_rows(p, sel), sel_mask))
+    rows = []
+    for (p, v), (c, cm) in zip(stages[:-1], stages[1:]):
+        for label, (qp, qm), (kp, km), k in (
+                (f"K=32 ball query {c.shape[1]}<-{p.shape[1]}", (c, cm), (p, v), 32),
+                (f"k=3 FP {p.shape[1]}<-{c.shape[1]}", (p, v), (c, cm), 3)):
+            q4, k4 = centred_clouds(qp, kp, km)
+            idx_k, d2_k = knn_topk(q4, k4, k, query_mask=qm)
+            idx_p, d2_p = knn_topk_plain(q4, k4, k, query_mask=qm)
+            err = check_k1(idx_k, d2_k, idx_p, d2_p, label)
+            ms = cuda_ms(lambda: knn_topk(q4, k4, k, query_mask=qm), 5, ahead=True)
+            plain_ms = cuda_ms(lambda: knn_topk_plain(q4, k4, k, query_mask=qm), 1, warmup=0)
+            bnd = bound(PAIR_INSTR * float(qm.sum()) * _windows(q4, k4, 0, qm)[1],
+                        nbytes(q4, k4, idx_k, d2_k))
+            print(f"phase 16b K1 {label} B={B} (full scan): bit-equal, {ms:.3f} ms, plain "
+                  f"{plain_ms:.1f} ms, {bounds_text(bnd)}")
+            rows.append((err, ms, plain_ms, bnd, None))
+    return rows
+
+
+def pn2_model(dev, seed: int = 0):
+    """A full-width PointNet++ (``configs/model/pointnet2_model.yaml``,
+    9 features, 7 classes), random weights from ``seed``."""
+    import torch
+
+    from myria3d_tpu_torch.models.model import build_model
+
+    torch.manual_seed(seed)
+    return build_model("PointNet2", dict(PN2_HPARAMS)).to(dev)
+
+
+def phase_pn2_predict_step(dev):
+    """16c: ``Model.interp_step`` of a full-width PointNet++ at the bench
+    shape (B=48, N=12288, M=32768; x-sorted subtiles in normalized units,
+    window 4608): kernel path against plain path."""
+    import torch
+
+    x, pos, mask, full_pos, full_mask = bench_subtiles(0)
+    x, pos, mask, full_pos, full_mask = (torch.from_numpy(a).to(dev) for a in (
+        x, normalized(pos), mask, normalized(full_pos), full_mask))
+    model = pn2_model(dev).eval()
+    model.set_sorted_window(WINDOW)
+
+    def step():
+        return model.interp_step(x, pos, mask, pos, full_pos, full_mask)
+
+    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K3", "K8")}
+    step()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out_k = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    launches = {n: fn.launches for n, fn in counters.items()}
+    per_step = {n: v / reps for n, v in launches.items()}
+    need(per_step == {"K1": 8, "K3": 1, "K8": 4}, f"predict step launches per step {per_step}")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    torch.cuda.synchronize()
+    with plain_versions():
+        t0 = time.perf_counter()
+        out_p = step()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    need(bool(torch.isfinite(out_k).all()) and out_k.shape == (B, M, 7), "bad step output")
+    agree = float((out_k.argmax(-1) == out_p.argmax(-1))[full_mask].float().mean())
+    need(agree >= 0.999, f"PointNet++ predict step: argmax agreement {agree:.5f} < 0.999")
+    print(f"phase 16c PointNet++ predict step B={B} N={N} M={M}: kernels {ms:.1f} ms/batch "
+          f"({B * RAW / ms / 1e3:.3f} Mpts/s), plain {plain_ms:.1f} ms/batch, argmax agreement "
+          f"{agree:.6f}, launches per step {per_step}; host enqueue {host_ms:.1f} ms/step")
+    print(f"phase 16c profile: {profile_steps(step)}")
+    return launches
+
+
+def phase_pn2_train_step(dev):
+    """16d: a full-width PointNet++ train step at B=16, N=12288 (``bench.py
+    --train``'s batch in normalized units): the gradient against the plain
+    path's, ms per step, peak memory and the launches per step."""
+    import torch
+
+    x, pos, y, mask = train_batch(PN2_TRAIN_B)
+    x, pos, y, mask = (torch.from_numpy(a).to(dev) for a in (x, pos / 25.0, y, mask))
+    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K4", "K8")}
+
+    def grads(model):
+        model.optimizer.zero_grad(set_to_none=True)
+        model.grad_step(x, pos, y, mask, torch.Generator(device=dev).manual_seed(7))
+        return torch.cat([p.grad.flatten() for p in model.net.parameters()])
+
+    model = pn2_model(dev)
+    model.init_train_state()
+    g_k = grads(model)
+    plain = pn2_model(dev)
+    plain.init_train_state()
+    with plain_versions():
+        g_p = grads(plain)
+    del plain
+    cos = float((g_k.double() @ g_p.double()) / (g_k.double().norm() * g_p.double().norm()))
+    need(bool(torch.isfinite(g_k).all()) and cos >= 0.999,
+         f"PointNet++ train step: gradient cosine kernel/plain {cos:.6f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    reps = 5
+    t0 = time.perf_counter()
+    for i in range(reps):
+        loss, _ = model.train_step(x, pos, y, mask, torch.Generator(device=dev).manual_seed(i))
+    chk = sum(float(p.detach().sum()) for p in model.net.parameters())
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {n: fn.launches for n, fn in counters.items()}
+    per_step = {n: v / reps for n, v in launches.items()}
+    need(np.isfinite(float(loss)) and np.isfinite(chk), "non-finite PointNet++ train step")
+    need(per_step == {"K1": 8, "K4": 8, "K8": 4}, f"train step launches per step {per_step}")
+    print(f"phase 16d PointNet++ train step B={PN2_TRAIN_B} N={TRAIN_N}: {ms:.1f} ms/step "
+          f"({PN2_TRAIN_B * TRAIN_N / ms / 1e3:.3f} Mpts/s), peak {peak:.2f} GiB, gradient "
+          f"cosine kernel/plain {cos:.6f}, launches per step {per_step}")
+    return launches
+
+
+def phase_pn2_fit(dev, work: str):
+    """16d: ``Trainer.fit`` with ``model=pointnet2_model`` on the toy-tile
+    subtiles (``overfit_batches: 1``, B=16), then ``predict()`` with its
+    checkpoint on the card and on the CPU (plain versions)."""
+    from myria3d_tpu_torch.pctl.io.las import read_las
+    from myria3d_tpu_torch.predict import predict
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+    from myria3d_tpu_torch.train import build_trainer
+
+    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K4", "K8")}
+    cfg = fit_config(os.path.join(work, "pn2"), PN2_TRAIN_B, "model=pointnet2_model",
+                     "task.task_name=fit", "trainer.overfit_batches=1",
+                     f"trainer.max_epochs={FIT_STEPS}", f"trainer.min_epochs={FIT_STEPS}")
+    trainer, model = build_trainer(cfg)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(model, TileDataModule(cfg))
+    dt = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    losses = trainer.train_losses
+    need(len(losses) == FIT_STEPS and all(np.isfinite(losses)), f"PointNet++ fit losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    need(last < first, f"PointNet++ fit: loss did not fall ({first:.4f} -> {last:.4f})")
+    need(all(v > 0 for v in launches.values()), f"PointNet++ fit launches {launches}")
+    print(f"phase 16d PointNet++ fit B={PN2_TRAIN_B}: {FIT_STEPS} steps in {dt:.1f} s, loss first "
+          f"five {first:.4f} -> last five {last:.4f}, launches {launches}")
+    ckpt = trainer.checkpoint_cb.last_model_path
+    phase_test(dev, cfg, ckpt, ("K1", "K3", "K8"), "phase 16d PointNet++")
+    phase_finetune(dev, work, ckpt, PN2_FT_GROUPS, PN2_FT_UNFROZEN_FROM, ("K1", "K4", "K8"),
+                   "phase 16d PointNet++", "model=pointnet2_model")
+
+    tile = os.path.join(ASSETS, "toy_tile.las")
+    acc, maps = {}, {}
+    for device in ("cuda", "cpu"):
+        pcfg = compose_config(CONFIG_DIR, "config.yaml", [
+            "task.task_name=predict", f"predict.src_las={tile}",
+            f"predict.ckpt_path={ckpt}",
+            f"predict.output_dir={work}/pn2_pred_{device}", "datamodule.batch_size=16",
+            "datamodule.subtile_width=16"])
+        t0 = time.perf_counter()
+        res = read_las(predict(pcfg, device=device)).points
+        maps[device] = np.asarray(res["PredictedClassification"])
+        acc[device] = (float((maps[device] == np.asarray(res["Classification"])).mean()),
+                       time.perf_counter() - t0)
+    # the eval forward draws nothing at random: the class maps agree too
+    agree = float((maps["cuda"] == maps["cpu"]).mean())
+    need(abs(acc["cuda"][0] - acc["cpu"][0]) <= ACCURACY_MARGIN and agree >= 0.999,
+         f"PointNet++ predict: GT accuracy {acc['cuda'][0]:.4f} vs CPU plain {acc['cpu'][0]:.4f}, "
+         f"class-map agreement {agree:.5f}")
+    print(f"phase 16d PointNet++ predict() with the fit checkpoint: GT accuracy {acc['cuda'][0]:.4f} "
+          f"in {acc['cuda'][1]:.1f} s (CPU plain {acc['cpu'][0]:.4f} in {acc['cpu'][1]:.1f} s), "
+          f"class-map agreement {agree:.6f}")
+    return launches
+
+
+def phase_parity(dev, work: str):
+    """17: ``parity.run_parity`` on the toy tile with a synthetic Lightning
+    checkpoint, on the card and on the CPU: class-map agreement >= 0.999 and
+    mIoU within 0.01; the card run through K1 and K2. RandLA-Net's
+    decimation is deterministic in both runs (``det_decimation``): the
+    card's and the CPU's generators draw different numbers from one seed."""
+    import io
+
+    from myria3d_tpu_torch.parity import run_parity
+    from myria3d_tpu_torch.pctl.io.las import read_las
+    from myria3d_tpu_torch.utils.checkpoint import make_synthetic_lightning_checkpoint
+
+    ckpt = make_synthetic_lightning_checkpoint(os.path.join(work, "proto.ckpt"))
+    tile = os.path.join(ASSETS, "toy_tile.las")
+    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K2")}
+    reports, secs = {}, {}
+    for accel in ("auto", "cpu"):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        # the harness prints its own table and JSON line
+        with contextlib.redirect_stdout(io.StringIO()), deterministic_decimation():
+            reports[accel] = run_parity(ckpt, tile, output_dir=os.path.join(work, f"parity_{accel}"),
+                                        epsg="2154", batch_size=4, accelerator=accel)
+        secs[accel] = time.perf_counter() - t0
+        if accel == "auto":
+            launches = {n: fn.launches for n, fn in counters.items()}
+    need(all(v > 0 for v in launches.values()), f"parity on the card: launches {launches}")
+    maps = {a: np.asarray(read_las(r["predicted_las"]).points["PredictedClassification"])
+            for a, r in reports.items()}
+    agree = float((maps["auto"] == maps["cpu"]).mean())
+    miou = {a: r["ours_vs_gt"]["miou"] for a, r in reports.items()}
+    need(agree >= 0.999, f"parity: class-map agreement card/CPU {agree:.5f} < 0.999")
+    need(abs(miou["auto"] - miou["cpu"]) <= 0.01, f"parity: mIoU {miou['auto']:.4f} vs CPU "
+         f"{miou['cpu']:.4f}")
+    print(f"phase 17 parity harness (synthetic Lightning checkpoint, toy tile): card mIoU "
+          f"{miou['auto']:.4f} in {secs['auto']:.1f} s, CPU mIoU {miou['cpu']:.4f} in "
+          f"{secs['cpu']:.1f} s, class-map agreement {agree:.6f}, verdict "
+          f"{reports['auto']['verdict']}, launches {launches}")
+
+
 def foreign_modules() -> list:
     """Modules of JAX, flax or the JAX package loaded in this process."""
     return sorted(m for m in sys.modules
@@ -1812,6 +2167,15 @@ def main() -> int:
             phase_microbatch(dev)
             phase_profiler(dev, work)
             phase_data_parallel(dev, work)
+            with torch.inference_mode():
+                stats["K8"] = phase_fps(dev)
+                phase_pn2_searches(dev)
+                pn2 = phase_pn2_predict_step(dev)
+            pn2_train = phase_pn2_train_step(dev)
+            phase_pn2_fit(dev, work)
+            # K8's launches: the PointNet++ predict and train steps' runs
+            launches["K8"] = pn2["K8"] + pn2_train["K8"]
+            phase_parity(dev, work)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")
@@ -1828,7 +2192,8 @@ def main() -> int:
                       "myria3d_tpu/ops/pallas_lfa_train.py:162"),
                "K6": ("myria3d_tpu_torch/csrc/lfa_train.cu",
                       "myria3d_tpu/ops/pallas_lfa_train.py:192"),
-               "K7": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:115")}
+               "K7": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:115"),
+               "K8": ("myria3d_tpu_torch/csrc/fps.cu", "myria3d_tpu/ops/fps.py:25")}
     kernels = []
     for name, (src, rep) in sources.items():
         rows = stats[name]

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "m3d_reduce_chunks": [_P, _I, _I, _I, _I, _P, _P],
     "m3d_lfa_bwd": [_P] * 9 + [_I] * 5 + [_P] * 4,
     "m3d_lfa_bwd_info": [_I, _P],
+    "m3d_fps": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

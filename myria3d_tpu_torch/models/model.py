@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from myria3d_tpu_torch.models.criterion import CrossEntropyLoss
-from myria3d_tpu_torch.models.modules.randla_net import RandLANet
+from myria3d_tpu_torch.models.modules import get_neural_net_class
 from myria3d_tpu_torch.models.optimizers import adam, set_learning_rate_scale
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
 from myria3d_tpu_torch.ops.interpolate import knn_interpolate
@@ -59,24 +59,23 @@ def chunk_generator(generator: torch.Generator | None, i: int) -> torch.Generato
 
 
 def build_net(neural_net_class_name: str, neural_net_hparams: Dict[str, Any]) -> nn.Module:
-    if neural_net_class_name != "RandLANet":
-        raise NotImplementedError(
-            f"{neural_net_class_name} is not ported yet (RandLANet only)"
-        )
+    """The zoo's net (``models.modules.MODEL_ZOO``: RandLA-Net, PointNet++)
+    from the JAX hparams; f32 logits only."""
+    net_class = get_neural_net_class(neural_net_class_name)
     hp = {k: v for k, v in neural_net_hparams.items() if k not in _IGNORED_NET_HPARAMS}
     dtype = hp.pop("dtype", None)
     if dtype not in (None, "float32"):
         raise NotImplementedError(f"compute dtype {dtype!r} is not ported yet")
     if not hp.pop("return_logits", True):
         raise NotImplementedError("log-softmax outputs are not ported")
-    return RandLANet(**hp)
+    return net_class(**hp)
 
 
 class Model(nn.Module):
     """Segmentation model (reference ``Model``): the net, its criterion and
     optimizer, and the train/eval/predict steps."""
 
-    def __init__(self, net: RandLANet, interpolation_k: int = 10, *, lr: float = 1e-3,
+    def __init__(self, net: nn.Module, interpolation_k: int = 10, *, lr: float = 1e-3,
                  optimizer: Optional[Callable] = None, lr_scheduler: Optional[Callable] = None,
                  criterion: Optional[Callable] = None, monitor: str = "val/loss_epoch",
                  accumulate_grad_batches: int = 1, grad_microbatch: int = 0,
@@ -84,6 +83,9 @@ class Model(nn.Module):
         super().__init__()
         self.net = net
         self.interpolation_k = int(interpolation_k)
+        # x-sorted window of the full-cloud interpolation search (key
+        # positions; 0 is a full scan): set_sorted_window
+        self.interp_window = 0
         self.lr = float(lr)
         self.optimizer_factory = optimizer if optimizer is not None else adam
         self.lr_scheduler_factory = lr_scheduler
@@ -101,13 +103,16 @@ class Model(nn.Module):
         self.data_parallel: Any = None
 
     def set_sorted_window(self, window: int) -> None:
-        """Window every search (the encoder graphs, the decoder's k=1
-        upsampling and the full-cloud interpolation) to ~``window`` sorted
-        key positions per 256-query tile. Requires x-sorted clouds (the
-        predict pipeline appends ``SortPointsByX``, so the in-model sort is
-        switched off as in ``model.py:192-211``); 0 is a full scan."""
-        self.net.knn_window = int(window)
-        self.net.sort_inputs = False
+        """Window the full-cloud interpolation search, and every search of a
+        net that has a ``knn_window`` (RandLA-Net's encoder graphs and
+        decoder upsampling), to ~``window`` sorted key positions per
+        256-query tile. Requires x-sorted clouds (the predict pipeline
+        appends ``SortPointsByX``, so the in-model sort is switched off as
+        in ``model.py:192-211``); 0 is a full scan."""
+        self.interp_window = int(window)
+        if hasattr(self.net, "knn_window"):
+            self.net.knn_window = int(window)
+            self.net.sort_inputs = False
 
     # ------------------------------------------------------------------
     # train state
@@ -249,7 +254,7 @@ class Model(nn.Module):
             logits, sampled_pos, mask, full_pos, full_mask,
             k=self.interpolation_k, fused_payload=fused,
             # density-scaled by the sampled (key) cloud's count
-            window=stage_window(self.net.knn_window, sampled_pos.shape[1]),
+            window=stage_window(self.interp_window, sampled_pos.shape[1]),
         )
         return full.to(torch.float16)
 

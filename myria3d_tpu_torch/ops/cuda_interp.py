@@ -25,17 +25,24 @@ from myria3d_tpu_torch.ops.cuda_knn import (
 from myria3d_tpu_torch.ops.knn import VALID_THRESH
 
 
-def _interp_from_neighbors(x, idx, d2, query_mask):
-    valid = d2 < VALID_THRESH
+def idw_combine(feats, d2, valid, query_mask):
+    """The pyg weighting of gathered neighbour rows ``feats (B, Nq, k, C)``:
+    ``w = 1 / max(d2, 1e-16)`` on ``valid`` slots (0 elsewhere),
+    ``sum(w x) / max(sum(w), 1e-16)``; rows outside ``query_mask`` zeroed."""
     w = torch.where(valid, 1.0 / d2.clamp(min=1e-16), 0.0)          # (B, Nq, k)
-    b, _, c = x.shape
-    rows = torch.where(valid, idx.to(torch.int64), 0).reshape(b, -1, 1)
-    feats = torch.gather(x, 1, rows.expand(-1, -1, c)).view(*idx.shape, c)
     num = (feats * w[..., None]).sum(dim=2)
     out = num / w.sum(dim=2, keepdim=True).clamp(min=1e-16)
     if query_mask is not None:
         out = torch.where(query_mask[..., None], out, 0.0)
     return out
+
+
+def _interp_from_neighbors(x, idx, d2, query_mask):
+    valid = d2 < VALID_THRESH
+    b, _, c = x.shape
+    rows = torch.where(valid, idx.to(torch.int64), 0).reshape(b, -1, 1)
+    feats = torch.gather(x, 1, rows.expand(-1, -1, c)).view(*idx.shape, c)
+    return idw_combine(feats, d2, valid, query_mask)
 
 
 def knn_interp_plain(x: torch.Tensor, q4: torch.Tensor, k4: torch.Tensor, k: int,

@@ -82,6 +82,19 @@ def knn_graph(pos: torch.Tensor, mask: torch.Tensor, k: int, window: int = 0):
     return knn(pos, pos, mask, k, query_mask=mask, window=window)
 
 
+def ball_query(query_pos: torch.Tensor, key_pos: torch.Tensor, key_mask: torch.Tensor,
+               k: int, radius: float, query_mask: torch.Tensor | None = None):
+    """Up to ``k`` nearest valid keys within ``radius`` of each query
+    (PointNet++ grouping, ``knn.py:217-233``): the K nearest inside the
+    ball, not the CUDA convention's first K found in scan order. K1's
+    full-scan search, then the radius filter on its ``(B, Nq, k)`` result;
+    slots outside the ball are invalid and clamped to index 0. Returns
+    ``idx``, ``d2`` and ``neigh_valid`` as :func:`knn`."""
+    idx, d2, neigh_valid = knn(query_pos, key_pos, key_mask, k, query_mask)
+    neigh_valid = neigh_valid & (d2 <= radius * radius)
+    return torch.where(neigh_valid, idx, 0), d2, neigh_valid
+
+
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, N, C), idx (B, ...) -> (B, ..., C) rows of each cloud."""
     b, _, c = x.shape

@@ -613,7 +613,7 @@ def train(config: dict) -> Trainer:
     trainer, model = build_trainer(config)
     datamodule = instantiate(port_targets(config["datamodule"]))
     if getattr(datamodule, "num_features", None) is None:
-        datamodule.num_features = int(model.net.fc0.in_features)
+        datamodule.num_features = int(model.hparams["d_in"])
     if task_name == "test":
         log.info("Starting testing!")
         trainer.test(model, datamodule, ckpt_path=ckpt_path)

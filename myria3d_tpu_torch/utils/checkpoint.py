@@ -1,15 +1,22 @@
 """Checkpoints of the port: ``state_dict.npz`` + ``hparams.json``.
 
-The state dict carries the reference ``PyGRandLANet`` keys. The weight
-carry-over from a JAX checkpoint (``state_dict_from_jax``) maps the JAX
-parameter trees, held as numpy arrays, with ``flax_to_torch_state_dict``:
-that mapping and its inverse (``convert_randlanet_state_dict``) are copied
-from ``myria3d_tpu/utils/torch_ckpt.py:28-141`` (numpy only; reading an
-orbax checkpoint stays with ``scripts/export_torch_checkpoint.py``). The
-hparams are the model section of the training config, as JSON. A
-checkpoint written by training also holds ``train_state.pt`` (optimizer
-state and step, ``models.model.Model.save_checkpoint``), which predict does
-not read.
+The state dict carries the reference's pyg keys (``PyGRandLANet``, and
+the same layout for PointNet++). The weight carry-over from a JAX
+checkpoint (``state_dict_from_jax``) maps the JAX parameter trees, held as
+numpy arrays, with ``flax_to_torch_state_dict``: that mapping and its
+inverse (``convert_randlanet_state_dict``) are copied from
+``myria3d_tpu/utils/torch_ckpt.py:28-141`` (numpy only; reading an orbax
+checkpoint stays with ``scripts/export_torch_checkpoint.py``); both serve
+every net of the zoo. The hparams are the model section of the training
+config, as JSON. A checkpoint written by training also holds
+``train_state.pt`` (optimizer state and step,
+``models.model.Model.save_checkpoint``), which predict does not read.
+
+A reference Lightning checkpoint (``.ckpt``) converts with
+``convert_checkpoint_file``: its state dict is the port's, under the
+``model.`` prefix (``torch_ckpt.py:97,143``). ``golden_pyg_state_shapes``
+and ``make_synthetic_lightning_checkpoint`` (``torch_ckpt.py:176,234``)
+build the stand-in the parity harness is tested on.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from myria3d_tpu_torch.models.model import Model, build_net
+from myria3d_tpu_torch.models.model import Model, build_model, build_net
 
 STATE_DICT = "state_dict.npz"
 HPARAMS = "hparams.json"
@@ -177,3 +184,99 @@ def load_checkpoint(ckpt_dir: str, device: str | torch.device = "cpu") -> Model:
     model.net.load_state_dict(load_state_dict(ckpt_dir), strict=True)
     model.set_sorted_window(0)
     return model.to(device).eval()
+
+
+def convert_checkpoint_file(torch_ckpt_path: str, out_dir: str, hparams: Dict[str, Any]) -> str:
+    """A reference Lightning ``.ckpt`` -> the port's checkpoint directory
+    (``torch_ckpt.py:143``): the net that ``hparams`` (``Model`` keyword
+    arguments, as ``build_model`` takes them) describes, its weights and BN
+    statistics read from the checkpoint's state dict (``model.`` prefix
+    stripped; entries the net lacks, such as ``num_batches_tracked``, are
+    ignored), loaded with ``strict=True``."""
+    raw = torch.load(torch_ckpt_path, map_location="cpu", weights_only=False)
+    state_dict = strip_lightning_prefix(raw.get("state_dict", raw))
+    model = build_model(**{k: v for k, v in hparams.items() if k != "_target_"})
+    want = model.net.state_dict()
+    missing = sorted(k for k in want if k not in state_dict)
+    if missing:
+        raise KeyError(f"the checkpoint lacks {len(missing)} entries of the net: {missing[:5]}")
+    for k, v in want.items():
+        if state_dict[k].shape != tuple(v.shape):
+            raise ValueError(f"shape mismatch for {k}: checkpoint {state_dict[k].shape} vs "
+                             f"net {tuple(v.shape)}")
+    model.net.load_state_dict({k: torch.from_numpy(state_dict[k]) for k in want}, strict=True)
+    return model.save_checkpoint(out_dir)
+
+
+def golden_pyg_state_shapes(num_features: int = 9, num_classes: int = 7) -> Dict[str, Tuple[int, ...]]:
+    """Every ``PyGRandLANet(num_features, num_classes)`` state_dict entry ->
+    shape, from the reference module definitions (``torch_ckpt.py:176``:
+    ``pyg_randla_net.py:42-53`` net plan, ``:97-109`` SharedMLP = pyg MLP,
+    ``:112-119`` LocalFeatureAggregation, ``:155-177``
+    DilatedResidualBlock): the convertibility contract with the shipped
+    proto151 checkpoint."""
+    d_b = max(32, num_classes, num_features)
+    shapes: Dict[str, Tuple[int, ...]] = {}
+
+    def linear(prefix, din, dout, bias=True):
+        shapes[f"{prefix}.weight"] = (dout, din)
+        if bias:
+            shapes[f"{prefix}.bias"] = (dout,)
+
+    def bn(prefix, d):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            shapes[f"{prefix}.{leaf}"] = (d,)
+
+    def mlp(prefix, chans, bias=True, norm=True):
+        for i, (a, b) in enumerate(zip(chans[:-1], chans[1:])):
+            linear(f"{prefix}.lins.{i}", a, b, bias=bias)
+            if norm:
+                bn(f"{prefix}.norms.{i}", b)
+
+    def lfa(prefix, channels):
+        mlp(f"{prefix}.mlp_encoder", [10, channels // 2])
+        mlp(f"{prefix}.mlp_attention", [channels, channels], bias=False, norm=False)
+        mlp(f"{prefix}.mlp_post_attention", [channels, channels])
+
+    def block(prefix, d_in, d_out):
+        mlp(f"{prefix}.mlp1", [d_in, d_out // 8])
+        mlp(f"{prefix}.shortcut", [d_in, d_out])
+        mlp(f"{prefix}.mlp2", [d_out // 2, d_out])
+        lfa(f"{prefix}.lfa1", d_out // 4)
+        lfa(f"{prefix}.lfa2", d_out // 2)
+
+    linear("fc0", num_features, d_b)
+    block("block1", d_b, 32)
+    block("block2", 32, 128)
+    block("block3", 128, 256)
+    block("block4", 256, 512)
+    mlp("mlp_summit", [512, 512])
+    # decoder inputs concat the upsampled features with the decimated skips
+    # (pyg_randla_net.py:48-51, 76-79)
+    mlp("fp4.nn", [768, 256])
+    mlp("fp3.nn", [384, 128])
+    mlp("fp2.nn", [160, 32])
+    mlp("fp1.nn", [64, d_b])
+    mlp("mlp_classif", [d_b, 64, 32])
+    linear("fc_classif", 32, num_classes)
+    return shapes
+
+
+def make_synthetic_lightning_checkpoint(path: str, num_features: int = 9, num_classes: int = 7,
+                                        seed: int = 0) -> str:
+    """A Lightning-style ``.ckpt`` with the reference ``PyGRandLANet`` state
+    dict layout and random (BN-valid) values (``torch_ckpt.py:234``): the
+    stand-in for the proto151 checkpoint, which is not in the repository."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in golden_pyg_state_shapes(num_features, num_classes).items():
+        if key.endswith("running_var"):
+            val = rng.uniform(0.5, 2.0, size=shape)  # rsqrt-safe
+        else:
+            val = rng.normal(0.0, 0.2, size=shape)
+        sd[f"model.{key}"] = torch.from_numpy(val.astype(np.float32))
+        if key.endswith("running_var"):
+            sd[f"model.{key.rsplit('.', 1)[0]}.num_batches_tracked"] = torch.tensor(
+                7, dtype=torch.int64)
+    torch.save({"state_dict": sd, "epoch": 100}, path)
+    return path

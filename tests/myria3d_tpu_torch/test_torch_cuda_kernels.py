@@ -17,7 +17,10 @@ attention products in 3xTF32, which keeps them at f32 grade
 (``test_torch_lfa_tf32.py``), at every width the model uses. K7 shares its plain
 version's association and ranking, so indices and d2 are equal, whatever
 order its scan takes the keys in and wherever it stops among the virtual
-pad rows.
+pad rows. K8 (farthest-point sampling) sums in its plain version's association
+and breaks ties as it does, so indices and masks are equal, on both of its
+routes (registers up to 12288 points, shared memory beyond); a PointNet++
+train step launches K1, K4 and K8.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ import pytest
 import torch
 
 from myria3d_tpu_torch.models.model import Model, build_model, build_net
+from myria3d_tpu_torch.ops.cuda_fps import MAX_N, farthest_point_sampling_plain, fps
 from myria3d_tpu_torch.ops.cuda_gather import (
     gather_bwd,
     gather_bwd_plain,
@@ -539,3 +543,66 @@ def test_microbatched_step_runs_its_kernels(cuda_device):
     for t, a, b in zip(got, *chunk_stats):
         want = (a + b) / 2
         assert float((t - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+# (B, N, m): each register instantiation (1, 2, 4, 8 and 12 points a
+# thread), a cloud past it (shared memory), and clouds with exact ties
+FPS_CASES = [(3, 700, 175), (3, 1500, 375), (2, 4000, 1000), (2, 8192, 2048),
+             (2, 12288, 3072), (2, 20000, 5000)]
+
+
+@pytest.mark.parametrize("b,n,m", FPS_CASES)
+@pytest.mark.parametrize("grid", [None, 0.05])
+def test_k8_matches_plain(cuda_device, b, n, m, grid):
+    """Cloud 0 all pads, cloud 1 with fewer valid points than m, pads
+    holding garbage; ``grid`` snaps positions to make exact ties."""
+    g = torch.Generator().manual_seed(n)
+    pos = torch.rand((b, n, 3), generator=g) * 2 - 1
+    if grid:
+        pos = torch.round(pos / grid) * grid
+    counts = torch.tensor([0, m // 2] + [n - 7] * (b - 2))
+    mask = torch.arange(n)[None, :] < counts[:, None]
+    pos[~mask] = 1e3
+    pos, mask = pos.to(cuda_device), mask.to(cuda_device)
+    before = fps.launches
+    idx, new_mask = fps(pos, mask, m)
+    torch.cuda.synchronize()
+    assert fps.launches == before + 1
+    want_idx, want_mask = farthest_point_sampling_plain(pos, mask, m)
+    assert torch.equal(new_mask, want_mask)
+    assert torch.equal(idx, want_idx)
+    assert new_mask.sum(1).tolist() == [0, m // 2] + [m] * (b - 2)
+
+
+def test_k8_refuses_clouds_past_its_limit(cuda_device):
+    pos = torch.zeros((1, MAX_N + 1, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="exceed"):
+        fps(pos, torch.ones((1, MAX_N + 1), dtype=torch.bool, device=cuda_device), 4)
+
+
+def test_pointnet2_train_step_runs_its_kernels(cuda_device):
+    """A narrow PointNet++ train step on the card launches K8 four times (a
+    set abstraction each), K1 eight times (four ball queries, four k=3
+    searches) and K4 eight times (the gathers' VJP); its gradients are
+    finite and bit-identical from run to run."""
+    from myria3d_tpu_torch.ops.cuda_knn import knn_topk
+
+    torch.manual_seed(0)
+    model = build_model("PointNet2", {"num_features": 9, "num_classes": 7,
+                                      "widths": (16, 32, 64, 128)}).to(cuda_device)
+    model.net.head.dropout = [0.0]
+    model.init_train_state()
+    g = torch.Generator().manual_seed(1)
+    pos = (torch.rand((2, 4096, 3), generator=g) * 2 - 1).to(cuda_device)
+    x = torch.rand((2, 4096, 9), generator=g).to(cuda_device)
+    y = torch.randint(0, 7, (2, 4096), generator=g).to(cuda_device)
+    mask = (torch.arange(4096)[None, :] < torch.tensor([[4096], [3000]])).to(cuda_device)
+    grads = []
+    for _ in range(2):
+        before = [f.launches for f in (fps, knn_topk, gather_bwd)]
+        model.optimizer.zero_grad(set_to_none=True)
+        model.grad_step(x, pos, y, mask)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip((fps, knn_topk, gather_bwd), before)] == [4, 8, 8]
+        grads.append(torch.cat([p.grad.flatten() for p in model.net.parameters()]))
+    assert bool(torch.isfinite(grads[0]).all()) and torch.equal(grads[0], grads[1])
