@@ -13,9 +13,12 @@ PyTorch built for CUDA. Phases, one line each:
    --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3/K7
    instantiation (K7: K = 1, 16 and the generic 32), every width's K2/K6
    instantiation, every K4 instantiation, K5 and every K8 instantiation
-   (1, 2, 4, 8 and 12 points a thread in registers, 0: shared memory) must
-   have neither a stack frame, local memory nor spills; K2's and K6's dynamic shared memory and
-   blocks per SM at each width;
+   (1, 2, 3, 4, 6, 8, 12 and 14 points a thread in registers) must have
+   neither a stack frame, local memory nor spills; K2's and K6's dynamic
+   shared memory and blocks per SM at each width; K8's routes at phase
+   16a's shapes (threads, points a thread, cluster size, skip) with the
+   clusters the card holds at once (``cudaOccupancyMaxActiveClusters``),
+   which must be at least the case's batch;
 3. each kernel against its plain PyTorch version at the predict step's
    stage shapes (B=48 subtiles, N=12288 sampled, M=32768 full points):
    K1 (kNN) bit-equal on indices and d2, K2 (fused LFA) within 1e-4 and K3
@@ -123,10 +126,12 @@ PyTorch built for CUDA. Phases, one line each:
    32 neighbours, radii 0.05-0.4, decimation 4, 9 features, 7 classes,
    random weights from a seed): (a) K8 (farthest-point sampling) bit-equal
    to its plain version at the set abstractions' shapes (N -> m = 12288 ->
-   3072 -> 768 -> 192 -> 48) at B=16 and 48, and at 40960 -> 10240 (its
-   shared-memory route), clouds with an all-pad cloud and one with fewer
-   valid points than m; the card's time with the host ahead, the plain
-   version's, the bound and the rounds; (b) K1 at the PointNet++ searches
+   3072 -> 768 -> 192 -> 48) at B=16 and 48, and at 40960 -> 10240,
+   clouds with an all-pad cloud and one with fewer valid points than m;
+   the x-sorted bench subtiles (B=48, 12288 -> 3072, as predict's sa1 takes them)
+   and a mask that is no prefix; each case's route from the wrapper's rule
+   (``cuda_fps.route``), the card's time with the host ahead and the us a
+   round, the plain version's time, the bound and the rounds; (b) K1 at the PointNet++ searches
    (B=48, full scans): the K=32 ball queries and the k=3 feature
    propagation searches, bit-equal and timed; (c) ``Model.interp_step`` at
    the bench shape (B=48, N=12288, M=32768; x-sorted subtiles in
@@ -134,7 +139,8 @@ PyTorch built for CUDA. Phases, one line each:
    >= 0.999), ms per batch, Mpts/s, host enqueue, launches per step (K1 8,
    K3 1, K8 4) and a profile; (d) the train step at B=16, N=12288: the
    gradient's cosine against the plain path (>= 0.999), ms per step, peak
-   memory, launches per step (K1 8, K4 8, K8 4); then ``Trainer.fit`` with
+   memory, launches per step (K1 8, K4 8, K8 4) and a profile (both
+   profiles give K8's device ms per step wherever it ranks); then ``Trainer.fit`` with
    ``model=pointnet2_model`` on the toy-tile subtiles (20 steps; the loss
    must fall) and ``predict()`` with its checkpoint on the card and on the
    CPU: GT accuracy within 0.02 and class maps agreeing >= 0.999;
@@ -405,10 +411,10 @@ def phase_device():
 # kernels that must have no stack frame, local memory or spills, and how
 # many instantiations each family has: K1/K3/K7 (topk.cuh's search), K2 and
 # K6 (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows),
-# K5 and K8 (points a thread)
+# K5 and K8 (points a thread: cuda_fps.PTS)
 CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "knn_topk_mxu_kernel<": 3,
                  "lfa_kernel<": 6, "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2,
-                 "relstats_kernel<": 2, "fps_kernel<": 6}
+                 "relstats_kernel<": 2, "fps_kernel<": 8}
 
 
 def phase_build():
@@ -439,6 +445,20 @@ def phase_build():
             print(f"phase 2 {name} C={c}: {info['points_per_tile']} points a tile, "
                   f"{info['bands']} d(att_w) band(s), dynamic shared memory "
                   f"{info['smem_bytes']} B, {info['blocks_per_sm']} block(s) per SM")
+    import torch
+
+    from myria3d_tpu_torch.ops import cuda_fps
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, n, _, label in fps_cases():
+        rt = cuda_fps.route(b, n, sms)
+        u = usage[f"fps_kernel<{rt.pt}>"]
+        fits = cuda_fps.max_active_clusters(rt)
+        print(f"phase 2 K8 B={b} n={n} {label}: fps_kernel<{rt.pt}> ({u.get('reg')} registers), "
+              f"{rt.threads} threads, cluster of {rt.cluster}, skip {int(rt.skip)}; "
+              f"{fits} clusters at once for {b}")
+        need(fits >= b, f"K8 B={b} n={n}: {fits} clusters of the route {tuple(rt)} fit at once, "
+             f"fewer than the batch's {b}")
 
 
 def check_k1(idx_k, d2_k, idx_p, d2_p, what: str) -> float:
@@ -651,46 +671,57 @@ def phase_step(model, dev):
     print(f"phase 5 profile: {profile_steps(step)}")
 
 
-def profile_steps(step, reps: int = 3) -> str:
-    """Device time per step by kernel and the device's idle share between
-    the first and the last device activity of a ``torch.profiler`` trace of
-    ``reps`` steps; "not measured" with the reason if the trace holds no
-    device activity (the profile reports, it does not decide the run)."""
+def device_profile(step, reps: int = 3):
+    """A ``torch.profiler`` trace of ``reps`` steps after one untraced
+    step: the device's busy ms per step, the window between its first and
+    last activity (ms per step), and by kernel name the device ms per step
+    and the launches traced (a trace at times misses a launch: the count
+    shows it). Raises if the trace holds no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    try:
-        step()
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                step()
-            torch.cuda.synchronize()
-        spans, by_name = [], {}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            t0, t1 = ev.time_range.start, ev.time_range.end
-            spans.append((t0, t1))
-            name = ev.name.split("(")[0].replace("void ", "").replace("m3d::", "")
-            by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3 / reps
-    except Exception as e:  # noqa: BLE001 - a profiler fault leaves the numbers unmeasured
-        return f"not measured ({type(e).__name__}: {e})"
-    if not spans:
-        return "not measured (no device activity in the trace)"
-    spans.sort()
-    busy, end = 0.0, spans[0][0]
-    for t0, t1 in spans:
+    events = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                    if ev.device_type == DeviceType.CUDA)
+    if not events:
+        raise RuntimeError("no device activity in the trace")
+    by_name, count = {}, {}
+    for t0, t1, name in events:
+        name = name.split("(")[0].replace("void ", "").replace("m3d::", "")
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3 / reps
+        count[name] = count.get(name, 0) + 1
+    busy, end = 0.0, events[0][0]
+    for t0, t1, _ in events:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    window = end - spans[0][0]
+    return busy / 1e3 / reps, (end - events[0][0]) / 1e3 / reps, by_name, count
+
+
+def profile_steps(step, reps: int = 3, keep: tuple = ()) -> str:
+    """``device_profile`` as text: the device's idle share, the ten kernels
+    that take most of a step, and every kernel whose name starts with one
+    of ``keep`` (summed under that prefix, with the launches traced)
+    wherever it ranks; "not measured" with the reason if there is no trace
+    (the profile reports, it does not decide the run)."""
+    try:
+        busy, window, by_name, count = device_profile(step, reps)
+    except Exception as e:  # noqa: BLE001 - a profiler fault leaves the numbers unmeasured
+        return f"not measured ({type(e).__name__}: {e})"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     rest = sum(v for _, v in top[10:])
-    return (f"{reps} steps, device busy {busy / 1e3 / reps:.2f} ms/step of a "
-            f"{window / 1e3 / reps:.2f} ms/step window, idle {100 * (1 - busy / window):.2f} %; "
-            "ms/step by kernel: " + ", ".join(f"{n} {v:.3f}" for n, v in top[:10])
-            + f", other {rest:.3f}")
+    kept = [f"{k}* {sum(v for n, v in by_name.items() if n.startswith(k)):.3f} ("
+            f"{sum(v for n, v in count.items() if n.startswith(k))} launches traced)"
+            for k in keep]
+    return (f"{reps} steps, device busy {busy:.2f} ms/step of a {window:.2f} ms/step window, "
+            f"idle {100 * (1 - busy / window):.2f} %; ms/step by kernel: "
+            + ", ".join(f"{n} {v:.3f}" for n, v in top[:10]) + f", other {rest:.3f}"
+            + "".join(f"; {k}" for k in kept))
 
 
 def train_batch(b: int, seed: int = 0):
@@ -843,6 +874,15 @@ def phase_train_kernels(dev):
         e = locse(p, gather_rows(p, idx)) @ w_e.T + b_e
         two_pass = masked_var(e, nv[..., None], dim=(0, 1, 2))
         var_err = scale_err(var, two_pass, TOL["var"], "K5 variance vs two-pass")
+        # the fused route's variance (raw moments, f32 covariance) against
+        # the float64 two-pass variance of the same encoder outputs
+        e64 = locse(p.double(), gather_rows(p, idx).double()) @ w_e.double().T + b_e.double()
+        var64 = masked_var(e64, nv[..., None], dim=(0, 1, 2))
+        gap = (var.double() - var64).abs()
+        print(f"phase 6 K5 N={n} fused-route BN variance vs float64 two-pass: max abs gap "
+              f"{float(gap.max()):.3g} of {float(var64.abs().max()):.3g}, largest relative gap "
+              f"{float((gap / var64.clamp(min=1e-30)).max()):.3g} (f32 two-pass: "
+              f"{float((two_pass.double() - var64).abs().max()):.3g})")
         # per valid slot: the 10 rel features (~20) and 66 product sums
         bnd = bound(float(nv.sum()) * (20 + 66), nbytes(p, idx, nv, got))
         record("K5", f"N={n} (window {w}; variance vs two-pass {var_err:.3g} of "
@@ -1827,6 +1867,27 @@ def fps_clouds(b: int, n: int, m: int, seed: int = 0):
     return pos, mask
 
 
+def fps_scattered_clouds(b: int, n: int, m: int, seed: int = 0):
+    """(pos, mask) as :func:`fps_clouds`, but the valid points scattered
+    over the slots (a mask that is no prefix): cloud 0 all pads, cloud 1
+    with ``m // 2`` valid points, the others ~70 % valid."""
+    pos, _ = fps_clouds(b, n, m, seed)
+    rng = np.random.default_rng(seed + 1)
+    mask = rng.random((b, n)) < 0.7
+    mask[0] = False
+    mask[1] = False
+    mask[1, rng.choice(n, max(1, m // 2), replace=False)] = True
+    return pos, mask
+
+
+def fps_sorted_clouds(seed: int = 0):
+    """(pos, mask) of the B=48 bench subtiles' sampled clouds, x-sorted as
+    ``SortPointsByX`` leaves the sa1 input of predict and test, in
+    normalized units."""
+    _, pos, mask, _, _ = bench_subtiles(seed)
+    return normalized(pos), mask
+
+
 def fps_bound(mask, m: int):
     """K8's bound from the data: FPS_INSTR a valid point a round over each
     cloud's min(valid, m) - 1 updates, against reading the cloud and
@@ -1838,32 +1899,53 @@ def fps_bound(mask, m: int):
     return bound(instr, n_bytes), int(rounds.sum())
 
 
+def fps_cases():
+    """Phase 16a's K8 cases: (B, n, m, label), label "" for the uniform
+    clouds of ``fps_clouds``."""
+    cases = [(b, n, m, "") for b in (PN2_TRAIN_B, B) for n, m in FPS_SHAPES]
+    cases.append((PN2_TRAIN_B, *FPS_LARGE, ""))
+    cases.append((B, *FPS_SHAPES[0], "x-sorted"))
+    cases.append((B, *FPS_SHAPES[0], "non-prefix"))
+    return cases
+
+
 def phase_fps(dev):
     """16a: K8 bit-equal to its plain version at the set abstractions'
-    shapes (B=16 and 48) and past the register route; the card's time with
-    the host ahead, the plain version's, the bound and the rounds."""
+    shapes (B=16 and 48), at 40960 -> 10240, on the x-sorted bench
+    subtiles and on a mask that is no prefix; the route the wrapper's rule
+    takes, the card's time with the host ahead and per round, the plain
+    version's, the bound and the rounds."""
     import torch
 
+    from myria3d_tpu_torch.ops import cuda_fps
     from myria3d_tpu_torch.ops.cuda_fps import farthest_point_sampling_plain, fps
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    cases = [(b, n, m) for b in (PN2_TRAIN_B, B) for n, m in FPS_SHAPES]
-    cases.append((PN2_TRAIN_B, *FPS_LARGE))
-    for b, n, m in cases:
-        pos_np, mask_np = fps_clouds(b, n, m, seed=n + b)
+    for b, n, m, label in fps_cases():
+        if label == "x-sorted":
+            pos_np, mask_np = fps_sorted_clouds()
+        elif label == "non-prefix":
+            pos_np, mask_np = fps_scattered_clouds(b, n, m, seed=7)
+        else:
+            pos_np, mask_np = fps_clouds(b, n, m, seed=n + b)
+        what = f"K8 B={b} {n}->{m}{' ' + label if label else ''}"
         pos, mask = torch.from_numpy(pos_np).to(dev), torch.from_numpy(mask_np).to(dev)
         idx_k, nm_k = fps(pos, mask, m)
         idx_p, nm_p = farthest_point_sampling_plain(pos, mask, m)
-        need(bool(torch.equal(nm_k, nm_p)), f"K8 B={b} {n}->{m}: masks differ")
-        need(bool(torch.equal(idx_k, idx_p)), f"K8 B={b} {n}->{m}: indices differ at "
+        need(bool(torch.equal(nm_k, nm_p)), f"{what}: masks differ")
+        need(bool(torch.equal(idx_k, idx_p)), f"{what}: indices differ at "
              f"{int((idx_k != idx_p).sum())} slots")
         ms = cuda_ms(lambda: fps(pos, mask, m), 5, ahead=True)
         plain_ms = cuda_ms(lambda: farthest_point_sampling_plain(pos, mask, m), 1, warmup=0)
         bnd, rounds = fps_bound(mask_np, m)
-        route = "registers" if n <= 12 * 1024 else "shared memory"
-        print(f"phase 16a K8 B={b} {n}->{m} ({route}): bit-equal, {ms:.3f} ms, plain "
-              f"{plain_ms:.1f} ms, {rounds} rounds, {bounds_text(bnd)}")
-        if b == B and (n, m) in FPS_SHAPES:
+        chain = int(min(mask_np.sum(1).max(), m))    # the longest cloud's rounds
+        rt = cuda_fps.route(b, n, sms)
+        print(f"phase 16a {what} (route: {rt.threads} threads x {rt.pt} points, cluster of "
+              f"{rt.cluster}, skip {int(rt.skip)}): bit-equal, {ms:.3f} ms, "
+              f"{1e3 * ms / max(chain, 1):.3f} us a round, plain {plain_ms:.1f} ms, "
+              f"{rounds} rounds, {bounds_text(bnd)}")
+        if b == B and (n, m) in FPS_SHAPES and not label:
             rows.append((0.0, ms, plain_ms, bnd, None))
     return rows
 
@@ -1923,10 +2005,11 @@ def pn2_model(dev, seed: int = 0):
     return build_model("PointNet2", dict(PN2_HPARAMS)).to(dev)
 
 
-def phase_pn2_predict_step(dev):
-    """16c: ``Model.interp_step`` of a full-width PointNet++ at the bench
-    shape (B=48, N=12288, M=32768; x-sorted subtiles in normalized units,
-    window 4608): kernel path against plain path."""
+def pn2_predict_step(dev):
+    """16c's step: a full-width PointNet++ ``Model.interp_step`` over the
+    x-sorted bench subtiles in normalized units (B=48, N=12288, M=32768,
+    window 4608), as predict runs it; returns the step and the full
+    clouds' mask."""
     import torch
 
     x, pos, mask, full_pos, full_mask = bench_subtiles(0)
@@ -1937,6 +2020,26 @@ def phase_pn2_predict_step(dev):
 
     def step():
         return model.interp_step(x, pos, mask, pos, full_pos, full_mask)
+
+    return step, full_mask
+
+
+def pn2_train_batch(dev):
+    """16d's batch: ``bench.py --train``'s at B=16 in normalized units,
+    unsorted, as fit hands it to the net."""
+    import torch
+
+    x, pos, y, mask = train_batch(PN2_TRAIN_B)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, pos / 25.0, y, mask))
+
+
+def phase_pn2_predict_step(dev):
+    """16c: ``Model.interp_step`` of a full-width PointNet++ at the bench
+    shape (B=48, N=12288, M=32768; x-sorted subtiles in normalized units,
+    window 4608): kernel path against plain path."""
+    import torch
+
+    step, full_mask = pn2_predict_step(dev)
 
     counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K3", "K8")}
     step()
@@ -1968,7 +2071,7 @@ def phase_pn2_predict_step(dev):
     print(f"phase 16c PointNet++ predict step B={B} N={N} M={M}: kernels {ms:.1f} ms/batch "
           f"({B * RAW / ms / 1e3:.3f} Mpts/s), plain {plain_ms:.1f} ms/batch, argmax agreement "
           f"{agree:.6f}, launches per step {per_step}; host enqueue {host_ms:.1f} ms/step")
-    print(f"phase 16c profile: {profile_steps(step)}")
+    print(f"phase 16c profile: {profile_steps(step, keep=('fps_kernel',))}")
     return launches
 
 
@@ -1978,8 +2081,7 @@ def phase_pn2_train_step(dev):
     path's, ms per step, peak memory and the launches per step."""
     import torch
 
-    x, pos, y, mask = train_batch(PN2_TRAIN_B)
-    x, pos, y, mask = (torch.from_numpy(a).to(dev) for a in (x, pos / 25.0, y, mask))
+    x, pos, y, mask = pn2_train_batch(dev)
     counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K4", "K8")}
 
     def grads(model):
@@ -2016,6 +2118,11 @@ def phase_pn2_train_step(dev):
     print(f"phase 16d PointNet++ train step B={PN2_TRAIN_B} N={TRAIN_N}: {ms:.1f} ms/step "
           f"({PN2_TRAIN_B * TRAIN_N / ms / 1e3:.3f} Mpts/s), peak {peak:.2f} GiB, gradient "
           f"cosine kernel/plain {cos:.6f}, launches per step {per_step}")
+
+    def step():
+        return model.train_step(x, pos, y, mask, torch.Generator(device=dev).manual_seed(0))
+
+    print(f"phase 16d profile: {profile_steps(step, keep=('fps_kernel',))}")
     return launches
 
 

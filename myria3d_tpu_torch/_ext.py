@@ -53,7 +53,8 @@ _SIGNATURES = {
     "m3d_reduce_chunks": [_P, _I, _I, _I, _I, _P, _P],
     "m3d_lfa_bwd": [_P] * 9 + [_I] * 5 + [_P] * 4,
     "m3d_lfa_bwd_info": [_I, _P],
-    "m3d_fps": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "m3d_fps": [_P, _P] + [_I] * 7 + [_P, _P, _P],
+    "m3d_fps_max_clusters": [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -169,17 +169,26 @@ class Model(nn.Module):
         loss is the mean of the chunks' and each chunk's gradient enters
         scaled by 1 / k. The net routes each chunk by the chunk's batch
         (``fused_train_lfa: auto``): B=32 at mb=16 takes the fused route,
-        B=16 at mb=8 the unfused one. Any other B is the monolithic step.
+        B=16 at mb=8 the unfused one. Any other B is the monolithic step
+        (in one process).
 
         Under DDP (``data_parallel``, set by ``parallel.ParallelSteps``) the
         forward runs through the DDP wrapper, the loss and the running stats
         take that step's reductions, and only the backward that completes an
         accumulation group (its last chunk) all-reduces the gradients: the
-        others run under ``no_sync``. Chunks are the rank's own rows."""
+        others run under ``no_sync``. The chunks are ``ParallelSteps.chunks``':
+        under sync BN, chunk i of the global batch is rows ``[i mb / world,
+        (i + 1) mb / world)`` of every rank, so its moments span mb clouds as
+        the JAX step's chunks of the global batch do (a shape that cannot map
+        so raises ``ValueError``); under local BN the rank's own chunks."""
         self.net.train()
         b, mb = x.shape[0], self.grad_microbatch
-        k = b // mb if 0 < mb < b and b % mb == 0 else 1
         par = self.data_parallel
+        if par is None:
+            k = b // mb if 0 < mb < b and b % mb == 0 else 1
+            mb = b // k
+        else:
+            mb, k = par.chunks(b, mb)
         net = self.net if par is None else par.ddp
         if par is not None:
             par.begin(mask)

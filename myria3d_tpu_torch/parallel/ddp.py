@@ -352,7 +352,29 @@ class ParallelSteps:
         self._wrap()
         return self.model.train_step(x, pos, y, mask, generator)
 
-    # the model's grad step calls these three under DDP
+    # the model's grad step calls these four under DDP
+
+    def chunks(self, rows: int, mb: int):
+        """(rows a chunk, chunks) of a rank's ``rows`` under
+        ``grad_microbatch`` ``mb``. Sync BN chunks the global batch of
+        ``rows * world`` clouds as the JAX step does (``model.py:277-321``
+        under GSPMD): k = rows * world / mb chunks, chunk i made of rows
+        ``[i mb / world, (i + 1) mb / world)`` of every rank, one step when
+        mb >= the global batch; a shape that cannot map so raises
+        ``ValueError`` before the step runs. Local BN chunks each rank's own
+        rows (the JAX local-BN step microbatches each shard)."""
+        world = world_size()
+        if not self.sync_bn:
+            k = rows // mb if 0 < mb < rows and rows % mb == 0 else 1
+            return rows // k, k
+        if mb <= 0 or rows * world <= mb:
+            return rows, 1
+        if mb % world or rows % (mb // world):
+            raise ValueError(
+                f"grad_microbatch={mb} under sync BN needs chunks of mb / world rows a rank "
+                f"that divide its rows: world size {world}, batch of {rows} rows a rank "
+                f"({rows * world} in all)")
+        return mb // world, rows * world // mb
 
     def begin(self, mask: torch.Tensor) -> None:
         """Local BN: this rank's weight ``w`` (1 when it holds a real point)

@@ -247,6 +247,8 @@ class Trainer:
         if self.par is None:
             return
         if ddp.is_initialized():
+            if train:   # a grad_microbatch that cannot map raises here, before any step
+                self.par.chunks(batch_size, model.grad_microbatch)
             if train and ddp.is_rank_zero():
                 log.info(f"Data-parallel over {ddp.world_size()} ranks (batch {batch_size} a "
                          f"rank, {'sync' if self.cfg.sync_batchnorm else 'local'}-BN)")

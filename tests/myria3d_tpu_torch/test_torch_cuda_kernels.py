@@ -18,9 +18,10 @@ attention products in 3xTF32, which keeps them at f32 grade
 version's association and ranking, so indices and d2 are equal, whatever
 order its scan takes the keys in and wherever it stops among the virtual
 pad rows. K8 (farthest-point sampling) sums in its plain version's association
-and breaks ties as it does, so indices and masks are equal, on both of its
-routes (registers up to 12288 points, shared memory beyond); a PointNet++
-train step launches K1, K4 and K8.
+and breaks ties as it does, so indices and masks are equal, on every route
+(1 to 12 points a thread, clusters of 1 to 8 CTAs, with and without the
+box skip), on masks that are no prefix, duplicate points, x-sorted and
+unsorted clouds; a PointNet++ train step launches K1, K4 and K8.
 """
 
 import numpy as np
@@ -545,33 +546,118 @@ def test_microbatched_step_runs_its_kernels(cuda_device):
         assert float((t - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-# (B, N, m): each register instantiation (1, 2, 4, 8 and 12 points a
-# thread), a cloud past it (shared memory), and clouds with exact ties
-FPS_CASES = [(3, 700, 175), (3, 1500, 375), (2, 4000, 1000), (2, 8192, 2048),
-             (2, 12288, 3072), (2, 20000, 5000)]
+# (B, N, m): each instantiation the route rule takes (1 to 14 points a
+# thread, clusters of 1 to 8 CTAs), the largest bucket and the largest cloud
+FPS_CASES = [(3, 150, 40), (3, 700, 175), (3, 1500, 375), (2, 4000, 1000), (2, 8192, 2048),
+             (2, 12288, 3072), (2, 20000, 5000), (2, 30000, 7500), (16, 40960, 10240),
+             (2, 49152, 1024)]
+
+
+def _fps_clouds(b, n, m, grid=None, prefix=True, seed=0):
+    """Cloud 0 all pads, cloud 1 with fewer valid points than m, pads
+    holding garbage; ``grid`` snaps positions to make exact ties;
+    ``prefix=False`` scatters the valid points over the slots."""
+    g = torch.Generator().manual_seed(n + seed)
+    pos = torch.rand((b, n, 3), generator=g) * 2 - 1
+    if grid:
+        pos = torch.round(pos / grid) * grid
+    if prefix:
+        counts = torch.tensor([0, m // 2] + [n - 7] * (b - 2))
+        mask = torch.arange(n)[None, :] < counts[:, None]
+    else:
+        mask = torch.rand((b, n), generator=g) < 0.7
+        mask[0] = False
+        mask[1] = False
+        mask[1, torch.randperm(n, generator=g)[:m // 2]] = True
+    pos[~mask] = 1e3
+    return pos, mask
+
+
+def _check_k8(pos, mask, m, route=None):
+    from myria3d_tpu_torch.ops import cuda_fps
+
+    before = fps.launches
+    if route is None:
+        idx, new_mask = fps(pos, mask, m)
+        assert fps.launches == before + 1
+    else:
+        idx, new_mask = cuda_fps.launch(pos, mask, m, route)
+    torch.cuda.synchronize()
+    want_idx, want_mask = farthest_point_sampling_plain(pos, mask, m)
+    assert torch.equal(new_mask, want_mask)
+    assert torch.equal(idx, want_idx)
+    return new_mask
 
 
 @pytest.mark.parametrize("b,n,m", FPS_CASES)
 @pytest.mark.parametrize("grid", [None, 0.05])
 def test_k8_matches_plain(cuda_device, b, n, m, grid):
-    """Cloud 0 all pads, cloud 1 with fewer valid points than m, pads
-    holding garbage; ``grid`` snaps positions to make exact ties."""
-    g = torch.Generator().manual_seed(n)
-    pos = torch.rand((b, n, 3), generator=g) * 2 - 1
-    if grid:
-        pos = torch.round(pos / grid) * grid
-    counts = torch.tensor([0, m // 2] + [n - 7] * (b - 2))
-    mask = torch.arange(n)[None, :] < counts[:, None]
-    pos[~mask] = 1e3
-    pos, mask = pos.to(cuda_device), mask.to(cuda_device)
-    before = fps.launches
-    idx, new_mask = fps(pos, mask, m)
-    torch.cuda.synchronize()
-    assert fps.launches == before + 1
-    want_idx, want_mask = farthest_point_sampling_plain(pos, mask, m)
-    assert torch.equal(new_mask, want_mask)
-    assert torch.equal(idx, want_idx)
-    assert new_mask.sum(1).tolist() == [0, m // 2] + [m] * (b - 2)
+    pos, mask = _fps_clouds(b, n, m, grid)
+    new_mask = _check_k8(pos.to(cuda_device), mask.to(cuda_device), m)
+    assert new_mask.sum(1).tolist() == [0, m // 2] + [min(m, n - 7)] * (b - 2)
+
+
+@pytest.mark.parametrize("b,n,m", [(3, 1500, 375), (4, 12288, 3072), (16, 40960, 10240)])
+def test_k8_matches_plain_on_a_mask_that_is_no_prefix(cuda_device, b, n, m):
+    pos, mask = _fps_clouds(b, n, m, prefix=False)
+    _check_k8(pos.to(cuda_device), mask.to(cuda_device), m)
+
+
+@pytest.mark.parametrize("repeat", [2, 8])
+def test_k8_matches_plain_on_duplicate_points(cuda_device, repeat):
+    """Every point repeated, so that once the distinct ones run out every
+    round ties at 0, and a cloud of one position."""
+    g = torch.Generator().manual_seed(repeat)
+    n, m = 6144, 3072
+    base = torch.rand((3, n // repeat, 3), generator=g) * 2 - 1
+    pos = base.repeat_interleave(repeat, dim=1)[:, torch.randperm(n, generator=g)]
+    pos[2] = 0.5
+    mask = torch.ones((3, n), dtype=torch.bool)
+    _check_k8(pos.contiguous().to(cuda_device), mask.to(cuda_device), m)
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_k8_matches_plain_on_x_sorted_and_unsorted_clouds(cuda_device, sort):
+    """Clouds shaped as subtiles (50 m by 50 m by 10 m in normalized
+    units), x-sorted as ``SortPointsByX`` leaves sa1's input, or not: the
+    box skip takes the sorted ones."""
+    g = torch.Generator().manual_seed(11)
+    b, n, m = 8, 12288, 3072
+    pos = torch.rand((b, n, 3), generator=g) * torch.tensor([2.0, 2.0, 0.4]) - 1
+    if sort:
+        pos = pos.gather(1, pos[..., 0].argsort(dim=1)[..., None].expand(-1, -1, 3))
+    mask = torch.arange(n)[None, :] < torch.tensor([n, n - 1000, 5000, 3000, n, n, 100, n])[:, None]
+    _check_k8(pos.contiguous().to(cuda_device), mask.to(cuda_device), m)
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+@pytest.mark.parametrize("skip", [False, True])
+def test_k8_matches_plain_on_every_cluster_size(cuda_device, cluster, skip):
+    """One cloud split over 1 to 8 CTAs, with and without the box skip, the
+    threads and points a thread as the rule sizes a CTA's share."""
+    from myria3d_tpu_torch.ops import cuda_fps
+
+    b, n, m = 4, 6144, 1536
+    share = -(-n // cluster)
+    threads = min(cuda_fps.MAX_THREADS, max(32, cuda_fps._pow2_at_least(-(-share // 6))))
+    pt = next(p for p in cuda_fps.PTS if threads * p >= share)
+    pos, mask = _fps_clouds(b, n, m, grid=0.05)
+    _check_k8(pos.to(cuda_device), mask.to(cuda_device), m,
+              cuda_fps.Route(threads, pt, cluster, skip))
+
+
+def test_k8_routes_every_cluster_resident(cuda_device):
+    """At each of phase 16a's shapes, B=16 at 40960 points included, every
+    cluster the rule asks for fits on the card at once
+    (``cudaOccupancyMaxActiveClusters``): no cloud waits for a second
+    wave."""
+    from myria3d_tpu_torch.ops import cuda_fps
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for b, n in [(16, 12288), (48, 12288), (16, 3072), (48, 3072), (16, 768), (48, 768),
+                 (16, 192), (48, 192), (16, 40960)]:
+        rt = cuda_fps.route(b, n, sms)
+        assert cuda_fps.max_active_clusters(rt) >= b, (b, n, rt)
 
 
 def test_k8_refuses_clouds_past_its_limit(cuda_device):

@@ -56,6 +56,44 @@ def test_plain_fps_matches_jax(case):
     assert new_mask.sum(1).tolist() == [m, m // 2, 0]
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_fps_matches_jax_on_a_mask_that_is_no_prefix(seed):
+    """Valid points scattered over the slots (about 70 %, the first slot a
+    pad), clouds with fewer valid points than m and none at all."""
+    rng = np.random.default_rng(seed)
+    b, n, m = 4, 900, 200
+    pos = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    mask = rng.random((b, n)) < 0.7
+    mask[:, 0] = False
+    mask[2] = False
+    mask[2, rng.choice(n, m // 3, replace=False)] = True
+    mask[3] = False
+    pos[~mask] = rng.uniform(-1e3, 1e3, (int((~mask).sum()), 3))
+    want_idx, want_mask = jax_fps(jnp.asarray(pos), jnp.asarray(mask), m)
+    idx, new_mask = farthest_point_sampling_plain(torch.from_numpy(pos), torch.from_numpy(mask), m)
+    np.testing.assert_array_equal(new_mask.numpy(), np.asarray(want_mask))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    assert new_mask.sum(1).tolist() == [m, m, m // 3, 0]
+    assert mask[np.arange(b)[:, None], idx.numpy()][new_mask.numpy()].all()
+
+
+def test_plain_fps_matches_jax_on_duplicate_points():
+    """Every point repeated (and a cloud of one position): after the
+    distinct points run out, every round ties at 0 and the lower index
+    wins on both sides."""
+    rng = np.random.default_rng(3)
+    b, n, m = 3, 600, 400
+    base = rng.uniform(-1, 1, (b, n // 4, 3)).astype(np.float32)
+    pos = np.repeat(base, 4, axis=1)[:, rng.permutation(n)]
+    pos[2] = 0.25
+    mask = np.ones((b, n), bool)
+    mask[1, ::3] = False
+    want_idx, want_mask = jax_fps(jnp.asarray(pos), jnp.asarray(mask), m)
+    idx, new_mask = farthest_point_sampling_plain(torch.from_numpy(pos), torch.from_numpy(mask), m)
+    np.testing.assert_array_equal(new_mask.numpy(), np.asarray(want_mask))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+
+
 def test_fps_wrapper_takes_the_plain_version_on_the_cpu():
     pos, mask = _clouds(4, n=300, m=75)
     # a non-contiguous view: the op makes it contiguous
@@ -65,6 +103,61 @@ def test_fps_wrapper_takes_the_plain_version_on_the_cpu():
     want = farthest_point_sampling_plain(torch.from_numpy(pos), torch.from_numpy(mask), 75)
     assert torch.equal(idx, want[0]) and torch.equal(new_mask, want[1])
     assert cuda_fps.fps.launches == before
+
+
+# phase 16a's shapes on the H100's 132 SMs: (B, n) -> (threads, points a
+# thread, cluster size, skip), the fastest measured route at each of those
+# whose clusters all fit on the card at once (scripts/tune_fps.py, PERF.md)
+H100_SMS = 132
+PHASE_16A_ROUTES = {
+    (16, 12288): (256, 12, 4, True), (48, 12288): (256, 12, 4, True),
+    (16, 3072): (128, 6, 4, False), (48, 3072): (128, 6, 4, False),
+    (16, 768): (128, 6, 1, False), (48, 768): (128, 6, 1, False),
+    (16, 192): (32, 6, 1, False), (48, 192): (32, 6, 1, False),
+    (16, 40960): (512, 14, 6, True),
+}
+# cudaOccupancyMaxActiveClusters of those routes on the H100 (chip_smoke.py
+# phase 2); clusters of seven or eight 512-thread CTAs fit only 15 at once
+H100_CLUSTERS_AT_ONCE = {(256, 12, 4): 62, (128, 6, 4): 186, (128, 6, 1): 792, (32, 6, 1): 1056,
+                         (512, 14, 6): 17, (512, 12, 7): 15, (512, 12, 8): 15}
+
+
+@pytest.mark.parametrize("b,n", sorted(PHASE_16A_ROUTES))
+def test_route_rule_at_the_phase_16a_shapes(b, n):
+    assert tuple(cuda_fps.route(b, n, H100_SMS)) == PHASE_16A_ROUTES[(b, n)]
+
+
+@pytest.mark.parametrize("b,n", sorted(PHASE_16A_ROUTES))
+def test_route_rule_keeps_every_cluster_resident_at_the_phase_16a_shapes(b, n):
+    """No cloud of a phase 16a batch waits for a second wave: the batch's
+    clusters are at most what the H100 holds at once of the route."""
+    rt = cuda_fps.route(b, n, H100_SMS)
+    assert b <= H100_CLUSTERS_AT_ONCE[(rt.threads, rt.pt, rt.cluster)], (b, n, rt)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 48, 200])
+@pytest.mark.parametrize("sms", [16, 132])
+def test_route_rule_holds_every_cloud_size(b, sms):
+    """Every n up to MAX_N gets a route the kernel takes: threads a multiple
+    of 32 up to 512, an instantiated count of points a thread, a portable
+    cluster (1 to 8 CTAs) that holds the cloud, shared memory within the
+    H100's 227 KB a CTA; more SMs never give fewer CTAs a cloud."""
+    for n in list(range(1, 200)) + list(range(200, cuda_fps.MAX_N + 1, 97)) + [cuda_fps.MAX_N]:
+        rt = cuda_fps.route(b, n, sms)
+        assert rt.threads % 32 == 0 and 32 <= rt.threads <= cuda_fps.MAX_THREADS, (n, rt)
+        assert rt.pt in cuda_fps.PTS and 1 <= rt.cluster <= cuda_fps.MAX_CLUSTER, (n, rt)
+        assert rt.threads * rt.pt * rt.cluster >= n, (n, rt)
+        slots = rt.cluster * rt.threads // 32
+        assert rt.threads * rt.pt * 16 + 2 * slots * 24 + 16 <= 232448, (n, rt)
+        assert rt.skip == (n > cuda_fps.LARGE)
+        assert cuda_fps.route(b, n, 4 * sms).cluster >= rt.cluster
+        if rt.cluster > 1 and b * rt.cluster > cuda_fps.CTAS_PER_SM * sms:
+            assert (rt.cluster // 2) * cuda_fps.CTA_POINTS_MOST < n, (n, rt)
+
+
+def test_route_rule_refuses_clouds_past_the_kernel():
+    with pytest.raises(ValueError, match="exceed"):
+        cuda_fps.route(1, cuda_fps.MAX_N + 1, H100_SMS)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mask", "m"])
