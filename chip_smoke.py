@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port's predict, train, test and
-finetune paths, its two nets and its parity harness (one NVIDIA GPU).
+finetune paths, its two nets in f32 and 16-bit compute, and its parity
+harness (one NVIDIA GPU).
 
     python3 chip_smoke.py
 
@@ -11,8 +12,9 @@ PyTorch built for CUDA. Phases, one line each:
 2. the kernels built from ``myria3d_tpu_torch/csrc`` (nvcc, sm_90a), and
    each kernel's registers, stack frame and spill bytes (``cuobjdump
    --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3/K7
-   instantiation (K7: K = 1, 16 and the generic 32), every width's K2/K6
-   instantiation, every K4 instantiation, K5 and every K8 instantiation
+   instantiation (K7: K = 1, 16 and the generic 32), every width's K2
+   (f32, and K2_16's bfloat16 and float16 x) and K6 instantiation, every
+   K4 instantiation, K5 and every K8 instantiation
    (1, 2, 3, 4, 6, 8, 12 and 14 points a thread in registers) must have
    neither a stack frame, local memory nor spills; K2's and K6's dynamic
    shared memory and blocks per SM at each width; K8's routes at phase
@@ -144,14 +146,41 @@ PyTorch built for CUDA. Phases, one line each:
    ``model=pointnet2_model`` on the toy-tile subtiles (20 steps; the loss
    must fall) and ``predict()`` with its checkpoint on the card and on the
    CPU: GT accuracy within 0.02 and class maps agreeing >= 0.999;
+15b. PointNet++ (full width) on two gloo ranks sharing the card, B=16
+   split 8/8: one DDP grad step with sync BN against the one-process step
+   and with local BN against the mean of the halves' steps, phase 15 (a)'s
+   bars, then each rank's ms per train step;
 17. the parity harness (``parity.run_parity``) on the toy tile with a
    synthetic Lightning checkpoint on the card and on the CPU: class-map
    agreement >= 0.999 and mIoU within 0.01 (RandLA-Net's decimation made
-   deterministic in both runs), K1 and K2 launched on the card.
+   deterministic in both runs), K1 and K2 launched on the card;
+18. the compute dtype: (a) K2_16, K2 reading bfloat16 and float16
+   features, against its plain version on the same values widened to f32
+   (within 1e-4 of scale) at the predict stage shapes, timed beside K2's
+   f32 instantiation on those values, its bound with 2-byte x rows; (b)
+   the RandLA-Net predict step (toy checkpoint) and (c) the PointNet++ one
+   at the bench shape in f32 and bf16 (turns f32, bf16, bf16, f32): ms per
+   batch, Mpts/s, argmax agreement bf16/f32 >= 0.99; (d) the train step of
+   both families at B=16, N=12288 in f32 and bf16 from the same weights:
+   ms per step, peak memory, the losses, the gradient cosine bf16/f32 (>=
+   0.99 for RandLA-Net; for PointNet++ at least the JAX package's own bf16
+   step's at B=4, ``scripts/bf16_gradient_reference.py``; ``DTYPE_COS``)
+   and the launches (bf16 RandLA-Net takes the
+   unfused route: no K5, no K6); (e) ``predict()`` on the toy tile with
+   ``predict.compute_dtype=bfloat16``, K2_16's main path: K1, K2_16 and K3
+   launched, K2's f32 instantiation not, GT accuracy within 0.02 of the CPU
+   plain path's;
+19. ``return_logits: false`` through ``predict()`` on the toy tile against
+   the logits run: probabilities within 1e-3, the class map equal but at
+   near-ties (top two within 2e-3), on at least 0.999 of the points; the
+   RandLA-Net train step at B=16 with ``remat: true`` against ``false``:
+   gradients within 1e-6 of the net's largest, BN running stats equal, ms
+   per step and peak memory of both.
 
-Phases 11-17 each set the launch counts to 0 before their path and read
+Phases 11-19 each set the launch counts to 0 before their path and read
 them after it; the kernels line's K8 launches are phase 16's predict and
-train steps'.
+train steps', K2_16's phase 18e's. Every number of phases 15b, 18 and 19
+is printed beside the card's name and power limit.
 
 Every kernel line of phases 3, 6 and 9 carries ``bound_ms``: the larger of
 the bytes its call must move (inputs read once, outputs written once) over
@@ -164,6 +193,8 @@ and the rest at the FP32 rate; it is the bound they are held to in the
 kernels line, as they run those products on the tensor cores. K4's
 carries ``library_ms``, the time of ``index_add_`` of the cotangent rows.
 Then one JSON line with the kernels and, last, the device JSON line.
+K2_16 has its own entry in the kernels line (phase 18a's times at bf16,
+the bound with 2-byte x rows); K2's stays its f32 instantiation.
 Any failure, a missing CUDA device, or a module of JAX or of the JAX
 package loaded during the run exits nonzero without a result.
 """
@@ -409,11 +440,12 @@ def phase_device():
 
 
 # kernels that must have no stack frame, local memory or spills, and how
-# many instantiations each family has: K1/K3/K7 (topk.cuh's search), K2 and
+# many instantiations each family has: K1/K3/K7 (topk.cuh's search), K2 (one
+# per width and x's element type: f32, and bfloat16 / float16 for K2_16) and
 # K6 (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows),
 # K5 and K8 (points a thread: cuda_fps.PTS)
 CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "knn_topk_mxu_kernel<": 3,
-                 "lfa_kernel<": 6, "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2,
+                 "lfa_kernel<": 18, "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2,
                  "relstats_kernel<": 2, "fps_kernel<": 8}
 
 
@@ -445,6 +477,11 @@ def phase_build():
             print(f"phase 2 {name} C={c}: {info['points_per_tile']} points a tile, "
                   f"{info['bands']} d(att_w) band(s), dynamic shared memory "
                   f"{info['smem_bytes']} B, {info['blocks_per_sm']} block(s) per SM")
+    for c in WIDTHS:
+        # lfa_kernel<C, P, NT, DEPTH, XT>: XT 0 f32 (K2), 1 bfloat16, 2 float16
+        regs = {name: u.get("reg") for name, u in usage.items()
+                if name.startswith(f"lfa_kernel<{c},")}
+        print(f"phase 2 K2 and K2_16 C={c}: registers {regs}")
     import torch
 
     from myria3d_tpu_torch.ops import cuda_fps
@@ -572,13 +609,14 @@ def launch_counters():
     from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, inverse_map
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp
     from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu
-    from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention
+    from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention, lfa_attention_x16
     from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train_bwd, rel_stats
 
     # K4 counts its kernel's every launch: the gathers' VJP and K6's dx
-    # scatter; inverse_map is K4's map, built by the kernels beside it
-    return {"K1": knn_topk, "K2": lfa_attention, "K3": knn_interp, "K4": gather_bwd,
-            "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu, "K8": fps,
+    # scatter; inverse_map is K4's map, built by the kernels beside it; K2
+    # counts its f32 instantiations, K2_16 its bfloat16 and float16 ones
+    return {"K1": knn_topk, "K2": lfa_attention, "K2_16": lfa_attention_x16, "K3": knn_interp,
+            "K4": gather_bwd, "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu, "K8": fps,
             "inverse_map": inverse_map}
 
 
@@ -1583,13 +1621,18 @@ def synchronize(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def dp_model(state, dev):
-    """Phase 15's net from ``state`` (no dropout) with a fresh optimizer."""
+def dp_model(state, dev, name: str = "RandLANet"):
+    """Phase 15's net (15b's PointNet++ for ``name`` "PointNet2") from
+    ``state`` (no dropout) with a fresh optimizer."""
     from myria3d_tpu_torch.models.model import build_model
 
-    model = build_model("RandLANet", DP_HPARAMS, lr=0.001)
+    pn2 = name == "PointNet2"
+    model = build_model(name, PN2_HPARAMS if pn2 else DP_HPARAMS, lr=0.001)
     model.net.load_state_dict(state, strict=True)
-    model.net.mlp_classif.dropout = [0.0, 0.0]
+    if pn2:
+        model.net.head.dropout = [0.0]
+    else:
+        model.net.mlp_classif.dropout = [0.0, 0.0]
     model.to(dev)
     model.init_train_state()
     return model
@@ -1601,10 +1644,11 @@ def dp_grads(model):
             {k: b.detach().cpu().clone() for k, b in model.net.named_buffers()})
 
 
-def dp_step_rank(out: str, state, batch, modes):
-    """A rank of phase 15 (a) and (b): for each BN mode, one DDP grad step on
-    this rank's rows (loss, gradients, BN buffers, launches), then
-    ``DP_REPS`` timed train steps and the bytes all-reduced a step."""
+def dp_step_rank(out: str, state, batch, modes, name: str = "RandLANet"):
+    """A rank of phase 15 (a), (b) and 15b (``name``'s net): for each BN
+    mode, one DDP grad step on this rank's rows (loss, gradients, BN
+    buffers, launches), then ``DP_REPS`` timed train steps and the bytes
+    all-reduced a step."""
     import torch
 
     from myria3d_tpu_torch.parallel import ParallelSteps, ddp
@@ -1615,7 +1659,7 @@ def dp_step_rank(out: str, state, batch, modes):
     res = {}
     with deterministic_decimation():
         for sync_bn in modes:
-            model = dp_model(state, dev)
+            model = dp_model(state, dev, name)
             par = ParallelSteps(model, sync_bn=sync_bn)
             counters = reset_launches()
             loss, _ = par.grad_step(x, pos, y, mask)
@@ -2021,6 +2065,7 @@ def pn2_predict_step(dev):
     def step():
         return model.interp_step(x, pos, mask, pos, full_pos, full_mask)
 
+    step.model = model   # phase 18c sets its compute dtype
     return step, full_mask
 
 
@@ -2223,6 +2268,384 @@ def phase_parity(dev, work: str):
           f"{reports['auto']['verdict']}, launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15b: PointNet++ under DDP; phases 18-19: the compute dtype, log-softmax
+# outputs and remat
+# ---------------------------------------------------------------------------
+
+CARD = ""                      # nvidia-smi's name and power limit (phase 1)
+DTYPE_TOL = 0.99               # bf16 against f32: the predict steps' argmax agreement
+# bf16 against f32: the train step's whole-gradient cosine. RandLA-Net's
+# bar is 0.99. PointNet++'s is the JAX package's own: its bf16 step on this
+# phase's weights and bench.py --train's batches at N=12288 and B=4 (the
+# CPU's room; a quarter of this batch, so more bf16 noise a gradient) is
+# 0.970790-0.972806 from its
+# f32 step over three batch seeds, the least of which is the bar
+# (scripts/bf16_gradient_reference.py; the port on the CPU there reads
+# 0.968959-0.972576). The port's bf16 ops are JAX's op by op
+# (tests/myria3d_tpu_torch/test_torch_mixed_precision.py): bf16 itself
+# moves this gradient that far, most in sa1's BatchNorm parameters.
+DTYPE_COS = {"RandLANet": 0.99, "PointNet2": 0.970790}
+TOL["K2_16"] = 1e-4            # K2's: the same arithmetic on the widened values
+REMAT_TOL = 1e-6               # remat against no remat: gradients, of scale
+
+
+def phase_pn2_data_parallel(dev, work: str):
+    """15b: PointNet++ (full width, B=16 split 8/8) on two gloo ranks that
+    share the card, one DDP grad step with sync BN against the one-process
+    step and with local BN against the mean of the halves' one-process
+    steps (phase 15 (a)'s bars), then each rank's ms per train step."""
+    import torch
+
+    from myria3d_tpu_torch.parallel import spawn
+
+    torch.cuda.empty_cache()
+    x, pos, y, mask = (t.cpu().numpy() for t in pn2_train_batch(torch.device("cpu")))
+    batch = (x, pos, y, mask)
+    state = {k: v.detach().cpu().clone() for k, v in pn2_model("cpu").net.state_dict().items()}
+    half = PN2_TRAIN_B // 2
+
+    def one(rows):
+        model = dp_model(state, dev, "PointNet2")
+        loss, _ = model.grad_step(*(torch.from_numpy(a[rows]).to(dev) for a in batch))
+        return (float(loss),) + dp_grads(model)
+
+    ref = {"sync": one(slice(0, PN2_TRAIN_B))}
+    halves = [one(slice(0, half)), one(slice(half, PN2_TRAIN_B))]
+    ref["local"] = (float(np.mean([h[0] for h in halves])),
+                    {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in halves[0][1]},
+                    {k: (halves[0][2][k] + halves[1][2][k]) / 2 for k in halves[0][2]})
+    out = os.path.join(work, "dp_pn2")
+    t0 = time.perf_counter()
+    spawn(dp_step_rank, DP_CARD2, args=(out, state, batch, (True, False), "PointNet2"),
+          timeout=DP_TIMEOUT)
+    ranks = [torch.load(f"{out}.rank{r}", weights_only=True) for r in range(2)]
+    for mode in ("sync", "local"):
+        loss, grads, stats = ref[mode]
+        got = ranks[0][mode]
+        need(all(torch.equal(got["grads"][k], ranks[1][mode]["grads"][k]) for k in got["grads"]),
+             f"15b {mode} BN: the ranks' gradients differ")
+        rel = abs(got["loss"] - loss) / abs(loss)
+        cos, gap = cosines(got["grads"], grads), scale_gap(got["stats"], stats)
+        used = {k: v for k, v in got["launches"].items() if v}
+        need(rel <= 1e-5 and cos >= 0.999 and gap <= 1e-5,
+             f"15b {mode} BN: loss rel err {rel:.3g}, gradient cosine {cos:.6f}, BN stats {gap:.3g}")
+        need(all(used.get(k, 0) > 0 for k in ("K1", "K4", "K8")), f"15b {mode} BN: launches {used}")
+        print(f"phase 15b PointNet++ 2 gloo ranks on one card B={PN2_TRAIN_B} ({half} a rank) "
+              f"{mode} BN against one process: loss rel err {rel:.2e}, least gradient cosine "
+              f"{cos:.6f}, BN stats {gap:.2e} of scale, {got['ms']:.1f} / "
+              f"{ranks[1][mode]['ms']:.1f} ms/step (ranks 0 / 1), {got['bytes'] / 2**20:.2f} MiB "
+              f"all-reduced a step ({got['backend']}), launches {used} [{CARD}]")
+    print(f"phase 15b spawn to exit: {time.perf_counter() - t0:.1f} s")
+
+
+def k2_16_cases(model, dev):
+    """18a's K2 inputs: the toy checkpoint's eight folded LFAs at the predict
+    stage shapes (B=48, N=12288 -> 3072 -> 768 -> 192, K=16, window 4608),
+    random features in [-1, 1): [(label, (x, pos, idx, nv, enc_a, enc_c,
+    att_w), valid points)]."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_knn import stage_window
+    from myria3d_tpu_torch.ops.knn import gather_rows, knn_graph
+    from myria3d_tpu_torch.ops.sampling import random_decimation
+
+    _, pos, mask, _, _ = (torch.from_numpy(a).to(dev) for a in bench_subtiles(1))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stages = [(pos, mask)]
+    for _ in range(3):
+        p, m = stages[-1]
+        idx, m2 = random_decimation(m, 4, gen)
+        stages.append((gather_rows(p, idx), m2))
+    net, cases = model.net, []
+    for blk, (p, m) in zip((net.block1, net.block2, net.block3, net.block4), stages):
+        idx, _, nv = knn_graph(p, m, 16, window=stage_window(WINDOW, p.shape[1]))
+        for lfa in (blk.lfa1, blk.lfa2):
+            enc_a, enc_c = (t.contiguous() for t in lfa.folded_encoder())
+            att_w = lfa.mlp_attention.lins[0].weight.T.contiguous()
+            c_in = enc_a.shape[0]
+            feats = torch.rand((B, p.shape[1], c_in), generator=gen, device=dev) * 2 - 1
+            cases.append((f"({c_in},{2 * c_in}) N={p.shape[1]}",
+                          (feats, p, idx, nv, enc_a, enc_c, att_w), float(m.sum())))
+    return cases
+
+
+def phase_k2_16(model, dev) -> list:
+    """18a: K2 reading bfloat16 and float16 features against its plain
+    version on the same values widened to f32 (within 1e-4 of scale), timed
+    beside K2's f32 instantiation on those values; the bound with 2-byte x
+    rows. Returns the kernels line's rows (bfloat16's times)."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention, lfa_attention_plain
+
+    rows = []
+    for label, (feats, *rest), valid in k2_16_cases(model, dev):
+        c_in = feats.shape[-1]
+        c, slots = 2 * c_in, valid * 16
+        errs, ms = {}, {}
+        for dtype in (torch.bfloat16, torch.float16):
+            x16 = feats.to(dtype)
+            got = lfa_attention(x16, *rest)
+            errs[dtype] = scale_err(got, lfa_attention_plain(x16.float(), *rest), TOL["K2_16"],
+                                    f"K2_16 {dtype} {label}")
+            ms[dtype] = cuda_ms(lambda: lfa_attention(x16, *rest), 5)
+        x16 = feats.to(torch.bfloat16)
+        xf = x16.float()
+        f32_ms = cuda_ms(lambda: lfa_attention(xf, *rest), 5)
+        plain_ms = cuda_ms(lambda: lfa_attention_plain(xf, *rest), 2)
+        n_bytes = nbytes(x16, *rest, got)
+        cuda_bnd = bound(slots * (c * c + 10 * c_in + 4 * c), n_bytes)
+        bnd = tc_bound(slots * c * c, slots * (10 * c_in + 4 * c), n_bytes)
+        rows.append((max(errs.values()), ms[torch.bfloat16], plain_ms, bnd, None))
+        print(f"phase 18a K2_16 {label}: max_abs_err bf16 {errs[torch.bfloat16]:.3g}, f16 "
+              f"{errs[torch.float16]:.3g}; bf16 {ms[torch.bfloat16]:.3f} ms, f16 "
+              f"{ms[torch.float16]:.3f} ms, K2 f32 on the same values {f32_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, {bounds_text(bnd, cuda_bnd)} (2-byte x) [{CARD}]")
+    return rows
+
+
+def timed_steps(step, reps: int):
+    """(ms per call over ``reps`` calls after one warm call, last output)."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def predict_steps_by_dtype(model, step, full_mask, what: str):
+    """18b/c: the predict step in f32 and bfloat16 (f32, bf16, bf16, f32),
+    the argmax agreement of the bf16 step with the f32 one (>= 0.99)."""
+    ms = {"float32": [], "bfloat16": []}
+    out = {}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        model.set_compute_dtype(dtype)
+        t, out[dtype] = timed_steps(step, 3)
+        ms[dtype].append(t)
+    model.set_compute_dtype("float32")
+    agree = float((out["float32"].argmax(-1) == out["bfloat16"].argmax(-1))[full_mask]
+                  .float().mean())
+    need(agree >= DTYPE_TOL, f"{what}: bf16/f32 argmax agreement {agree:.5f} < {DTYPE_TOL}")
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    print(f"phase 18 {what} predict step B={B} N={N} M={M}: f32 {mean['float32']:.1f} ms/batch "
+          f"({B * RAW / mean['float32'] / 1e3:.3f} Mpts/s; turns {ms['float32'][0]:.1f}, "
+          f"{ms['float32'][1]:.1f}), bf16 {mean['bfloat16']:.1f} ms/batch "
+          f"({B * RAW / mean['bfloat16'] / 1e3:.3f} Mpts/s; turns {ms['bfloat16'][0]:.1f}, "
+          f"{ms['bfloat16'][1]:.1f}), argmax agreement bf16/f32 {agree:.6f} [{CARD}]")
+
+
+def train_steps_by_dtype(dev, name: str, make, batch):
+    """18d: one family's train step at B=16, N=12288 in f32 and bfloat16 from
+    the same weights on the same batch and generators: ms/step, peak memory,
+    the loss, the gradient cosine bf16/f32 (>= 0.99) and the route's
+    launches (a 16-bit RandLA-Net takes the unfused one: no K5, no K6)."""
+    import torch
+
+    counters = launch_counters()
+    grads, named, res = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        model = make()
+        model.set_compute_dtype(dtype)
+        model.init_train_state()
+        model.optimizer.zero_grad(set_to_none=True)
+        model.grad_step(*batch, torch.Generator(device=dev).manual_seed(7))
+        named[dtype] = {k: p.grad.detach().clone() for k, p in model.net.named_parameters()}
+        grads[dtype] = torch.cat([g.flatten() for g in named[dtype].values()])
+        model.train_step(*batch, torch.Generator(device=dev).manual_seed(0))   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = {n: fn.launches for n, fn in counters.items()}
+        reps = 3
+        t0 = time.perf_counter()
+        for i in range(reps):
+            loss, _ = model.train_step(*batch, torch.Generator(device=dev).manual_seed(i))
+        chk = sum(float(p.detach().sum()) for p in model.net.parameters())
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        per_step = {n: (fn.launches - start[n]) / reps for n, fn in counters.items()
+                    if fn.launches > start[n]}
+        need(np.isfinite(float(loss)) and np.isfinite(chk), f"{name} {dtype}: non-finite step")
+        res[dtype] = (ms, torch.cuda.max_memory_allocated(dev) / 2**30, float(loss), per_step)
+        del model
+        torch.cuda.empty_cache()
+    a, b = grads["bfloat16"].double(), grads["float32"].double()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    top = max(float(v.double().norm()) for v in named["float32"].values())
+    kept = [k for k, v in named["float32"].items() if float(v.double().norm()) > 1e-6 * top]
+    a2 = torch.cat([named["bfloat16"][k].double().flatten() for k in kept])
+    b2 = torch.cat([named["float32"][k].double().flatten() for k in kept])
+    cos_kept = float(a2 @ b2 / (a2.norm() * b2.norm()))
+    per = sorted((float(u.double().flatten() @ v.double().flatten()
+                        / (u.double().norm() * v.double().norm()).clamp(min=1e-300)), k,
+                  float(v.double().norm()), float(u.double().norm()))
+                 for k, u, v in ((k, named["bfloat16"][k], named["float32"][k]) for k in kept))
+    least = ", ".join(f"{k} {c:.4f}" for c, k, _, _ in per[:3])
+    print(f"phase 18d {name}: gradient cosine bf16/f32 over the tensors above 1e-6 of the "
+          f"largest norm (not the Linear biases before a BatchNorm, analytically zero) "
+          f"{cos_kept:.6f}; the least per tensor: {least}")
+    need(bool(torch.isfinite(grads["bfloat16"]).all()) and cos >= DTYPE_COS[name],
+         f"{name} train step: bf16/f32 gradient cosine {cos:.6f} < {DTYPE_COS[name]}")
+    route = ""
+    if name == "RandLANet":
+        used = res["bfloat16"][3]
+        need(not used.get("K5") and not used.get("K6") and used.get("K4", 0) > 0,
+             f"RandLA-Net bf16 train step: launches per step {used} (the unfused route has "
+             f"K4 and no K5/K6)")
+        route = " (bf16: the unfused route; f32: the fused route)"
+    b16 = res["bfloat16"]
+    print(f"phase 18d {name} train step B={PN2_TRAIN_B} N={TRAIN_N}{route}: f32 "
+          f"{res['float32'][0]:.1f} ms/step, peak {res['float32'][1]:.2f} GiB, loss "
+          f"{res['float32'][2]:.4f}; bf16 {b16[0]:.1f} ms/step, peak {b16[1]:.2f} GiB, loss "
+          f"{b16[2]:.4f}; gradient cosine bf16/f32 {cos:.6f} (bar {DTYPE_COS[name]}); "
+          f"launches per step f32 "
+          f"{res['float32'][3]}, bf16 {b16[3]} [{CARD}]")
+
+
+def randla_train_model(dev, **hp):
+    """Phase 8's full-width RandLA-Net (``fused_train_lfa: auto``, window
+    4608, in-model sort), random weights from seed 0."""
+    import torch
+
+    from myria3d_tpu_torch.models.model import build_model
+
+    torch.manual_seed(0)
+    return build_model("RandLANet", {
+        "num_features": 9, "num_classes": 7, "num_neighbors": 16, "decimation": 4,
+        "knn_window": WINDOW, "sort_inputs": True, **hp}, lr=0.001).to(dev)
+
+
+def phase_compute_dtype(model, dev, work: str):
+    """Phase 18 (a)-(e): K2_16, both families' predict steps and train steps
+    in bf16 against f32, and ``predict()`` on the toy tile with
+    ``predict.compute_dtype=bfloat16`` (the K2_16 main path). Returns the
+    K2_16 rows and that run's launches."""
+    import torch
+
+    from myria3d_tpu_torch.pctl.io.las import read_las
+    from myria3d_tpu_torch.predict import predict
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+
+    with torch.inference_mode():
+        rows = phase_k2_16(model, dev)
+        x, pos, mask, full_pos, full_mask = (torch.from_numpy(a).to(dev) for a in bench_subtiles(0))
+        model.set_sorted_window(WINDOW)
+
+        def step():
+            return model.interp_step(x, pos, mask, pos, full_pos, full_mask,
+                                     torch.Generator(device=dev).manual_seed(1))
+
+        predict_steps_by_dtype(model, step, full_mask, "18b RandLA-Net")
+        step_pn2, full_mask = pn2_predict_step(dev)
+        predict_steps_by_dtype(step_pn2.model, step_pn2, full_mask, "18c PointNet++")
+        del step_pn2
+    torch.cuda.empty_cache()
+    batch = tuple(torch.from_numpy(a).to(dev) for a in train_batch(PN2_TRAIN_B))
+    train_steps_by_dtype(dev, "RandLANet", lambda: randla_train_model(dev), batch)
+    train_steps_by_dtype(dev, "PointNet2", lambda: pn2_model(dev), pn2_train_batch(dev))
+
+    # (e) the main path of the 16-bit kernel: predict() in bf16
+    tile = os.path.join(ASSETS, "toy_tile.las")
+    cfg = compose_config(CONFIG_DIR, "config.yaml", [
+        "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={ASSETS}",
+        f"predict.output_dir={work}/pred_bf16", "datamodule.batch_size=4",
+        "predict.compute_dtype=bfloat16"])
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    res = read_las(predict(cfg)).points
+    dt = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    need(all(launches.get(k, 0) > 0 for k in ("K1", "K2_16", "K3")) and not launches.get("K2"),
+         f"bf16 predict(): launches {launches} (K2_16, never K2's f32 instantiation)")
+    acc = float((np.asarray(res["PredictedClassification"]) == np.asarray(res["Classification"])).mean())
+    need(abs(acc - CPU_PLAIN_ACCURACY) <= ACCURACY_MARGIN,
+         f"bf16 predict(): GT accuracy {acc:.4f} vs CPU plain {CPU_PLAIN_ACCURACY:.4f}")
+    print(f"phase 18e predict() predict.compute_dtype=bfloat16 on the toy tile: {dt:.2f} s, GT "
+          f"accuracy {acc:.4f} (CPU plain f32 {CPU_PLAIN_ACCURACY:.4f}), launches {launches} "
+          f"[{CARD}]")
+    return rows, launches
+
+
+def phase_log_probs_and_remat(dev, work: str):
+    """Phase 19: ``return_logits: false`` through ``predict()`` on the toy
+    tile against the logits run, and the RandLA-Net train step at B=16 with
+    ``remat: true`` against ``false``."""
+    import shutil
+
+    import torch
+
+    from myria3d_tpu_torch.pctl.io.las import read_las
+    from myria3d_tpu_torch.predict import predict
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+
+    ckpt = os.path.join(work, "log_probs_ckpt")
+    shutil.copytree(ASSETS, ckpt)
+    with open(os.path.join(ckpt, "hparams.json")) as f:
+        hp = json.load(f)
+    hp["neural_net_hparams"]["return_logits"] = False
+    with open(os.path.join(ckpt, "hparams.json"), "w") as f:
+        json.dump(hp, f)
+    tile = os.path.join(ASSETS, "toy_tile.las")
+    probs, maps = {}, {}
+    for name, path in (("logits", ASSETS), ("log_probs", ckpt)):
+        cfg = compose_config(CONFIG_DIR, "config.yaml", [
+            "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={path}",
+            f"predict.output_dir={work}/pred_{name}", "datamodule.batch_size=4"])
+        res = read_las(predict(cfg)).points
+        names = list(cfg["predict"]["interpolator"]["classification_dict"].values())
+        probs[name] = np.stack([np.asarray(res[n], np.float64) for n in names], axis=1)
+        maps[name] = np.asarray(res["PredictedClassification"])
+    diff = float(np.abs(probs["logits"] - probs["log_probs"]).max())
+    differ = maps["logits"] != maps["log_probs"]
+    best_two = np.sort(probs["logits"][differ], axis=1)[:, -2:]
+    gap = float((best_two[:, 1] - best_two[:, 0]).max()) if differ.any() else 0.0
+    need(diff <= 1e-3 and differ.mean() <= 1e-3 and gap <= 2e-3,
+         f"return_logits false: probabilities {diff:.3g} apart, {int(differ.sum())} class changes, "
+         f"widest top-two gap among them {gap:.3g}")
+    print(f"phase 19 predict() with return_logits: false on the toy tile: probabilities within "
+          f"{diff:.3g} of the logits run's, class map equal at {1 - float(differ.mean()):.6f} of "
+          f"{len(differ)} points (the {int(differ.sum())} others near-ties, top two within "
+          f"{gap:.3g})")
+
+    batch = tuple(torch.from_numpy(a).to(dev) for a in train_batch(PN2_TRAIN_B))
+    res = {}
+    for remat in (False, True):
+        model = randla_train_model(dev, remat=remat)
+        model.init_train_state()
+        model.optimizer.zero_grad(set_to_none=True)
+        model.grad_step(*batch, torch.Generator(device=dev).manual_seed(7))
+        grads = {k: p.grad.detach().clone() for k, p in model.net.named_parameters()}
+        stats = {k: b.detach().clone() for k, b in model.net.named_buffers()}
+        model.train_step(*batch, torch.Generator(device=dev).manual_seed(0))   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reps = 3
+        t0 = time.perf_counter()
+        for i in range(reps):
+            loss, _ = model.train_step(*batch, torch.Generator(device=dev).manual_seed(i))
+        chk = sum(float(p.detach().sum()) for p in model.net.parameters())
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        need(np.isfinite(float(loss)) and np.isfinite(chk), f"remat={remat}: non-finite step")
+        res[remat] = (grads, stats, ms, torch.cuda.max_memory_allocated(dev) / 2**30)
+        del model
+        torch.cuda.empty_cache()
+    # of the net's largest gradient: the biases before a BatchNorm have an
+    # exact-zero gradient, f32 noise in both runs (torch's scatter-adds of
+    # the decimation gathers' backward are not deterministic on the card)
+    top = max(float(v.abs().max()) for v in res[False][0].values())
+    gap = max(float((res[True][0][k] - v).abs().max()) for k, v in res[False][0].items()) / top
+    stats_gap = max(float((res[True][1][k] - v).abs().max()) for k, v in res[False][1].items())
+    need(gap <= REMAT_TOL and stats_gap == 0.0,
+         f"remat: gradients {gap:.3g} of scale apart, BN running stats {stats_gap:.3g}")
+    print(f"phase 19 RandLA-Net train step B={PN2_TRAIN_B} N={TRAIN_N} remat true against false: "
+          f"gradients {gap:.3g} of scale apart, BN running stats equal; remat "
+          f"{res[True][2]:.1f} ms/step, peak {res[True][3]:.2f} GiB; no remat {res[False][2]:.1f} "
+          f"ms/step, peak {res[False][3]:.2f} GiB [{CARD}]")
+
+
 def foreign_modules() -> list:
     """Modules of JAX, flax or the JAX package loaded in this process."""
     return sorted(m for m in sys.modules
@@ -2251,8 +2674,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    global CARD
     try:
-        phase_device()
+        CARD = phase_device()
         phase_build()
         model = load_checkpoint(ASSETS, dev)
         with torch.inference_mode():
@@ -2274,6 +2698,7 @@ def main() -> int:
             phase_microbatch(dev)
             phase_profiler(dev, work)
             phase_data_parallel(dev, work)
+            phase_pn2_data_parallel(dev, work)
             with torch.inference_mode():
                 stats["K8"] = phase_fps(dev)
                 phase_pn2_searches(dev)
@@ -2283,6 +2708,11 @@ def main() -> int:
             # K8's launches: the PointNet++ predict and train steps' runs
             launches["K8"] = pn2["K8"] + pn2_train["K8"]
             phase_parity(dev, work)
+            model = load_checkpoint(ASSETS, dev)
+            stats["K2_16"], dtype_launches = phase_compute_dtype(model, dev, work)
+            launches["K2_16"] = dtype_launches["K2_16"]
+            del model
+            phase_log_probs_and_remat(dev, work)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")
@@ -2293,6 +2723,7 @@ def main() -> int:
         return 1
     sources = {"K1": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:238"),
                "K2": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
+               "K2_16": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
                "K3": ("myria3d_tpu_torch/csrc/interp.cu", "myria3d_tpu/ops/pallas_knn.py:475"),
                "K4": ("myria3d_tpu_torch/csrc/gather_bwd.cu", "myria3d_tpu/ops/pallas_gather.py:65"),
                "K5": ("myria3d_tpu_torch/csrc/lfa_train.cu",

@@ -1,5 +1,6 @@
-"""myria3d_tpu_torch — RandLA-Net training, full-cloud test and tile
-prediction in PyTorch on NVIDIA Hopper.
+"""myria3d_tpu_torch — training, full-cloud test and tile prediction of
+the model zoo's two families, RandLA-Net and PointNet++, in PyTorch on
+NVIDIA Hopper.
 
 A port of ``myria3d_tpu`` (JAX/Pallas) that mirrors its module names and
 imports nothing of it. Every Pallas kernel of the JAX package has a
@@ -10,10 +11,13 @@ data layer ``pctl``, the full-tile ``Interpolator``, the config system, the
 checkpoint callbacks and the JAX-to-torch weight mapping) is copied into
 the port under the same module paths.
 
-Layers: ``ops`` (neighbour search, interpolation, decimation, fused LFA),
-``models`` (RandLA-Net, the train/eval/predict steps), ``pctl`` (LAS I/O,
-datasets, transforms, padded batching), ``callbacks``, ``utils`` (config,
-checkpoints), ``train`` / ``predict`` / ``run`` (fit and test, the tile
-pipeline, the CLI). Entry points run on the first CUDA device unless the
-caller asks for the CPU.
+Layers: ``ops`` (neighbour search, interpolation, decimation, fused LFA,
+farthest-point sampling), ``models`` (RandLA-Net and PointNet++ in f32,
+bfloat16 or float16 compute, the train/eval/predict steps), ``parallel``
+(DDP), ``pctl`` (LAS I/O, datasets, transforms, padded batching),
+``callbacks``, ``utils`` (config, checkpoints), ``train`` / ``predict`` /
+``run`` (fit and test, the tile pipeline, the CLI). Entry points run on the
+first CUDA device unless the caller asks for the CPU.
 """
+
+from myria3d_tpu_torch._version import __version__  # noqa: F401

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "m3d_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "m3d_knn_topk_mxu": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "m3d_knn_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "m3d_lfa": [_P] * 6 + [_I] * 4 + [_P, _P],
+    "m3d_lfa": [_P] * 6 + [_I] * 5 + [_P, _P],
     "m3d_lfa_info": [_I, _P],
     "m3d_gather_bwd": [_P, _P, _P, _I, _I, _P, _P],
     "m3d_inverse_map_count": [_P, _P, _I, _I, _I, _P, _P],

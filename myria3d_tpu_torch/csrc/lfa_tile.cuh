@@ -42,6 +42,11 @@
 //    floats past the width keep the fragment loads free of bank conflicts.
 // 4. Blocks are persistent over a contiguous run of tiles, so the
 //    resident att_w is read from L2 once per block, not per point.
+// 5. K2 also reads 16-bit features (bfloat16 or float16 x, the compute
+//    dtype of a 16-bit net): cp.async copies bytes unconverted, so those
+//    x_j rows are loaded into registers (16 bytes, 8 values, a thread; 8
+//    bytes at C_in = 4), widened to f32 and stored into the same f32 edge
+//    tile. Everything after the tile is the f32 path's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +63,32 @@ constexpr int WARPS = THREADS / 32;
 constexpr int SLOTS = 16;   // rows per centre point: one m16 fragment (K <= 16)
 constexpr int REL_LD = 12;  // row stride of the rel rows (three float4)
 constexpr float SLOPE = 0.2f;
+
+// x's element type, an int template parameter (so that the kernels'
+// instantiations are told apart by name): 0 float, 1 bfloat16, 2 float16;
+// the 16-bit ones are read as raw uint16 and widened (widen2)
+constexpr int X_F32 = 0, X_BF16 = 1, X_F16 = 2;
+template <int XT>
+struct XElem {
+  using T = uint16_t;
+};
+template <>
+struct XElem<X_F32> {
+  using T = float;
+};
+
+// the two 16-bit values of a 32-bit word (the first in the low half) as f32
+template <int XT>
+__device__ __forceinline__ float2 widen2(uint32_t w) {
+  if constexpr (XT == X_BF16) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  } else {
+    float lo, hi;
+    asm("{\n\t.reg .b16 l, h;\n\tmov.b32 {l, h}, %2;\n\tcvt.f32.f16 %0, l;\n\t"
+        "cvt.f32.f16 %1, h;\n\t}" : "=f"(lo), "=f"(hi) : "r"(w));
+    return make_float2(lo, hi);
+  }
+}
 
 // The block geometry at width C with P centre points per tile.
 template <int C_, int P_>
@@ -222,25 +253,76 @@ __device__ __forceinline__ void stage_idx(int* sidx, int* sbase, const int* __re
   commit();
 }
 
+// The x_j rows of a 16-bit x into lf's first C_in columns as f32: every
+// thread first loads its pieces (V values, 16 bytes at V = 8; zero bits at
+// invalid slots read as 0.0), then widens and stores them.
+template <class G, int XT>
+__device__ __forceinline__ void load_x16(float* lf, const int* sidx, const int* sbase,
+                                         const uint16_t* __restrict__ x) {
+  constexpr int V = G::CIN < 8 ? G::CIN : 8;
+  constexpr int W = V / 2;  // 32-bit words a piece
+  constexpr int Q = G::CIN / V;
+  constexpr int ITERS = (G::M * Q + THREADS - 1) / THREADS;
+  static_assert(V == 4 || V == 8, "16-bit x rows in 8- or 16-byte pieces");
+  uint32_t raw[ITERS][W];
+#pragma unroll
+  for (int i = 0; i < ITERS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / Q, q = e - r * Q;
+    const int j = e < G::M * Q ? sidx[r] : -1;
+#pragma unroll
+    for (int w = 0; w < W; ++w) raw[i][w] = 0u;
+    if (j >= 0) {
+      const uint16_t* src = x + (static_cast<long long>(sbase[r / SLOTS]) + j) * G::CIN + V * q;
+      if constexpr (V == 8) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+        raw[i][0] = v.x, raw[i][1] = v.y, raw[i][2] = v.z, raw[i][3] = v.w;
+      } else {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+        raw[i][0] = v.x, raw[i][1] = v.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < ITERS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (e < G::M * Q) {
+      const int r = e / Q, q = e - r * Q;
+      float4* dst = reinterpret_cast<float4*>(lf + r * G::LD + V * q);
+#pragma unroll
+      for (int h = 0; h < W / 2; ++h) {
+        const float2 a = widen2<XT>(raw[i][2 * h]), b = widen2<XT>(raw[i][2 * h + 1]);
+        dst[h] = make_float4(a.x, a.y, b.x, b.y);
+      }
+    }
+  }
+}
+
 // Start the tile's gathers, once its indices have landed: the x_j rows
-// straight into lf's first C_in columns (16-byte pieces; zero rows at
-// invalid slots), pos_j into spos rows 0..M-1 and pos_i into rows M..M+P-1
+// into lf's first C_in columns (f32 x: cp.async copies of 16-byte pieces,
+// zero rows at invalid slots; 16-bit x: load_x16, which has landed when it
+// returns), pos_j into spos rows 0..M-1 and pos_i into rows M..M+P-1
 // (float4 rows). B n < 2^31 rows.
-template <class G>
+template <class G, int XT = X_F32>
 __device__ __forceinline__ void stage_gathers(float* lf, float* spos, const int* sidx,
-                                              const int* sbase, const float* __restrict__ x,
+                                              const int* sbase,
+                                              const typename XElem<XT>::T* __restrict__ x,
                                               const float* __restrict__ pos, long long tile,
                                               long long n_points) {
-  constexpr int Q = G::CIN / 4;
-  for (int e = threadIdx.x; e < G::M * Q; e += THREADS) {
-    const int r = e / Q, q = e - r * Q;
-    const int j = sidx[r];
-    float* dst = lf + r * G::LD + 4 * q;
-    if (j >= 0) {
-      cp_async16(dst, x + (static_cast<long long>(sbase[r / SLOTS]) + j) * G::CIN + 4 * q);
-    } else {
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (XT == X_F32) {
+    constexpr int Q = G::CIN / 4;
+    for (int e = threadIdx.x; e < G::M * Q; e += THREADS) {
+      const int r = e / Q, q = e - r * Q;
+      const int j = sidx[r];
+      float* dst = lf + r * G::LD + 4 * q;
+      if (j >= 0) {
+        cp_async16(dst, x + (static_cast<long long>(sbase[r / SLOTS]) + j) * G::CIN + 4 * q);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
+  } else {
+    load_x16<G, XT>(lf, sidx, sbase, x);
   }
   for (int r = threadIdx.x; r < G::M; r += THREADS) {
     const int j = sidx[r];

@@ -38,13 +38,14 @@ from torch import nn
 
 from myria3d_tpu_torch.models.criterion import CrossEntropyLoss
 from myria3d_tpu_torch.models.modules import get_neural_net_class
+from myria3d_tpu_torch.models.modules.nn import as_dtype, dtype_name, set_compute_dtype
 from myria3d_tpu_torch.models.optimizers import adam, set_learning_rate_scale
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
 from myria3d_tpu_torch.ops.interpolate import knn_interpolate
 
-# JAX hparams that only steer TPU memory or search exactness: the port's
-# backward keeps what autograd needs, and K1 is exact within its window
-_IGNORED_NET_HPARAMS = {"remat", "exact_knn"}
+# the JAX hparam of search exactness, which the callers read (predict and
+# train switch every search to a full scan); K1 is exact within its window
+_IGNORED_NET_HPARAMS = {"exact_knn"}
 TRAIN_STATE = "train_state.pt"
 
 
@@ -60,14 +61,13 @@ def chunk_generator(generator: torch.Generator | None, i: int) -> torch.Generato
 
 def build_net(neural_net_class_name: str, neural_net_hparams: Dict[str, Any]) -> nn.Module:
     """The zoo's net (``models.modules.MODEL_ZOO``: RandLA-Net, PointNet++)
-    from the JAX hparams; f32 logits only."""
+    from the JAX hparams: ``dtype`` is a compute dtype's name
+    (``nn.as_dtype``), an hparam the net lacks raises ``TypeError`` as the
+    flax dataclass does (``remat`` on PointNet++)."""
     net_class = get_neural_net_class(neural_net_class_name)
     hp = {k: v for k, v in neural_net_hparams.items() if k not in _IGNORED_NET_HPARAMS}
-    dtype = hp.pop("dtype", None)
-    if dtype not in (None, "float32"):
-        raise NotImplementedError(f"compute dtype {dtype!r} is not ported yet")
-    if not hp.pop("return_logits", True):
-        raise NotImplementedError("log-softmax outputs are not ported")
+    if hp.get("dtype") is None:   # null in a config: the net's default, f32
+        hp.pop("dtype", None)
     return net_class(**hp)
 
 
@@ -113,6 +113,17 @@ class Model(nn.Module):
         if hasattr(self.net, "knn_window"):
             self.net.knn_window = int(window)
             self.net.sort_inputs = False
+
+    def set_compute_dtype(self, dtype: Any) -> None:
+        """The net's compute dtype (``predict.compute_dtype``, JAX
+        ``model.py:213-221``): ``float32``, ``bfloat16`` or ``float16``, or
+        a ``torch.dtype``. Parameters, BN stats and logits stay f32, so the
+        loaded weights serve any dtype; the checkpoint hparams record it."""
+        dtype = as_dtype(dtype)
+        set_compute_dtype(self.net, dtype)
+        if self.hparams is not None:
+            self.hparams["neural_net_hparams"] = {**self.hparams["neural_net_hparams"],
+                                                  "dtype": dtype_name(dtype)}
 
     # ------------------------------------------------------------------
     # train state
@@ -319,6 +330,8 @@ def build_model(neural_net_class_name: str, neural_net_hparams: Dict[str, Any],
     (``configs/model/*.yaml``); the checkpoint hparams are the model
     section's plain entries, as the JAX package stores them."""
     hp = dict(neural_net_hparams)
+    if isinstance(hp.get("dtype"), torch.dtype):
+        hp["dtype"] = dtype_name(as_dtype(hp["dtype"]))   # a name in hparams.json
     hparams = {
         "neural_net_class_name": neural_net_class_name,
         "neural_net_hparams": hp,

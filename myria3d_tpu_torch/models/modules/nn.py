@@ -17,6 +17,17 @@ pyg parameter names (``lins.{i}``, ``norms.{i}``), so the state dict that
 - Layer order Linear -> BN -> act -> dropout, the last layer included (pyg
   MLP ``plain_last=False``). Dense layers stay ``nn.Linear``. Dropout
   draws its keep mask from an explicit ``torch.Generator``.
+- The compute dtype (``nn.py:64-91,113-117``): a ``SharedMLP`` casts its
+  input and its f32 weights to ``dtype`` (float32, bfloat16 or float16)
+  and runs the product there; ``MaskedBatchNorm`` takes its moments and
+  normalizes in f32, then casts back to its input's dtype; the LeakyReLU
+  multiplies by its slope rounded to the dtype (JAX's 0.2 is weakly
+  typed). Parameters and running statistics stay f32.
+  :func:`set_compute_dtype` sets the dtype of every module of a net that
+  has one; :func:`as_dtype` reads a config name.
+- Running-stat updates skip a recomputed forward (:func:`recomputing`,
+  the ``remat`` of RandLA-Net's blocks): they happen once a step, as flax's
+  ``nn.remat`` discards the recompute's state.
 
 The JAX package's channels-first twins (``SharedMLPCF``, ``DenseCF``) exist
 for the TPU's lane layout; here one channels-last module serves both with
@@ -25,7 +36,9 @@ the same parameters.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import threading
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +52,57 @@ BN_MOMENTUM = 0.01
 BN_EPS = 1e-6
 
 
+# the compute dtypes of ``model.neural_net_hparams.dtype`` and
+# ``predict.compute_dtype`` (``myria3d_tpu/models/model.py:39-47``)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
+
+_state = threading.local()
+_SLOPES = {dt: float(torch.tensor(LRELU_SLOPE, dtype=dt)) for dt in COMPUTE_DTYPES.values()}
+
+
 def lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, LRELU_SLOPE)
+    """LeakyReLU with the slope in ``x``'s dtype: the JAX package multiplies
+    a 16-bit ``x`` by 0.2 rounded to that dtype (0.2001953125 in bfloat16,
+    0.199951171875 in float16), in the forward and in the gradient."""
+    return F.leaky_relu(x, _SLOPES.get(x.dtype, LRELU_SLOPE))
+
+
+def as_dtype(dtype: Any) -> torch.dtype:
+    """A compute dtype from its config name or a ``torch.dtype``; any other
+    name or dtype raises ``ValueError``."""
+    if isinstance(dtype, torch.dtype) and dtype in COMPUTE_DTYPES.values():
+        return dtype
+    if isinstance(dtype, str) and dtype in COMPUTE_DTYPES:
+        return COMPUTE_DTYPES[dtype]
+    raise ValueError(f"compute dtype {dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The config name of a compute dtype (``as_dtype``'s inverse)."""
+    return next(k for k, v in COMPUTE_DTYPES.items() if v == dtype)
+
+
+def set_compute_dtype(net: nn.Module, dtype: Any) -> None:
+    """The compute dtype of every module of ``net`` that has one (a class
+    attribute ``dtype``: the nets and their ``SharedMLP`` s)."""
+    dtype = as_dtype(dtype)
+    for m in net.modules():
+        if isinstance(getattr(type(m), "dtype", None), torch.dtype):
+            m.dtype = dtype
+
+
+@contextlib.contextmanager
+def recomputing():
+    """While it is open, BN running-stat updates are skipped: the backward
+    is recomputing a forward whose updates were made (the ``context_fn``
+    of a checkpointed block)."""
+    before = getattr(_state, "recomputing", False)
+    _state.recomputing = True
+    try:
+        yield
+    finally:
+        _state.recomputing = before
 
 
 def set_sync_batchnorm(net: nn.Module, enabled: bool) -> None:
@@ -112,25 +174,34 @@ class MaskedBatchNorm(nn.Module):
         """Running-stat update from batch moments (biased ``var`` over ``n``
         rows), in place: ``r = (1 - m) r + m batch`` with the unbiased
         variance (``nn.py:79-85``, and ``update_stats`` at ``:154-167`` for
-        moments computed outside the module)."""
+        moments computed outside the module). Skipped in a recomputed
+        forward (:func:`recomputing`)."""
+        if getattr(_state, "recomputing", False):
+            return
         unbiased = var * n / (n - 1.0).clamp(min=1.0)
         self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean.detach())
         self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * unbiased.detach())
 
     def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # moments and normalization in f32, the result in x's dtype
+        xf = x.float()
         if self.training:
-            mean, var, n = self.batch_moments(x, valid)
+            mean, var, n = self.batch_moments(xf, valid)
             self.update_running(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
 
 
 class SharedMLP(nn.Module):
     """Per-point MLP: [Linear -> MaskedBatchNorm -> LeakyReLU(0.2) ->
     Dropout] per layer (reference ``SharedMLP``, ``pyg_randla_net.py:97-109``);
     ``act=False`` / ``norm=False`` drop those stages for every layer.
-    ``dropout`` holds one rate per layer (identity at eval; no parameters)."""
+    ``dropout`` holds one rate per layer (identity at eval; no parameters).
+    The Linear layers run in ``dtype`` (input and weights cast to it)."""
+
+    dtype = torch.float32   # the compute dtype (set_compute_dtype)
 
     def __init__(self, channels: Sequence[int], act: bool = True, norm: bool = True,
                  bias: bool = True, bn_momentum: float = BN_MOMENTUM,
@@ -147,8 +218,9 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.dtype
         for i, lin in enumerate(self.lins):
-            x = lin(x)
+            x = F.linear(x.to(dt), lin.weight.to(dt), None if lin.bias is None else lin.bias.to(dt))
             if self.norms is not None:
                 x = self.norms[i](x, valid)
             if self.act:

@@ -11,14 +11,23 @@ gives the JAX tree (``fc0.lins.0``, ``sa1.pointnet.lins.2``,
 ``fp4.nn.mlp.lins.0``, ``head.norms.0``, ``fc_classif``), so converted
 weights load with ``strict=True``.
 
-In training the neighbour gathers of each set abstraction (``[pos | x]``
-rows) and of each feature propagation go through K4
+In training the neighbour gathers of the features of each set abstraction
+and of each feature propagation go through K4
 (``ops.cuda_gather.gather_neighbors``, one inverse map per graph), so their
 backward is a deterministic scatter and the gradients are bit-identical
 from run to run. K4 writes zeros on invalid slots where the JAX package
 reads row 0; neither reaches a result: a set abstraction sets those slots
 to -1e30 before its max-pool (and its BatchNorm moments skip them), and the
 interpolation weighs them 0. At eval the gathers are plain row gathers.
+
+The compute dtype ``dtype`` (float32, bfloat16, float16) follows the JAX
+package (``pointnet2.py:50-54,77,113-114,140``): every ``SharedMLP`` runs in
+it; a set abstraction's offsets ``(pos_j - centre) / r`` are computed in
+f32 from f32 positions (gathered apart from ``x``: one ``[pos | x]`` row
+would promote a 16-bit ``x`` to f32), then cast; the interpolation
+weighs in f32 and its result is cast; the searches and FPS stay f32; the
+head runs in f32, so the logits are f32. ``return_logits=False`` returns
+their ``log_softmax``.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from myria3d_tpu_torch.models.modules.nn import BN_MOMENTUM, SharedMLP
+from myria3d_tpu_torch.models.modules.nn import BN_MOMENTUM, SharedMLP, set_compute_dtype
 from myria3d_tpu_torch.ops.cuda_gather import gather_neighbors, gather_neighbors_plain, inverse_map
 from myria3d_tpu_torch.ops.cuda_interp import idw_combine
 from myria3d_tpu_torch.ops.fps import farthest_point_sampling
@@ -67,10 +76,15 @@ class SetAbstraction(nn.Module):
         new_pos = gather_rows(pos, sel_idx)                              # (B, M, 3)
         idx, _, neigh_valid = ball_query(new_pos, pos, mask, self.num_neighbors, self.radius,
                                          query_mask=sel_mask)
-        g = neighbour_rows(self, torch.cat([pos, x], dim=-1), idx, neigh_valid)
-        rel = (g[..., :3] - new_pos[:, :, None, :]) / self.radius
-        h = self.pointnet(torch.cat([g[..., 3:], rel], dim=-1), neigh_valid)
-        pooled = torch.where(neigh_valid[..., None], h, NEG).amax(dim=2)  # (B, M, C')
+        # positions carry no gradient: a plain gather; the features through K4
+        pos_j = gather_neighbors_plain(pos, idx, neigh_valid)
+        x_j = neighbour_rows(self, x, idx, neigh_valid)
+        rel = (pos_j - new_pos[:, :, None, :]) / self.radius
+        h = self.pointnet(torch.cat([x_j, rel.to(x.dtype)], dim=-1), neigh_valid)
+        # -1e30 is past float16's range: its most negative finite number
+        # there (JAX rounds -1e30 to -inf; no valid slot reads either)
+        neg = max(NEG, torch.finfo(h.dtype).min)
+        pooled = torch.where(neigh_valid[..., None], h, neg).amax(dim=2)  # (B, M, C')
         return torch.where(sel_mask[..., None], pooled, 0.0), new_pos, sel_mask
 
 
@@ -88,7 +102,7 @@ class FeaturePropagation(nn.Module):
     def forward(self, x, pos, mask, x_skip, pos_skip, mask_skip):
         idx, d2, neigh_valid = knn(pos_skip, pos, mask, self.k, query_mask=mask_skip)
         feats = neighbour_rows(self, x, idx, neigh_valid)                # (B, Nt, k, C)
-        up = idw_combine(feats, d2, neigh_valid, mask_skip)
+        up = idw_combine(feats, d2, neigh_valid, mask_skip).to(x.dtype)
         if x_skip is not None:
             up = torch.cat([up, x_skip], dim=-1)
         return self.nn["mlp"](up, mask_skip)
@@ -104,11 +118,15 @@ class PointNet2(nn.Module):
     ``[w/2, w/2, w]``; the decoder's widths are 256/256/128/128.
     """
 
+    dtype = torch.float32   # the compute dtype (nn.set_compute_dtype)
+
     def __init__(self, num_features: int, num_classes: int, decimation: int = 4,
                  num_neighbors: int = 32, radii: Sequence[float] = (0.05, 0.1, 0.2, 0.4),
                  widths: Sequence[int] = (64, 128, 256, 512),
-                 bn_momentum: float = BN_MOMENTUM):
+                 bn_momentum: float = BN_MOMENTUM, dtype=torch.float32,
+                 return_logits: bool = True):
         super().__init__()
+        self.return_logits = bool(return_logits)
         self.fc0 = SharedMLP([num_features, 32], bn_momentum=bn_momentum)
         in_widths = [32, *widths]
         self.n_stages = len(radii)
@@ -123,10 +141,11 @@ class PointNet2(nn.Module):
             width = FP_WIDTHS[j]
         self.head = SharedMLP([width, 128], bn_momentum=bn_momentum, dropout=[0.5])
         self.fc_classif = nn.Linear(128, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: Optional[torch.Tensor], pos: torch.Tensor, mask: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.fc0(x if x is not None else pos, mask)
+        x = self.fc0((x if x is not None else pos).to(self.dtype), mask)
         skips = [(x, pos, mask)]
         for i in range(self.n_stages):
             x, pos, mask = getattr(self, f"sa{i + 1}")(x, pos, mask)
@@ -135,4 +154,6 @@ class PointNet2(nn.Module):
             x_skip, pos_skip, mask_skip = skips[len(skips) - 2 - j]
             x = getattr(self, f"fp{4 - j}")(x, pos, mask, x_skip, pos_skip, mask_skip)
             pos, mask = pos_skip, mask_skip
-        return self.fc_classif(self.head(x, mask, generator))
+        # the head in f32 (pointnet2.py:140)
+        logits = self.fc_classif(self.head(x, mask, generator).float())
+        return logits if self.return_logits else torch.log_softmax(logits, dim=-1)

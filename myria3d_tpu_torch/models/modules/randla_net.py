@@ -27,14 +27,29 @@ Routes of the two LFAs of a block (on CUDA every search runs on K1):
 
 Unlike the JAX package, neither train route needs a search window (K2, K4
 and K6 gather directly), so the routing depends on the batch only.
+
+The compute dtype ``dtype`` (float32, bfloat16, float16) follows the JAX
+package op by op (``randla_net.py:116-117,268-271,337,466,480,544,556``):
+``fc0`` and every ``SharedMLP`` run in it; K2 reads ``x`` in it (positions
+f32) and its f32 output is cast back; a 16-bit net takes the unfused train
+route whatever ``fused_train_lfa`` says, its LocSE geometry built from
+positions cast to the dtype; the searches stay f32; the head runs in f32,
+so the logits are f32. ``return_logits=False`` returns their
+``log_softmax``. ``remat=True`` recomputes each residual block in the
+backward (``torch.utils.checkpoint``, ``randla_net.py:422-429,490-494``)
+with its running-stat updates made once (``nn.recomputing``).
 """
 
 from __future__ import annotations
 
-import torch
-from torch import nn
+import contextlib
 
-from myria3d_tpu_torch.models.modules.nn import SharedMLP, lrelu
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from myria3d_tpu_torch.models.modules.nn import SharedMLP, lrelu, recomputing, set_compute_dtype
 from myria3d_tpu_torch.ops.cuda_gather import gather_neighbors, inverse_map
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
 from myria3d_tpu_torch.ops.cuda_lfa import idx_with_invalid, lfa_attention
@@ -90,10 +105,12 @@ class LocalFeatureAggregation(nn.Module):
         ``x_j``, the neighbours' rows of ``x``, when the block gathered
         them already)."""
         if not self.training:
+            # K2 reads x in its dtype and pools in f32 (randla_net.py:116-117)
             enc_a, enc_c = self.folded_encoder()
             att_w = self.mlp_attention.lins[0].weight.T.contiguous()
             pooled = lfa_attention(x.contiguous(), pos, idx, neigh_valid,
-                                   enc_a.contiguous(), enc_c.contiguous(), att_w)
+                                   enc_a.contiguous(), enc_c.contiguous(),
+                                   att_w).to(x.dtype)
         elif fused:
             lin, bn = self.mlp_encoder.lins[0], self.mlp_encoder.norms[0]
             pooled, mu, var, n = lfa_train(x, pos, idx, neigh_valid, lin.weight, lin.bias,
@@ -147,9 +164,12 @@ class DilatedResidualBlock(nn.Module):
                 x = self.lfa2(x, pos, idx, neigh_valid, mask, **shared)
             else:
                 # one wide [pos | x] gather serves the LocSE geometry (built
-                # once, shared by both LFAs) and lfa1's neighbour features
-                g = gather_neighbors(torch.cat([pos, x], dim=-1), idx, neigh_valid, inv)
-                rel = locse(pos, g[..., :3])
+                # once, shared by both LFAs) and lfa1's neighbour features;
+                # pos in the compute dtype, as the JAX package casts it before
+                # its gather (randla_net.py:337)
+                pos_dt = pos.to(x.dtype)
+                g = gather_neighbors(torch.cat([pos_dt, x], dim=-1), idx, neigh_valid, inv)
+                rel = locse(pos_dt, g[..., :3])
                 x = self.lfa1(x, pos, idx, neigh_valid, mask, rel=rel, x_j=g[..., 3:])
                 x = self.lfa2(x, pos, idx, neigh_valid, mask, rel=rel, inv=inv)
         return lrelu(self.mlp2(x, mask) + shortcut)
@@ -176,11 +196,16 @@ class RandLANet(nn.Module):
     Decimation keeps them sorted.
     """
 
+    dtype = torch.float32   # the compute dtype (nn.set_compute_dtype)
+
     def __init__(self, num_features: int, num_classes: int, decimation: int = 4,
                  num_neighbors: int = 16, bn_momentum: float = 0.01,
                  knn_window: int = 0, sort_inputs: bool = False,
-                 fused_train_lfa="auto"):
+                 fused_train_lfa="auto", dtype=torch.float32, return_logits: bool = True,
+                 remat: bool = False):
         super().__init__()
+        self.return_logits = bool(return_logits)
+        self.remat = bool(remat)
         self.decimation = decimation
         self.knn_window = knn_window
         self.sort_inputs = sort_inputs
@@ -202,20 +227,35 @@ class RandLANet(nn.Module):
         self.mlp_classif = SharedMLP([d_b, 64, 32], bn_momentum=bn_momentum,
                                      dropout=[0.0, 0.5])
         self.fc_classif = nn.Linear(32, num_classes)
+        set_compute_dtype(self, dtype)
+
+    def run_block(self, block: DilatedResidualBlock, *args):
+        """``block(*args)``; with ``remat`` in training, recomputed in the
+        backward instead of keeping its activations, its running-stat
+        updates made once (the recompute skips them)."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return block(*args)
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
     def forward(self, x, pos, mask, generator: torch.Generator | None = None):
+        dt = self.dtype
+        x = x.to(dt)
         order = None
         if self.knn_window and self.sort_inputs:
             # device-side x-sort for the windowed searches (pads last)
             key = torch.where(mask, pos[..., 0], float("inf"))
             order = key.sort(dim=1, stable=True).indices
             x, pos, mask = gather_rows(x, order), gather_rows(pos, order), mask.gather(1, order)
-        fused = self.training and use_fused_train_lfa(self.fused_train_lfa, x.shape[0])
-        x = self.fc0(x)
+        # the fused train route is f32 only: a 16-bit net takes the unfused
+        # one (randla_net.py:268-271)
+        fused = (self.training and dt == torch.float32
+                 and use_fused_train_lfa(self.fused_train_lfa, x.shape[0]))
+        x = F.linear(x, self.fc0.weight.to(dt), self.fc0.bias.to(dt))
         blocks = (self.block1, self.block2, self.block3, self.block4)
         skips = []  # [b1_out @N, b1_dec @N/4, b2_dec @N/16, b3_dec @N/64]
         for i, block in enumerate(blocks):
-            x = block(x, pos, mask, self.knn_window, fused)
+            x = self.run_block(block, x, pos, mask, self.knn_window, fused)
             if i == 0:
                 skips.append((x, pos, mask))
             dec_idx, mask = random_decimation(mask, self.decimation, generator)
@@ -226,10 +266,11 @@ class RandLANet(nn.Module):
         for fp in (self.fp4, self.fp3, self.fp2, self.fp1):
             x_skip, pos_skip, mask_skip = skips.pop()
             x = knn_interpolate(x, pos, mask, pos_skip, mask_skip, k=1,
-                                window=stage_window(self.knn_window, pos.shape[1]))
+                                window=stage_window(self.knn_window, pos.shape[1])).to(dt)
             x = fp.nn(torch.cat([x, x_skip], dim=-1), mask_skip)
             pos, mask = pos_skip, mask_skip
-        logits = self.fc_classif(self.mlp_classif(x, mask, generator))
+        # the head in f32 (randla_net.py:556)
+        logits = self.fc_classif(self.mlp_classif(x, mask, generator).float())
         if order is not None:
             logits = gather_rows(logits, order.argsort(dim=1))   # back to input order
-        return logits
+        return logits if self.return_logits else torch.log_softmax(logits, dim=-1)

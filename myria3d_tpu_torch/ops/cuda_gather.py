@@ -101,28 +101,34 @@ def gather_neighbors_plain(payload: torch.Tensor, idx: torch.Tensor,
 def gather_bwd_plain(dout: torch.Tensor, idx: torch.Tensor, neigh_valid: torch.Tensor,
                      n_keys: int) -> torch.Tensor:
     """Plain PyTorch version of K4: ``dout (B, Nq, K, P)`` summed into
-    ``(B, n_keys, P)`` rows at ``idx``, invalid slots dropped."""
+    ``(B, n_keys, P)`` rows at ``idx``, invalid slots dropped; 16-bit
+    cotangents are summed in f32 and the sums cast back, as K4 does."""
     b, _, _, p = dout.shape
-    out = torch.zeros((b, n_keys, p), dtype=dout.dtype, device=dout.device)
-    src = torch.where(neigh_valid[..., None], dout, 0.0).reshape(b, -1, p)
-    return out.scatter_add_(1, idx.reshape(b, -1, 1).long().expand(-1, -1, p), src)
+    out = torch.zeros((b, n_keys, p), dtype=torch.float32, device=dout.device)
+    src = torch.where(neigh_valid[..., None], dout.float(), 0.0).reshape(b, -1, p)
+    out.scatter_add_(1, idx.reshape(b, -1, 1).long().expand(-1, -1, p), src)
+    return out.to(dout.dtype)
 
 
 def gather_bwd(dout: torch.Tensor, idx: torch.Tensor, neigh_valid: torch.Tensor,
                inv: InverseMap | None, n_keys: int) -> torch.Tensor:
     """K4: ``(B, n_keys, P)`` sum of the slot cotangents ``dout (B, Nq, K,
     P)`` into the rows they were gathered from. CPU tensors take
-    :func:`gather_bwd_plain`; CUDA tensors launch the kernel (or raise)."""
+    :func:`gather_bwd_plain`; CUDA tensors launch the kernel (or raise).
+
+    The kernel's boundary is f32: 16-bit cotangents (a bfloat16 or float16
+    payload's) are upcast, summed in f32 and the sums cast back to their
+    dtype, finer than a scatter-add in the 16-bit dtype."""
     if dout.device.type == "cpu":
         return gather_bwd_plain(dout, idx, neigh_valid, n_keys)
     if inv is None:
         raise ValueError("gather_bwd: CUDA tensors need the inverse map")
-    if dout.dtype != torch.float32:
-        raise ValueError("gather_bwd: cotangents must be float32")
+    if dout.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError("gather_bwd: cotangents must be float32, bfloat16 or float16")
     b, p = dout.shape[0], dout.shape[-1]
     out = torch.empty((b, n_keys, p), dtype=torch.float32, device=dout.device)
-    _launch_scatter(dout.contiguous(), inv, b * n_keys, p, out)
-    return out
+    _launch_scatter(dout.float().contiguous(), inv, b * n_keys, p, out)
+    return out.to(dout.dtype)
 
 
 gather_bwd.launches = 0

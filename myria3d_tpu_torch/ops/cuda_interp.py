@@ -28,7 +28,10 @@ from myria3d_tpu_torch.ops.knn import VALID_THRESH
 def idw_combine(feats, d2, valid, query_mask):
     """The pyg weighting of gathered neighbour rows ``feats (B, Nq, k, C)``:
     ``w = 1 / max(d2, 1e-16)`` on ``valid`` slots (0 elsewhere),
-    ``sum(w x) / max(sum(w), 1e-16)``; rows outside ``query_mask`` zeroed."""
+    ``sum(w x) / max(sum(w), 1e-16)``; rows outside ``query_mask`` zeroed.
+    The weights are f32, so 16-bit rows are weighed in f32 and the result
+    is f32 (``interpolate.py:109-113``); the caller casts it to its compute
+    dtype."""
     w = torch.where(valid, 1.0 / d2.clamp(min=1e-16), 0.0)          # (B, Nq, k)
     num = (feats * w[..., None]).sum(dim=2)
     out = num / w.sum(dim=2, keepdim=True).clamp(min=1e-16)

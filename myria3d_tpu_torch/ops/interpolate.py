@@ -9,7 +9,8 @@ branches, as in the JAX package:
 - otherwise the two-op path: K1's neighbours, then the weighting in torch.
 
 Queries whose slots all fell on pad keys give 0; rows outside ``tgt_mask``
-are zeroed.
+are zeroed. The k=1 copy keeps the features' dtype; the weighted branches
+return f32 (the decoders cast to their compute dtype; K3 takes f32 logits).
 """
 
 from __future__ import annotations

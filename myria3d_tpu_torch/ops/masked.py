@@ -15,14 +15,18 @@ def masked_softmax(scores: torch.Tensor, valid: torch.Tensor, dim: int) -> torch
     """Numerically stable softmax along ``dim`` over valid entries only.
 
     Invalid entries get weight 0; an all-invalid segment gives all zeros
-    (not NaN), like scatter softmax on an empty segment.
+    (not NaN), like scatter softmax on an empty segment. The sum is 0 there
+    and at least 1 elsewhere (the largest entry's exp is 1), so its floor
+    only keeps 0 / 0 away: the JAX package's 1e-16 is 0 in float16, which
+    gives NaN there (``masked.py:31``), so the floor is the dtype's smallest
+    normal number, at least 1e-16.
     """
-    neg = torch.finfo(scores.dtype).min
-    masked = torch.where(valid, scores, neg)
+    finfo = torch.finfo(scores.dtype)
+    masked = torch.where(valid, scores, finfo.min)
     m = masked.amax(dim=dim, keepdim=True)
     e = torch.where(valid, torch.exp(masked - m), 0.0)
     s = e.sum(dim=dim, keepdim=True)
-    return e / s.clamp(min=1e-16)
+    return e / s.clamp(min=max(1e-16, finfo.tiny))
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:

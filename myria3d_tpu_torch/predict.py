@@ -20,6 +20,10 @@ filler rows to the GPU count and split over replicas of the model, one per
 GPU (``parallel.auto_parallel``); the rows come back concatenated on the
 first. ``predict(config, devices=[...])`` names the replicas' devices
 (repeats allowed: two replicas may share a device).
+
+``predict.compute_dtype`` (``bfloat16``, ``float16``; ``myria3d_tpu/predict.py:95-100``)
+runs the forward in that dtype (``Model.set_compute_dtype``); the weights,
+the logits and the interpolation stay f32.
 """
 
 from __future__ import annotations
@@ -92,8 +96,6 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     ``device`` overrides the device rule of :func:`predict_device`;
     ``devices`` splits the batches over replicas on those devices."""
     pcfg, dm = config["predict"], config["datamodule"]
-    if pcfg.get("compute_dtype"):
-        raise NotImplementedError("predict.compute_dtype is not ported yet")
     if devices is None and device is None and not isinstance(pcfg.get("gpus"), (list, tuple)):
         # no device named: every local GPU (the CPU stays one device)
         devices = "auto"
@@ -137,6 +139,10 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     # predict.exact_knn: every search a full scan (selection is exact
     # within a window either way)
     model.set_sorted_window(0 if pcfg.get("exact_knn") else sorted_window)
+    # predict.compute_dtype: the forward's compute dtype (params and logits
+    # stay f32); set before the replicas are made, so they carry it
+    if pcfg.get("compute_dtype"):
+        model.set_compute_dtype(pcfg["compute_dtype"])
     generator = torch.Generator(device=device).manual_seed(int(config.get("seed", 12345)))
     par = auto_parallel(model, dm["batch_size"], devices) if devices is not None else None
     if par is not None:

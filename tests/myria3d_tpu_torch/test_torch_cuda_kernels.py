@@ -22,6 +22,14 @@ and breaks ties as it does, so indices and masks are equal, on every route
 (1 to 12 points a thread, clusters of 1 to 8 CTAs, with and without the
 box skip), on masks that are no prefix, duplicate points, x-sorted and
 unsorted clouds; a PointNet++ train step launches K1, K4 and K8.
+
+K2_16 (K2 reading bfloat16 / float16 features) is held to the plain
+version on the same 16-bit values widened to f32: the same arithmetic
+(1e-4 of scale), at every width; a 16-bit x launches the 16-bit kernel
+(``lfa_attention_x16.launches``), never K2's f32 one. K4 takes 16-bit
+cotangents at an f32 boundary: the sums equal the f32 kernel's on the
+widened values, cast back. A 16-bit train step of both families takes the
+unfused route and launches no K5/K6; a 16-bit predict step launches K2_16.
 """
 
 import numpy as np
@@ -38,7 +46,12 @@ from myria3d_tpu_torch.ops.cuda_gather import (
 )
 from myria3d_tpu_torch.ops.cuda_interp import knn_interp, knn_interp_plain
 from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu, knn_topk_plain
-from myria3d_tpu_torch.ops.cuda_lfa import idx_with_invalid, lfa_attention, lfa_attention_plain
+from myria3d_tpu_torch.ops.cuda_lfa import (
+    idx_with_invalid,
+    lfa_attention,
+    lfa_attention_plain,
+    lfa_attention_x16,
+)
 from myria3d_tpu_torch.ops.cuda_lfa_train import (
     lfa_train_bwd,
     lfa_train_bwd_plain,
@@ -201,6 +214,65 @@ def test_k2_matches_plain(cuda_device, c_in, k, seed, n):
     assert lfa_attention.launches == before + 1
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
     assert (got[0, 100:164] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("c_in,k,seed,n", LFA_CASES)
+def test_k2_16_matches_plain(cuda_device, c_in, k, seed, n, dtype):
+    x, *rest = k2_args(cuda_device, c_in, k, seed, n)
+    x16 = x.to(dtype)
+    before = (lfa_attention.launches, lfa_attention_x16.launches)
+    got = lfa_attention(x16, *rest)
+    want = lfa_attention_plain(x16.float(), *rest)
+    torch.cuda.synchronize()
+    assert (lfa_attention.launches, lfa_attention_x16.launches) == (before[0], before[1] + 1)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (got[0, 100:164] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k4_sums_16_bit_cotangents_in_f32(cuda_device, dtype):
+    pos, mask, idx, nv = _graph(2, 4096, 16, cuda_device, 8)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    dout = torch.randn((2, 4096, 16, 32), generator=g, device=cuda_device).to(dtype)
+    inv = inverse_map(idx, nv, 4096)
+    got = gather_bwd(dout, idx, nv, inv, 4096)
+    want = gather_bwd(dout.float(), idx, nv, inv, 4096).to(dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["RandLANet", "PointNet2"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_16_bit_steps_run_their_kernels(cuda_device, name, dtype):
+    """A 16-bit train step at B=16 (``fused_train_lfa: auto`` would take
+    the fused route in f32) launches no K5 or K6 and gives finite f32
+    gradients; the 16-bit eval forward of RandLA-Net launches K2_16 eight
+    times (two LFAs a block) and K2 none."""
+    hp = {"num_features": 9, "num_classes": 7}
+    if name == "PointNet2":
+        hp["widths"] = (16, 32, 64, 128)
+    model = build_model(name, {**hp, "dtype": dtype}).to(cuda_device)
+    model.init_train_state()
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand((16, 2048, 9), generator=g).to(cuda_device)
+    pos = (torch.rand((16, 2048, 3), generator=g) * 2 - 1).to(cuda_device)
+    y = torch.randint(0, 7, (16, 2048), generator=g).to(cuda_device)
+    mask = torch.ones((16, 2048), dtype=torch.bool, device=cuda_device)
+    before = (rel_stats.launches, lfa_train_bwd.launches)
+    loss, logits = model.grad_step(x, pos, y, mask)
+    torch.cuda.synchronize()
+    assert (rel_stats.launches, lfa_train_bwd.launches) == before
+    assert logits.dtype == torch.float32 and bool(torch.isfinite(loss))
+    for p in model.net.parameters():
+        assert p.dtype == torch.float32 and bool(torch.isfinite(p.grad).all())
+    if name == "RandLANet":
+        before = (lfa_attention.launches, lfa_attention_x16.launches)
+        _, logits = model.eval_step(x, pos, y, mask)
+        torch.cuda.synchronize()
+        assert (lfa_attention.launches, lfa_attention_x16.launches) == (before[0], before[1] + 8)
+        assert bool(torch.isfinite(logits).all())
 
 
 def test_searches_reject_misaligned_rows(cuda_device):

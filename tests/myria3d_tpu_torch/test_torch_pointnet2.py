@@ -89,8 +89,13 @@ def test_zoo_builds_both_families():
                                   "dtype": "float32"})
     # the full width: 737,767 numbers with the BN running stats
     assert sum(v.numel() for v in net.state_dict().values()) == 737_767
-    for bad in ({"dtype": "bfloat16"}, {"return_logits": False}):
-        with pytest.raises(NotImplementedError):
+    # the compute dtype and log-softmax outputs are ported
+    # (test_torch_mixed_precision.py, test_torch_log_softmax.py); what the
+    # JAX package refuses raises
+    for good in ({"dtype": "bfloat16"}, {"return_logits": False}):
+        build_net("PointNet2", {**HP, **good})
+    for bad, exc in (({"dtype": "float64"}, ValueError), ({"remat": True}, TypeError)):
+        with pytest.raises(exc):
             build_net("PointNet2", {**HP, **bad})
 
 
