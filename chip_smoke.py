@@ -12,7 +12,8 @@ PyTorch built for CUDA. Phases, one line each:
 2. the kernels built from ``myria3d_tpu_torch/csrc`` (nvcc, sm_90a), and
    each kernel's registers, stack frame and spill bytes (``cuobjdump
    --dump-resource-usage`` of the library, ``ptxas -v``); every K1/K3/K7
-   instantiation (K7: K = 1, 16 and the generic 32), every width's K2
+   instantiation (K1: K = 1, 4, 16, the generic 32 and the ball route's 32;
+   K7: K = 1, 16 and the generic 32), every width's K2
    (f32, and K2_16's bfloat16 and float16 x) and K6 instantiation, every
    K4 instantiation, K5 and every K8 instantiation
    (1, 2, 3, 4, 6, 8, 12 and 14 points a thread in registers) must have
@@ -134,14 +135,21 @@ PyTorch built for CUDA. Phases, one line each:
    and a mask that is no prefix; each case's route from the wrapper's rule
    (``cuda_fps.route``), the card's time with the host ahead and the us a
    round, the plain version's time, the bound and the rounds; (b) K1 at the PointNet++ searches
-   (B=48, full scans): the K=32 ball queries and the k=3 feature
-   propagation searches, bit-equal and timed; (c) ``Model.interp_step`` at
+   (full scans, B=48 and 16): the four K=32 ball queries on K1's ball route
+   (lists from r^2, centroids walked in x order where they fill more than
+   one tile) and the four k=3 feature propagation searches on the 4-slot
+   list (row order), each bit-equal to its plain version and timed with the
+   host ahead beside the other walk and the generic 32-slot list at the
+   same shape (the route before the ball route); (c) ``Model.interp_step`` at
    the bench shape (B=48, N=12288, M=32768; x-sorted subtiles in
    normalized units, window 4608) against the plain path (argmax agreement
-   >= 0.999), ms per batch, Mpts/s, host enqueue, launches per step (K1 8,
-   K3 1, K8 4) and a profile; (d) the train step at B=16, N=12288: the
+   >= 0.999), ms per batch, Mpts/s, host enqueue, launches per step (K1 8:
+   4 on the ball route, 4 on the 4-slot list; K3 1, K8 4), turns against
+   the generic searches (new, generic, generic, new; the outputs equal) and
+   a profile; (d) the train step at B=16, N=12288: the
    gradient's cosine against the plain path (>= 0.999), ms per step, peak
-   memory, launches per step (K1 8, K4 8, K8 4) and a profile (both
+   memory, launches per step (K1 8 as in (c), K4 8, K8 4), the same turns
+   and a profile (both
    profiles give K8's device ms per step wherever it ranks); then ``Trainer.fit`` with
    ``model=pointnet2_model`` on the toy-tile subtiles (20 steps; the loss
    must fall) and ``predict()`` with its checkpoint on the card and on the
@@ -193,6 +201,10 @@ and the rest at the FP32 rate; it is the bound they are held to in the
 kernels line, as they run those products on the tensor cores. K4's
 carries ``library_ms``, the time of ``index_add_`` of the cotangent rows.
 Then one JSON line with the kernels and, last, the device JSON line.
+K1's PointNet++ routes have entries of their own, ``K1_ball`` (the ball
+route) and ``K1_small`` (the 4-slot list): phase 16b's B=48 times, and the
+launches of phase 16's predict and train steps; ``K1``'s entry is as
+before.
 K2_16 has its own entry in the kernels line (phase 18a's times at bf16,
 the bound with 2-byte x rows); K2's stays its f32 instantiation.
 Any failure, a missing CUDA device, or a module of JAX or of the JAX
@@ -444,7 +456,8 @@ def phase_device():
 # per width and x's element type: f32, and bfloat16 / float16 for K2_16) and
 # K6 (lfa_tile.cuh's edge tile, one per width), K4 (float4 and scalar rows),
 # K5 and K8 (points a thread: cuda_fps.PTS)
-CLEAN_KERNELS = {"knn_topk_kernel<": 3, "knn_interp_kernel<": 2, "knn_topk_mxu_kernel<": 3,
+CLEAN_KERNELS = {"knn_topk_kernel<": 4, "knn_ball_kernel<": 1, "knn_interp_kernel<": 2,
+                 "knn_topk_mxu_kernel<": 3,
                  "lfa_kernel<": 18, "lfa_bwd_kernel<": 6, "gather_bwd_kernel<": 2,
                  "relstats_kernel<": 2, "fps_kernel<": 8}
 
@@ -505,7 +518,8 @@ def check_k1(idx_k, d2_k, idx_p, d2_p, what: str) -> float:
     need(bool(torch.equal(d2_k, d2_p)), f"K1 {what}: d2 differs from the plain version")
     need(bool(torch.equal(idx_k, idx_p)), f"K1 {what}: indices differ from the plain version "
          f"at {int((idx_k != idx_p).sum())} slots")
-    return float((d2_k - d2_p).abs().max())
+    # equal slots count 0 (the ball route's unfilled slots are +inf on both)
+    return float(torch.where(d2_k == d2_p, 0.0, (d2_k - d2_p).abs()).max())
 
 
 def scale_err(a, b, tol: float, what: str) -> float:
@@ -608,14 +622,17 @@ def launch_counters():
     from myria3d_tpu_torch.ops.cuda_fps import fps
     from myria3d_tpu_torch.ops.cuda_gather import gather_bwd, inverse_map
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp
-    from myria3d_tpu_torch.ops.cuda_knn import knn_topk, knn_topk_mxu
+    from myria3d_tpu_torch.ops.cuda_knn import ball_route, knn_topk, knn_topk_mxu, small_list
     from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention, lfa_attention_x16
     from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train_bwd, rel_stats
 
     # K4 counts its kernel's every launch: the gathers' VJP and K6's dx
     # scatter; inverse_map is K4's map, built by the kernels beside it; K2
-    # counts its f32 instantiations, K2_16 its bfloat16 and float16 ones
-    return {"K1": knn_topk, "K2": lfa_attention, "K2_16": lfa_attention_x16, "K3": knn_interp,
+    # counts its f32 instantiations, K2_16 its bfloat16 and float16 ones;
+    # K1 every launch of K1, K1_ball its ball route's and K1_small its 4-slot
+    # list's
+    return {"K1": knn_topk, "K1_ball": ball_route, "K1_small": small_list, "K2": lfa_attention,
+            "K2_16": lfa_attention_x16, "K3": knn_interp,
             "K4": gather_bwd, "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu, "K8": fps,
             "inverse_map": inverse_map}
 
@@ -694,6 +711,8 @@ def phase_step(model, dev):
     torch.cuda.synchronize()
     before = {n: fn.launches for n, fn in counters.items()}
     per_step = {n: (before[n] - start[n]) / 9 for n in counters if before[n] > start[n]}
+    need(not {"K1_ball", "K1_small"} & set(per_step),
+         f"RandLA-Net's predict step ran a PointNet++ route of K1: {per_step}")
     with plain_versions():
         plain_ms, out_p = wall_ms(2)
     need(before == {n: fn.launches for n, fn in counters.items()}, "plain path launched a kernel")
@@ -1176,8 +1195,10 @@ def phase_train_step(dev):
         want = {True: {"K4": 8, "K5": 4, "K6": 8, "inverse_map": 4},
                 False: {"K4": 8, "inverse_map": 4}}
         for fused, counts in want.items():
-            got = {name: launches[fused].get(name, 0) for name in ("K4", "K5", "K6", "inverse_map")}
-            need(got == {"K4": 0, "K5": 0, "K6": 0, "inverse_map": 0, **counts},
+            got = {name: launches[fused].get(name, 0)
+                   for name in ("K4", "K5", "K6", "inverse_map", "K1_ball", "K1_small")}
+            need(got == {"K4": 0, "K5": 0, "K6": 0, "inverse_map": 0, "K1_ball": 0,
+                         "K1_small": 0, **counts},
                  f"B={b} fused={fused}: launches per step {got}")
         c = cos(grad[True], grad[False])
         need(c >= 0.999, f"B={b}: fused/unfused gradient cosine {c:.6f}")
@@ -1888,6 +1909,8 @@ FPS_SHAPES = tuple(zip(PN2_STAGES[:-1], PN2_STAGES[1:]))
 FPS_LARGE = (40_960, 10_240)                 # the largest bucket of pctl.batching
 FPS_INSTR = 10                               # per point a round: 3 sub, 3 mul, 2 add, min, compare
 PN2_HPARAMS = {"num_features": 9, "num_classes": 7}   # configs/model/pointnet2_model.yaml
+PN2_RADII = (0.05, 0.1, 0.2, 0.4)            # PointNet2's defaults (pointnet2.py)
+PN2_NEIGHBOURS = 32
 PN2_TRAIN_B = 16
 # the finetuning callback's groups on PointNet++ (its FC head is RandLA-Net's
 # mlp_classif, as in the JAX package: PointNet++'s "head" stays frozen)
@@ -2001,41 +2024,107 @@ def normalized(a: np.ndarray) -> np.ndarray:
     return (a / 25.0 - 1.0).astype(np.float32)
 
 
-def phase_pn2_searches(dev):
-    """16b: K1 at the PointNet++ shapes (B=48, full scans): the K=32 ball
-    queries of the four set abstractions (centroids from K8 into the stage's
-    cloud) and the k=3 searches of the four feature propagations (the
-    stage's cloud into its centroids), bit-equal to the plain version."""
+def pn2_searches(dev, b: int = B, seed: int = 3):
+    """The eight PointNet++ searches at full scale (16b), on the x-sorted
+    bench subtiles in normalized units with K8's centroids: ``(label, q4,
+    k4, query mask, k, r2)``, each set abstraction's ball query (its
+    centroids into the stage's cloud, k = 32, ``r2`` its radius's f32
+    square) and each feature propagation's k=3 search (the stage's cloud
+    into its centroids, ``r2`` None)."""
     import torch
 
     from myria3d_tpu_torch.ops.cuda_fps import fps
-    from myria3d_tpu_torch.ops.cuda_knn import _windows, knn_topk, knn_topk_plain
-    from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows
+    from myria3d_tpu_torch.ops.knn import ball_r2, centred_clouds, gather_rows
 
-    _, pos, mask, _, _ = bench_subtiles(3)
-    pos, mask = torch.from_numpy(normalized(pos)).to(dev), torch.from_numpy(mask).to(dev)
+    _, pos, mask, _, _ = bench_subtiles(seed)
+    pos = torch.from_numpy(normalized(pos[:b])).to(dev)
+    mask = torch.from_numpy(mask[:b]).to(dev)
     stages = [(pos, mask)]
     for m in PN2_STAGES[1:]:
         p, v = stages[-1]
         sel, sel_mask = fps(p, v, m)
         stages.append((gather_rows(p, sel), sel_mask))
-    rows = []
-    for (p, v), (c, cm) in zip(stages[:-1], stages[1:]):
-        for label, (qp, qm), (kp, km), k in (
-                (f"K=32 ball query {c.shape[1]}<-{p.shape[1]}", (c, cm), (p, v), 32),
-                (f"k=3 FP {p.shape[1]}<-{c.shape[1]}", (p, v), (c, cm), 3)):
-            q4, k4 = centred_clouds(qp, kp, km)
-            idx_k, d2_k = knn_topk(q4, k4, k, query_mask=qm)
-            idx_p, d2_p = knn_topk_plain(q4, k4, k, query_mask=qm)
+    out = []
+    for (p, v), (c, cm), radius in zip(stages[:-1], stages[1:], PN2_RADII):
+        out.append((f"K=32 ball query {c.shape[1]}<-{p.shape[1]}",
+                    *centred_clouds(c, p, v), cm, PN2_NEIGHBOURS, ball_r2(radius)))
+        out.append((f"k=3 FP {p.shape[1]}<-{c.shape[1]}", *centred_clouds(p, c, cm), v, 3, None))
+    return out
+
+
+def phase_pn2_searches(dev):
+    """16b: K1 at the PointNet++ searches (full scans), B=48 and B=16: the
+    ball route (lists from r^2) at the four ball queries and the 4-slot list
+    at the four k=3 searches, as the model calls them (the ball queries
+    x-ordered, ``order="x"``, which one tile of queries takes in row order;
+    the k=3 searches in row order), bit-equal to their plain versions;
+    timed with the host ahead beside the other walk (row order for a ball
+    query, x order for a k=3 search) and the generic 32-slot list of PR
+    12's path at the same shape (for a ball query, its 32 nearest keys
+    before the radius), all in this call. Returns the B=48 rows of the
+    kernels line, ball route and 4-slot list apart."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_knn import (
+        TILE_Q,
+        _windows,
+        knn_topk,
+        knn_topk_plain,
+        launch,
+    )
+
+    rows = {"K1_ball": [], "K1_small": []}
+    for b in (B, PN2_TRAIN_B):
+        for label, q4, k4, qm, k, r2 in pn2_searches(dev, b):
+            ball = r2 is not None
+            order, other = ("x", None) if ball else (None, "x")
+            idx_k, d2_k = knn_topk(q4, k4, k, query_mask=qm, order=order, r2=r2)
+            idx_p, d2_p = knn_topk_plain(q4, k4, k, query_mask=qm, r2=r2)
             err = check_k1(idx_k, d2_k, idx_p, d2_p, label)
-            ms = cuda_ms(lambda: knn_topk(q4, k4, k, query_mask=qm), 5, ahead=True)
-            plain_ms = cuda_ms(lambda: knn_topk_plain(q4, k4, k, query_mask=qm), 1, warmup=0)
+            ms = cuda_ms(lambda: knn_topk(q4, k4, k, query_mask=qm, order=order, r2=r2), 5,
+                         ahead=True)
+            other_ms = cuda_ms(lambda: launch(q4, k4, k, query_mask=qm, order=other, r2=r2), 5,
+                               ahead=True)
+            generic_ms = cuda_ms(lambda: launch(q4, k4, 32 if ball else k, list_k=32), 5,
+                                 ahead=True)
+            plain_ms = cuda_ms(lambda: knn_topk_plain(q4, k4, k, query_mask=qm, r2=r2), 1,
+                               warmup=0)
             bnd = bound(PAIR_INSTR * float(qm.sum()) * _windows(q4, k4, 0, qm)[1],
                         nbytes(q4, k4, idx_k, d2_k))
-            print(f"phase 16b K1 {label} B={B} (full scan): bit-equal, {ms:.3f} ms, plain "
-                  f"{plain_ms:.1f} ms, {bounds_text(bnd)}")
-            rows.append((err, ms, plain_ms, bnd, None))
+            walk = "x-ordered" if ball and q4.shape[1] > TILE_Q else "row order"
+            print(f"phase 16b K1 {label} B={b} ({'ball route' if ball else '4-slot list'}, "
+                  f"{walk}): bit-equal, {ms:.3f} ms ({'row order' if ball else 'x-ordered'} "
+                  f"{other_ms:.3f} ms; generic 32-slot list {generic_ms:.3f} ms, "
+                  f"{generic_ms / ms:.2f}x), plain {plain_ms:.1f} ms, {bounds_text(bnd)}")
+            if b == B:
+                rows["K1_ball" if ball else "K1_small"].append((err, ms, plain_ms, bnd, None))
     return rows
+
+
+@contextlib.contextmanager
+def generic_searches():
+    """PointNet++'s searches as before the ball route (16c, 16d compare the
+    steps):
+    the ball query as the generic 32-slot list's 32 nearest keys filtered
+    by the radius, the k=3 searches on the generic list, both in row order."""
+    from myria3d_tpu_torch.models.modules import pointnet2
+    from myria3d_tpu_torch.ops import cuda_knn
+    from myria3d_tpu_torch.ops import knn as knn_ops
+
+    def ball(query_pos, key_pos, key_mask, k, radius, query_mask=None):
+        idx, _, neigh_valid = knn_ops.ball_query(query_pos, key_pos, key_mask, k, radius,
+                                                 query_mask)
+        return idx, neigh_valid
+
+    def generic(q4, k4, k, window=0, query_mask=None, order=None):
+        return cuda_knn.launch(q4, k4, k, window, query_mask, list_k=32)
+
+    saved = pointnet2.ball_neighbours, knn_ops.knn_topk
+    pointnet2.ball_neighbours, knn_ops.knn_topk = ball, generic
+    try:
+        yield
+    finally:
+        pointnet2.ball_neighbours, knn_ops.knn_topk = saved
 
 
 def pn2_model(dev, seed: int = 0):
@@ -2078,6 +2167,35 @@ def pn2_train_batch(dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (x, pos / 25.0, y, mask))
 
 
+# launches per PointNet++ step (K1's ball route and 4-slot list are K1's
+# launches too: four ball queries, four k=3 searches)
+PN2_PREDICT_LAUNCHES = {"K1": 8, "K1_ball": 4, "K1_small": 4, "K3": 1, "K8": 4}
+PN2_TRAIN_LAUNCHES = {"K1": 8, "K1_ball": 4, "K1_small": 4, "K4": 8, "K8": 4}
+
+
+def pn2_turns(step, first_ms: float, reps: int) -> str:
+    """The step on the generic searches (``generic_searches``) and on the
+    new routes in turns after the new routes' first (new, generic,
+    generic, new), ``reps`` steps a turn, wall clock around a
+    synchronisation: the ms of each turn."""
+    import torch
+
+    def turn():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    with generic_searches():
+        step()
+        generic = [turn(), turn()]
+    new = [first_ms, turn()]
+    return (f"turns new {new[0]:.1f}, generic {generic[0]:.1f}, generic {generic[1]:.1f}, new "
+            f"{new[1]:.1f} ms (generic / new {sum(generic) / sum(new):.3f})")
+
+
 def phase_pn2_predict_step(dev):
     """16c: ``Model.interp_step`` of a full-width PointNet++ at the bench
     shape (B=48, N=12288, M=32768; x-sorted subtiles in normalized units,
@@ -2086,7 +2204,7 @@ def phase_pn2_predict_step(dev):
 
     step, full_mask = pn2_predict_step(dev)
 
-    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K3", "K8")}
+    counters = {k: v for k, v in launch_counters().items() if k in PN2_PREDICT_LAUNCHES}
     step()
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -2099,7 +2217,12 @@ def phase_pn2_predict_step(dev):
     ms = (time.perf_counter() - t0) * 1e3 / reps
     launches = {n: fn.launches for n, fn in counters.items()}
     per_step = {n: v / reps for n, v in launches.items()}
-    need(per_step == {"K1": 8, "K3": 1, "K8": 4}, f"predict step launches per step {per_step}")
+    need(per_step == PN2_PREDICT_LAUNCHES, f"predict step launches per step {per_step}")
+    turns = pn2_turns(step, ms, reps)
+    with generic_searches():
+        out_g = step()
+    need(bool(torch.equal(out_g, out_k)), "PointNet++ predict step: the generic searches' "
+         "output differs from the new routes'")
     t0 = time.perf_counter()
     for _ in range(3):
         step()
@@ -2115,7 +2238,8 @@ def phase_pn2_predict_step(dev):
     need(agree >= 0.999, f"PointNet++ predict step: argmax agreement {agree:.5f} < 0.999")
     print(f"phase 16c PointNet++ predict step B={B} N={N} M={M}: kernels {ms:.1f} ms/batch "
           f"({B * RAW / ms / 1e3:.3f} Mpts/s), plain {plain_ms:.1f} ms/batch, argmax agreement "
-          f"{agree:.6f}, launches per step {per_step}; host enqueue {host_ms:.1f} ms/step")
+          f"{agree:.6f}, launches per step {per_step}; host enqueue {host_ms:.1f} ms/step; "
+          f"{turns} [{CARD}]")
     print(f"phase 16c profile: {profile_steps(step, keep=('fps_kernel',))}")
     return launches
 
@@ -2127,7 +2251,7 @@ def phase_pn2_train_step(dev):
     import torch
 
     x, pos, y, mask = pn2_train_batch(dev)
-    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K4", "K8")}
+    counters = {k: v for k, v in launch_counters().items() if k in PN2_TRAIN_LAUNCHES}
 
     def grads(model):
         model.optimizer.zero_grad(set_to_none=True)
@@ -2159,13 +2283,15 @@ def phase_pn2_train_step(dev):
     launches = {n: fn.launches for n, fn in counters.items()}
     per_step = {n: v / reps for n, v in launches.items()}
     need(np.isfinite(float(loss)) and np.isfinite(chk), "non-finite PointNet++ train step")
-    need(per_step == {"K1": 8, "K4": 8, "K8": 4}, f"train step launches per step {per_step}")
-    print(f"phase 16d PointNet++ train step B={PN2_TRAIN_B} N={TRAIN_N}: {ms:.1f} ms/step "
-          f"({PN2_TRAIN_B * TRAIN_N / ms / 1e3:.3f} Mpts/s), peak {peak:.2f} GiB, gradient "
-          f"cosine kernel/plain {cos:.6f}, launches per step {per_step}")
+    need(per_step == PN2_TRAIN_LAUNCHES, f"train step launches per step {per_step}")
 
     def step():
         return model.train_step(x, pos, y, mask, torch.Generator(device=dev).manual_seed(0))
+
+    turns = pn2_turns(step, ms, reps)
+    print(f"phase 16d PointNet++ train step B={PN2_TRAIN_B} N={TRAIN_N}: {ms:.1f} ms/step "
+          f"({PN2_TRAIN_B * TRAIN_N / ms / 1e3:.3f} Mpts/s), peak {peak:.2f} GiB, gradient "
+          f"cosine kernel/plain {cos:.6f}, launches per step {per_step}; {turns} [{CARD}]")
 
     print(f"phase 16d profile: {profile_steps(step, keep=('fps_kernel',))}")
     return launches
@@ -2701,12 +2827,14 @@ def main() -> int:
             phase_pn2_data_parallel(dev, work)
             with torch.inference_mode():
                 stats["K8"] = phase_fps(dev)
-                phase_pn2_searches(dev)
+                stats.update(phase_pn2_searches(dev))
                 pn2 = phase_pn2_predict_step(dev)
             pn2_train = phase_pn2_train_step(dev)
             phase_pn2_fit(dev, work)
-            # K8's launches: the PointNet++ predict and train steps' runs
-            launches["K8"] = pn2["K8"] + pn2_train["K8"]
+            # K8's and K1's PointNet++ routes' launches: the PointNet++
+            # predict and train steps' runs
+            for name in ("K8", "K1_ball", "K1_small"):
+                launches[name] = pn2[name] + pn2_train[name]
             phase_parity(dev, work)
             model = load_checkpoint(ASSETS, dev)
             stats["K2_16"], dtype_launches = phase_compute_dtype(model, dev, work)
@@ -2722,6 +2850,8 @@ def main() -> int:
         print(f"FAIL: modules of JAX or of the JAX package were loaded: {foreign}")
         return 1
     sources = {"K1": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:238"),
+               "K1_ball": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
+               "K1_small": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
                "K2": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
                "K2_16": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
                "K3": ("myria3d_tpu_torch/csrc/interp.cu", "myria3d_tpu/ops/pallas_knn.py:475"),

@@ -39,9 +39,11 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> argument types (pointers and the stream as void*)
+_F = ctypes.c_float
+# entry point -> argument types (pointers and the stream as void*; a float
+# argument must be c_float, or ctypes passes a double)
 _SIGNATURES = {
-    "m3d_knn_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "m3d_knn_topk": [_P] * 5 + [_I] * 7 + [_F, _P, _P, _P],
     "m3d_knn_topk_mxu": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "m3d_knn_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "m3d_lfa": [_P] * 6 + [_I] * 5 + [_P, _P],

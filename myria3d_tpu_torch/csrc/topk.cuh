@@ -19,12 +19,18 @@
 // that path:
 //
 // 1. The K-list is a compile-time size held in registers (``TopK<K>``):
-//    K = 16 (encoder self-kNN), 1 (decoder searches), 10 (K3), and one
-//    generic K = 32 list for any other k in [1, 32], which keeps the 32
-//    best and writes the first k. The K-th best is the last slot, a
-//    register. Every index into the list is static after unrolling, so
-//    nothing of it goes to local memory (chip_smoke.py phase 2 reads the
-//    stack frame and spills of every instantiation and fails on either).
+//    K = 16 (encoder self-kNN), 1 (decoder searches), 4 (any k in [2, 4]:
+//    PointNet++'s k=3 propagation searches, which the 32-slot list made
+//    keep 32 and write 3), 10 (K3), and one generic K = 32 list for any
+//    other k in [1, 32], which keeps the 32 best and writes the first k.
+//    The K-th best is the last slot, a register. Every index into the list
+//    is static after unrolling, so nothing of it goes to local memory
+//    (chip_smoke.py phase 2 reads the stack frame and spills of every
+//    instantiation and fails on either). The list's first bound is a
+//    parameter (``TopK::init``): +inf, or for K1's ball route the radius's
+//    r^2, so that a key outside the ball fails the one-compare filter and
+//    never inserts (the generic list kept the 32 nearest keys of the whole
+//    cloud and inserted at nearly every key of an unsorted cloud).
 // 2. A thread holds Q queries of the tile; each staged key read from
 //    shared memory feeds its Q distance tests, and the block runs 256 / Q
 //    threads. A warp's 32 Q queries are one band of the tile's rows ranked
@@ -34,11 +40,17 @@
 //    12288 took 4.4 ms that way, 2.6 ms in bands). The narrower the band,
 //    the rarer such waits, against fewer tests per shared read. Measured at
 //    the predict shapes (scripts/tune_search_q.py): Q = 1 for K = 16 and 10
-//    (68 and 59 registers; bands of 32 rows, 6-12 % faster than Q = 2 and
+//    (64 and 59 registers; bands of 32 rows, 6-12 % faster than Q = 2 and
 //    far faster than Q = 4), Q = 2 for K = 1 (40 registers; its insertion
 //    is cheap, so sharing the reads wins: 11 % faster than Q = 4), Q = 1
 //    for the generic 32-slot list (two such lists spilled at 168
-//    registers). Four blocks of a 56 KB window fit an SM. K7's full scans
+//    registers) and for the 4-slot list (43 registers; PointNet++'s k=3
+//    searches, B=48: 9-32 % less time than Q = 2, 31-67 % less than Q = 4).
+//    A tile is x-ordered: its rows are x-sorted queries, or where the
+//    queries' rows are in no order (PointNet++'s FPS centroids, at its ball
+//    queries) the tile walks a permutation of them in x order (``perm``)
+//    and writes each result to its own row. Four blocks of a 56 KB window
+//    fit an SM. K7's full scans
 //    (self 12288, B=48) keep the same choices: Q = 2 for K = 16 was 33 %
 //    slower, Q = 1 for K = 1 18 % slower and Q = 4 3 % slower.
 // 3. Near keys first. Each warp binary-searches its queries' mean x into
@@ -161,10 +173,13 @@ struct TopK {
   float d[K];
   int idx[K];
 
-  __device__ __forceinline__ void init() {
+  // Every slot at (bound, INT_MAX): a candidate then enters iff its
+  // distance is at most ``bound`` (+inf: any; the ball route's r^2: only
+  // keys inside the ball), and a slot still at INT_MAX at the end is unfilled.
+  __device__ __forceinline__ void init(float bound = INFINITY) {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      d[j] = INFINITY;
+      d[j] = bound;
       idx[j] = INT_MAX;
     }
   }
@@ -391,15 +406,15 @@ __device__ __forceinline__ void scan_slab(const float4* slab, int n, int base, f
 // ``search_smem_bytes(win_len)``). ``tile_x`` is the tile's middle query x
 // (the ring's first chunk), ``warp_x`` the warp's (its scan's centre);
 // ``live`` is warp-uniform, and a warp that is not live stages and
-// synchronises with the block but scans nothing. Every thread of the
-// block must call this.
+// synchronises with the block but scans nothing. ``bound`` is the lists'
+// first bound (``TopK::init``). Every thread of the block must call this.
 template <typename Score, int K, int Q>
 __device__ __forceinline__ void search_tile(float4* smem, const float4* __restrict__ keys,
                                             int nk, int start, int win_len, float tile_x,
                                             float warp_x, bool live, const float4 (&qv)[Q],
-                                            TopK<K> (&top)[Q]) {
+                                            TopK<K> (&top)[Q], float bound = INFINITY) {
 #pragma unroll
-  for (int j = 0; j < Q; ++j) top[j].init();
+  for (int j = 0; j < Q; ++j) top[j].init(bound);
   const int len = win_len <= STAGE_MAX ? win_len : RING;
   const int n_chunks = (win_len + len - 1) / len;
   // the ring starts at the last chunk whose first key lies at or left of
@@ -436,23 +451,30 @@ __device__ __forceinline__ void search_tile(float4* smem, const float4* __restri
 // the tile's middle row and the warp's centre x (the mean x of its used
 // queries, the same in every lane).
 //
-// The tile's 256 rows are ranked by y, unused rows last, and the warp w
-// takes ranks [32 Q w, 32 Q (w + 1)), rank 32 Q w + lane + 32 j to query j
-// of a lane. A tile is x-sorted, so a warp's queries then lie in one band
-// of y as well as x: a key near none of them fails the filter of every
-// lane, and the warp seldom waits on an insertion that only a few of its
-// lanes make. Unused rows fill whole warps, which skip the scan. ``scratch``
-// needs 512 words and is free again when this returns.
+// Row t of the tile walk is query ``perm[t]`` of the cloud when a
+// permutation is given (``perm``: the queries in x order, for clouds whose
+// rows are not x-sorted), else query t; ``rows`` are the queries' own
+// indices, so results go to their own rows. The tile's 256 rows are ranked
+// by y, unused rows last, and the warp w takes ranks [32 Q w, 32 Q (w + 1)),
+// rank 32 Q w + lane + 32 j to query j of a lane. A tile is x-ordered, so a
+// warp's queries then lie in one band of y as well as x: a key near none of
+// them fails the filter of every lane, and the warp seldom waits on an
+// insertion that only a few of its lanes make. Unused rows fill whole
+// warps, which skip the scan. ``scratch`` needs 512 words and is free again
+// when this returns.
 template <int Q>
 __device__ __forceinline__ void tile_queries(float4* scratch, const float4* __restrict__ qb,
                                              const unsigned char* __restrict__ qmask, int nq,
                                              int tile, int (&rows)[Q], float4 (&qv)[Q],
-                                             bool (&use)[Q], float& tile_x, float& warp_x) {
+                                             bool (&use)[Q], float& tile_x, float& warp_x,
+                                             const int* __restrict__ perm = nullptr) {
   float* ys = reinterpret_cast<float*>(scratch);
   int* order = reinterpret_cast<int*>(ys + TILE_Q);
   const int row_base = tile * TILE_Q;
+  // the query at row t of the walk (t itself past nq: an unused row)
+  auto query_at = [&](int t) { return perm && t < nq ? perm[t] : t; };
   for (int i = threadIdx.x; i < TILE_Q; i += blockDim.x) {
-    const int r = row_base + i;
+    const int r = query_at(row_base + i);
     const float y = r < nq && (!qmask || qmask[r]) ? qb[r].y : INFINITY;
     ys[i] = isnan(y) ? INFINITY : y;
   }
@@ -473,7 +495,7 @@ __device__ __forceinline__ void tile_queries(float4* scratch, const float4* __re
   float sx = 0.f, n = 0.f;
 #pragma unroll
   for (int j = 0; j < Q; ++j) {
-    const int r = row_base + order[first + 32 * j];
+    const int r = query_at(row_base + order[first + 32 * j]);
     rows[j] = r;
     use[j] = r < nq && (!qmask || qmask[r]);
     qv[j] = r < nq ? qb[r] : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -487,7 +509,7 @@ __device__ __forceinline__ void tile_queries(float4* scratch, const float4* __re
     sx += __shfl_xor_sync(0xffffffffu, sx, o);
     n += __shfl_xor_sync(0xffffffffu, n, o);
   }
-  tile_x = qb[min(row_base + TILE_Q / 2, nq - 1)].x;
+  tile_x = qb[query_at(min(row_base + TILE_Q / 2, nq - 1))].x;
   warp_x = __shfl_sync(0xffffffffu, n > 0.f ? sx / n : tile_x, 0);
   __syncthreads();  // the scratch is the window's staging buffer
 }

@@ -3,13 +3,15 @@
 Port of ``myria3d_tpu/models/modules/pointnet2.py`` (``SetAbstraction``
 :30, ``FeaturePropagation`` :69, ``PointNet2`` :89), the model zoo's second
 family: masked farthest-point sampling (K8, ``ops.fps``), the ball query
-(the K nearest valid points inside the radius, on K1), a grouped PointNet
-with a masked max-pool, and k=3 inverse-distance feature propagation (K1's
-search, then the weighting in torch). Same hparams and defaults; the
-parameter names are those ``utils.checkpoint.flax_to_torch_state_dict``
-gives the JAX tree (``fc0.lins.0``, ``sa1.pointnet.lins.2``,
-``fp4.nn.mlp.lins.0``, ``head.norms.0``, ``fc_classif``), so converted
-weights load with ``strict=True``.
+(the K nearest valid points inside the radius, on K1's ball route), a
+grouped PointNet with a masked max-pool, and k=3 inverse-distance feature
+propagation (K1's 4-slot list, then the weighting in torch). The ball query
+walks its centroids in x order (FPS gives them in no order). Same hparams
+and defaults; the parameter names are those
+``utils.checkpoint.flax_to_torch_state_dict`` gives the JAX tree
+(``fc0.lins.0``, ``sa1.pointnet.lins.2``, ``fp4.nn.mlp.lins.0``,
+``head.norms.0``, ``fc_classif``), so converted weights load with
+``strict=True``.
 
 In training the neighbour gathers of the features of each set abstraction
 and of each feature propagation go through K4
@@ -41,7 +43,7 @@ from myria3d_tpu_torch.models.modules.nn import BN_MOMENTUM, SharedMLP, set_comp
 from myria3d_tpu_torch.ops.cuda_gather import gather_neighbors, gather_neighbors_plain, inverse_map
 from myria3d_tpu_torch.ops.cuda_interp import idw_combine
 from myria3d_tpu_torch.ops.fps import farthest_point_sampling
-from myria3d_tpu_torch.ops.knn import ball_query, gather_rows, knn
+from myria3d_tpu_torch.ops.knn import ball_neighbours, gather_rows, knn
 
 NEG = -1e30
 FP_WIDTHS = (256, 256, 128, 128)   # the decoder's widths, deepest first (pointnet2.py:127)
@@ -74,8 +76,8 @@ class SetAbstraction(nn.Module):
         m = max(1, pos.shape[1] // self.decimation)
         sel_idx, sel_mask = farthest_point_sampling(pos, mask, m)
         new_pos = gather_rows(pos, sel_idx)                              # (B, M, 3)
-        idx, _, neigh_valid = ball_query(new_pos, pos, mask, self.num_neighbors, self.radius,
-                                         query_mask=sel_mask)
+        idx, neigh_valid = ball_neighbours(new_pos, pos, mask, self.num_neighbors, self.radius,
+                                           query_mask=sel_mask)
         # positions carry no gradient: a plain gather; the features through K4
         pos_j = gather_neighbors_plain(pos, idx, neigh_valid)
         x_j = neighbour_rows(self, x, idx, neigh_valid)
@@ -100,6 +102,8 @@ class FeaturePropagation(nn.Module):
         self.nn = nn.ModuleDict({"mlp": SharedMLP([in_channels, *mlp], bn_momentum=bn_momentum)})
 
     def forward(self, x, pos, mask, x_skip, pos_skip, mask_skip):
+        # in row order: on the H100 the 4-slot list gained nothing from an
+        # x-ordered walk, whose sort cost more (PERF.md §6)
         idx, d2, neigh_valid = knn(pos_skip, pos, mask, self.k, query_mask=mask_skip)
         feats = neighbour_rows(self, x, idx, neigh_valid)                # (B, Nt, k, C)
         up = idw_combine(feats, d2, neigh_valid, mask_skip).to(x.dtype)

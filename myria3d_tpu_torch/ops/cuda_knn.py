@@ -17,6 +17,19 @@ with pad rows. When the window would cover every key chunk the search is a
 full scan. Selection is EXACT within the scanned keys: the K smallest
 squared distances, ties to the lower key index; distances are full f32.
 
+The list: a register list of 1 (k = 1), 4 (2 <= k <= 4), 16 (k = 16) or
+32 slots (any other k), which keeps the best of its size and writes the
+first k (:func:`list_size`). ``order`` gives the kernel's tile walk (a
+per-cloud permutation of the queries, or ``"x"``: their stable x order,
+masked queries last, :func:`x_order`), so that a block's 256 queries are
+neighbours where the clouds' rows are not x-sorted; the outputs do not
+depend on it. ``r2`` takes the ball route: every slot starts at
+``(r2, INT_MAX)``, so only keys with ``d2 <= r2`` enter, and the K nearest
+of those are kept (the K nearest keys overall, filtered by the radius,
+keep the same valid slots in the same order); unfilled slots and the rows
+of queries outside ``query_mask`` read ``(-1, +inf)``, and a tile of
+masked queries skips its scan.
+
 ``variant="mxu"`` is the JAX package's ``_knn_kernel``
 (``pallas_knn.py:115``): a full scan (a window raises, as there) that ranks
 keys by ``|k|^2 - 2 q.k`` in f32 and adds ``|q|^2`` back afterwards,
@@ -29,6 +42,8 @@ every real key and only the first ``k`` virtual pad rows
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 
@@ -38,9 +53,16 @@ TILE_Q = 256    # queries per window tile (one CUDA block)
 BINS = 512      # window base granularity and key padding multiple
 PAD_W = 1e4     # 4th coordinate of pad keys
 MAX_K = 32
+LISTS = (1, 4, 16, 32)   # the kNN route's register lists (csrc/knn.cu)
+BALL_LIST = 32           # the ball route's
+# the ball route's largest r2: below the d2 a pad key reads valid at
+# (``ops.knn.VALID_THRESH``, 0.25 PAD_W^2), so no pad key enters a list
+BALL_MAX_R2 = torch.nextafter(torch.tensor(0.25 * PAD_W * PAD_W),
+                              torch.tensor(0.0)).item()
 # elements of the (B, tiles, 256, window) key tensor the plain version
 # materializes per step
 _PLAIN_ELEMS = 1 << 26
+_UNFILLED = torch.iinfo(torch.int64).max   # the plain ball route's excluded key
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -119,6 +141,51 @@ def _check(q4: torch.Tensor, k4: torch.Tensor, k: int) -> None:
         raise ValueError("queries and keys must be float32")
 
 
+def list_size(k: int) -> int:
+    """The kNN route's register list for ``k`` neighbours (``LISTS``):
+    1 and 16 for themselves, 4 for k in [2, 4], else the generic 32."""
+    return 1 if k == 1 else 4 if k <= 4 else 16 if k == 16 else 32
+
+
+def x_order(q4: torch.Tensor, query_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, Nq) int32: each cloud's queries by a stable sort of their x,
+    the queries outside ``query_mask`` last (the kernel's tile walk)."""
+    x = q4[..., 0]
+    if query_mask is not None:
+        x = torch.where(query_mask, x, float("inf"))
+    return torch.sort(x, dim=1, stable=True).indices.to(torch.int32)
+
+
+def _resolve_order(order, q4: torch.Tensor, query_mask: torch.Tensor | None, window: int):
+    """The (B, Nq) int32 walk of ``order`` (None, ``"x"`` or a tensor), or
+    None for row order (also ``"x"`` with one tile of queries). A tensor
+    must be a permutation of each cloud's rows (checked: on the card one
+    synchronisation); anything else raises ``ValueError``."""
+    if order is None:
+        return None
+    if window:
+        raise ValueError("order applies to full scans only (a window needs x-sorted queries)")
+    if isinstance(order, str):
+        if order != "x":
+            raise ValueError(f"unknown order {order!r}")
+        # one tile holds every query: its walk changes nothing
+        return x_order(q4, query_mask) if q4.shape[1] > TILE_Q else None
+    b, nq = q4.shape[:2]
+    if not isinstance(order, torch.Tensor) or order.shape != (b, nq) \
+            or order.dtype != torch.int32 or order.device != q4.device:
+        raise ValueError(f"order must be an int32 (B, Nq) = ({b}, {nq}) tensor on the "
+                         "queries' device")
+    ar = torch.arange(nq, dtype=torch.int32, device=order.device)
+    if not bool((order.sort(dim=1).values == ar).all()):
+        raise ValueError("order must be a permutation of each cloud's query rows")
+    return order.contiguous()
+
+
+def _check_ball(r2) -> None:
+    if r2 is not None and not 0.0 <= r2 <= BALL_MAX_R2:
+        raise ValueError(f"r2={r2} must be in [0, {BALL_MAX_R2}] (below the pad keys' d2)")
+
+
 def require_float4(name: str, *tensors: torch.Tensor) -> None:
     """The kernels read (..., 4) rows as 16-byte vectors (and stage keys
     with 16-byte asynchronous copies): raise unless each row is aligned."""
@@ -127,16 +194,22 @@ def require_float4(name: str, *tensors: torch.Tensor) -> None:
 
 
 def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
-                   query_mask: torch.Tensor | None = None, variant: str = "vpu"):
+                   query_mask: torch.Tensor | None = None, variant: str = "vpu",
+                   order=None, r2: float | None = None):
     """Plain PyTorch version of K1: same windows, same exact selection
-    (of K7 for ``variant="mxu"``: :func:`knn_topk_mxu_plain`).
+    (of K7 for ``variant="mxu"``: :func:`knn_topk_mxu_plain`). ``order`` is
+    checked and changes nothing.
 
     Distances are summed in the kernel's association (w², then dx², dy²,
     dz², each op rounded); ranking is on int64 keys (distance bits << 32 |
     window position), so ties go to the lower key index exactly as in the
-    kernel.
+    kernel. With ``r2`` (the ball route) a key beyond ``r2``, and every key
+    of a query outside ``query_mask``, ranks last; a slot that only such
+    keys fill reads ``(-1, +inf)``.
     """
-    _check_variant(variant, window)
+    _check_variant(variant, window, order, r2)
+    _check_ball(r2)
+    _resolve_order(order, q4, query_mask, window)
     if variant == "mxu":
         return knn_topk_mxu_plain(q4, k4, k)
     _check(q4, k4, k)
@@ -153,6 +226,11 @@ def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
     qt = F.pad(q4, (0, 0, 0, n_tiles * TILE_Q - nq)).view(b, n_tiles, TILE_Q, 4)
     ar = torch.arange(win_len, device=q4.device)
     step = max(1, _PLAIN_ELEMS // (b * TILE_Q * win_len))
+    if r2 is not None:
+        r2_t = torch.tensor(r2, dtype=torch.float32, device=q4.device)
+        qm = (torch.ones((b, nq), dtype=torch.bool, device=q4.device) if query_mask is None
+              else query_mask.bool())
+        qm = F.pad(qm, (0, n_tiles * TILE_Q - nq)).view(b, n_tiles, TILE_Q, 1)
     idx_parts, d2_parts = [], []
     for t0 in range(0, n_tiles, step):
         st = start[:, t0:t0 + step]                                # (B, T)
@@ -165,9 +243,16 @@ def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
             d = qq[..., c] - kw[..., c]
             s = s + d * d
         key = (s.view(torch.int32).to(torch.int64) << 32) | ar
+        if r2 is not None:
+            key = torch.where((s <= r2_t) & qm[:, t0:t0 + t], key, _UNFILLED)
         top = key.topk(k, dim=-1, largest=False, sorted=True).values
-        idx_parts.append((top & 0xFFFFFFFF) + st[..., None, None])
-        d2_parts.append((top >> 32).to(torch.int32).view(torch.float32))
+        idx = (top & 0xFFFFFFFF) + st[..., None, None]
+        d2 = (top >> 32).to(torch.int32).view(torch.float32)
+        if r2 is not None:
+            idx = torch.where(top == _UNFILLED, -1, idx)
+            d2 = torch.where(top == _UNFILLED, float("inf"), d2)
+        idx_parts.append(idx)
+        d2_parts.append(d2)
     idx = torch.cat(idx_parts, dim=1).view(b, n_tiles * TILE_Q, k)[:, :nq]
     d2 = torch.cat(d2_parts, dim=1).view(b, n_tiles * TILE_Q, k)[:, :nq]
     return idx.to(torch.int32).contiguous(), d2.contiguous()
@@ -270,30 +355,35 @@ def knn_topk_mxu(q4: torch.Tensor, k4: torch.Tensor, k: int):
 knn_topk_mxu.launches = 0
 
 
-def _check_variant(variant: str, window: int) -> None:
+def _check_variant(variant: str, window: int, order=None, r2=None) -> None:
     if variant not in ("vpu", "mxu"):
         raise ValueError(f"unknown kNN kernel variant {variant!r}")
     if window and variant != "vpu":
         raise ValueError("windowed kNN requires the vpu variant")
+    if variant != "vpu" and (order is not None or r2 is not None):
+        raise ValueError("order and r2 are K1's (variant='vpu')")
 
 
-def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
-             query_mask: torch.Tensor | None = None, variant: str = "vpu"):
-    """K nearest keys of every query: ``(idx (B, Nq, k) int32,
-    d2 (B, Nq, k) float32)``, ascending.
-
-    CPU tensors take :func:`knn_topk_plain`; CUDA tensors launch the
-    kernel (or raise): K1, or K7 for ``variant="mxu"`` (full scan only).
-    ``window > 0`` requires x-sorted clouds.
-    """
-    _check_variant(variant, window)
-    if q4.device.type == "cpu":
-        return knn_topk_plain(q4, k4, k, window, query_mask, variant)
-    if variant == "mxu":
-        return knn_topk_mxu(q4, k4, k)
+def launch(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
+           query_mask: torch.Tensor | None = None, order=None, r2: float | None = None,
+           list_k: int | None = None):
+    """K1 on CUDA tensors, uncounted (:func:`knn_topk` counts): any list of
+    ``LISTS`` that holds ``k`` (``list_k``; by default :func:`list_size`,
+    and the ball route's ``BALL_LIST``), ``order`` and ``r2`` as
+    :func:`knn_topk`. Returns ``(idx, d2)``."""
     _check(q4, k4, k)
+    _check_ball(r2)
+    default = BALL_LIST if r2 is not None else list_size(k)
+    list_k = default if list_k is None else list_k
+    if list_k not in ((BALL_LIST,) if r2 is not None else LISTS) or k > list_k:
+        raise ValueError(f"no {list_k}-slot list for k={k} on the "
+                         f"{'ball' if r2 is not None else 'kNN'} route")
     _ext.require_cuda("knn_topk", q4, k4)
     require_float4("knn_topk", q4, k4)
+    perm = _resolve_order(order, q4, query_mask, window)
+    qmask = None
+    if r2 is not None and query_mask is not None:
+        qmask = query_mask.to(torch.uint8).contiguous()
     b, nq, _ = q4.shape
     nk = k4.shape[1]
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=q4.device)
@@ -305,12 +395,45 @@ def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
         code = _ext.lib().m3d_knn_topk(
             q4.data_ptr(), k4.data_ptr(),
             None if bases is None else bases.data_ptr(),
-            b, nq, nk, -(-nq // TILE_Q), win_len, k,
+            None if perm is None else perm.data_ptr(),
+            None if qmask is None else qmask.data_ptr(),
+            b, nq, nk, -(-nq // TILE_Q), win_len, k, list_k,
+            float("inf") if r2 is None else r2,
             idx.data_ptr(), d2.data_ptr(), _ext.stream_of(q4),
         )
     _ext.check(code, "m3d_knn_topk")
-    knn_topk.launches += 1
     return idx, d2
 
 
+def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
+             query_mask: torch.Tensor | None = None, variant: str = "vpu",
+             order=None, r2: float | None = None):
+    """K nearest keys of every query: ``(idx (B, Nq, k) int32,
+    d2 (B, Nq, k) float32)``, ascending.
+
+    CPU tensors take :func:`knn_topk_plain`; CUDA tensors launch the
+    kernel (or raise): K1, or K7 for ``variant="mxu"`` (full scan only).
+    ``window > 0`` requires x-sorted clouds. ``order`` (a full scan's tile
+    walk: ``"x"`` or a per-cloud permutation) and ``r2`` (the ball route)
+    are K1's, as in the module's docstring. Every launch counts in
+    ``knn_topk.launches``; the ball route's also in ``ball_route.launches``,
+    the 4-slot list's in ``small_list.launches``.
+    """
+    _check_variant(variant, window, order, r2)
+    if q4.device.type == "cpu":
+        return knn_topk_plain(q4, k4, k, window, query_mask, variant, order, r2)
+    if variant == "mxu":
+        return knn_topk_mxu(q4, k4, k)
+    out = launch(q4, k4, k, window, query_mask, order, r2)
+    if q4.shape[0] * q4.shape[1]:   # no queries: nothing launched
+        knn_topk.launches += 1
+        if r2 is not None:
+            ball_route.launches += 1
+        elif list_size(k) == 4:
+            small_list.launches += 1
+    return out
+
+
 knn_topk.launches = 0
+ball_route = SimpleNamespace(launches=0)   # K1's ball route
+small_list = SimpleNamespace(launches=0)   # K1's 4-slot list (2 <= k <= 4)

@@ -764,3 +764,103 @@ def test_pointnet2_train_step_runs_its_kernels(cuda_device):
         assert [f.launches - b for f, b in zip((fps, knn_topk, gather_bwd), before)] == [4, 8, 8]
         grads.append(torch.cat([p.grad.flatten() for p in model.net.parameters()]))
     assert bool(torch.isfinite(grads[0]).all()) and torch.equal(grads[0], grads[1])
+
+
+# PointNet++'s searches at full scale: the stages 12288 -> 3072 -> 768 ->
+# 192 -> 48 with their radii, x-sorted subtiles in normalized units (as
+# predict's sa1 takes them), the last cloud half padding
+PN2_STAGES, PN2_RADII = (12288, 3072, 768, 192, 48), (0.05, 0.1, 0.2, 0.4)
+
+
+def _pn2_searches(b, stage, dev, seed=0):
+    """(queries, keys, query mask, r2) of stage ``stage``'s ball query
+    (centroids into the stage's cloud) and k=3 search (the cloud into its
+    centroids), centred and pad-augmented."""
+    from myria3d_tpu_torch.ops.knn import ball_r2, gather_rows
+
+    g = torch.Generator().manual_seed(seed)
+    n = PN2_STAGES[0]
+    pos = torch.rand((b, n, 3), generator=g) * torch.tensor([2.0, 2.0, 0.4]) \
+        - torch.tensor([1.0, 1.0, 1.0])
+    pos = torch.take_along_dim(pos, pos[..., :1].argsort(dim=1), dim=1).to(dev)
+    mask = torch.ones((b, n), dtype=torch.bool)
+    mask[-1, n // 2:] = False
+    mask = mask.to(dev)
+    for m in PN2_STAGES[1:stage + 2]:
+        cloud = (pos, mask)
+        sel, mask = fps(pos, mask, m)
+        pos = gather_rows(pos, sel)
+    (p, v), (c, cm) = cloud, (pos, mask)
+    ball = centred_clouds(c, p, v) + (cm,)
+    k3 = centred_clouds(p, c, cm) + (v,)
+    return ball, k3, ball_r2(PN2_RADII[stage])
+
+
+@pytest.mark.parametrize("stage", range(4))
+@pytest.mark.parametrize("b", [16, 48])
+def test_ball_route_matches_plain(cuda_device, b, stage):
+    """The ball route (x-ordered tiles, lists from r^2, masked centroids
+    skipped) bit-equal to its plain version, and its valid slots those of
+    the generic list's 32 nearest filtered by the radius."""
+    from myria3d_tpu_torch.ops.cuda_knn import ball_route
+
+    (q4, k4, qm), _, r2 = _pn2_searches(b, stage, cuda_device)
+    before = ball_route.launches
+    idx, d2 = knn_topk(q4, k4, 32, query_mask=qm, order="x", r2=r2)
+    assert ball_route.launches == before + 1
+    pidx, pd2 = knn_topk_plain(q4, k4, 32, query_mask=qm, r2=r2)
+    assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
+    gidx, gd2 = knn_topk(q4, k4, 32)
+    inside = (gd2 <= r2) & qm[..., None]
+    assert torch.equal(idx >= 0, inside)
+    assert torch.equal(torch.where(inside, gidx, -1), idx)
+    assert 0 < float(inside.float().mean()) < 1
+
+
+@pytest.mark.parametrize("stage", range(4))
+@pytest.mark.parametrize("b", [16, 48])
+def test_small_list_matches_the_generic_list(cuda_device, b, stage):
+    """The 4-slot list at k = 3 (x-ordered tiles) bit-equal to the generic
+    32-slot list's first 3 and to the plain version; k = 2 and 4 too."""
+    from myria3d_tpu_torch.ops.cuda_knn import launch, small_list
+
+    _, (q4, k4, qm), _ = _pn2_searches(b, stage, cuda_device)
+    for k in (2, 3, 4):
+        before = small_list.launches
+        idx, d2 = knn_topk(q4, k4, k, query_mask=qm, order="x")
+        assert small_list.launches == before + 1
+        gidx, gd2 = launch(q4, k4, k, list_k=32)
+        assert torch.equal(idx, gidx) and torch.equal(d2, gd2)
+    pidx, pd2 = knn_topk_plain(q4, k4, 4, query_mask=qm)
+    assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
+
+
+@pytest.mark.parametrize("stage", range(4))
+@pytest.mark.parametrize("b", [16, 48])
+def test_a_shuffled_order_gives_the_identity_outputs(cuda_device, b, stage):
+    """Both routes under a random per-cloud walk equal their outputs under
+    the identity (no order)."""
+    (bq, bk, bm), (q4, k4, qm), r2 = _pn2_searches(b, stage, cuda_device)
+    for (q, k, m), kk, radius in (((bq, bk, bm), 32, r2), ((q4, k4, qm), 3, None)):
+        g = torch.Generator().manual_seed(stage)
+        shuffled = torch.stack([torch.randperm(q.shape[1], generator=g)
+                                for _ in range(b)]).to(torch.int32).to(cuda_device)
+        want = knn_topk(q, k, kk, query_mask=m, r2=radius)
+        got = knn_topk(q, k, kk, query_mask=m, r2=radius, order=shuffled)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_randla_net_steps_take_none_of_the_pointnet2_routes(cuda_device):
+    """RandLA-Net's eval and train steps launch K1's K = 16 and k = 1 lists
+    only: neither the ball route nor the 4-slot list."""
+    from myria3d_tpu_torch.ops.cuda_knn import ball_route, small_list
+
+    model, (x, pos, y, mask) = _card_train_model(cuda_device)
+    before = (ball_route.launches, small_list.launches, knn_topk.launches)
+    model.train_step(x, pos, y, mask, torch.Generator(device=cuda_device).manual_seed(0))
+    model.net.eval()
+    with torch.inference_mode():
+        model.net(x, pos, mask)
+    torch.cuda.synchronize()
+    assert (ball_route.launches, small_list.launches) == before[:2]
+    assert knn_topk.launches > before[2]
