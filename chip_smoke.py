@@ -139,8 +139,9 @@ PyTorch built for CUDA. Phases, one line each:
    (lists from r^2, centroids walked in x order where they fill more than
    one tile) and the four k=3 feature propagation searches on the 4-slot
    list (row order), each bit-equal to its plain version and timed with the
-   host ahead beside the other walk and the generic 32-slot list at the
-   same shape (the route before the ball route); (c) ``Model.interp_step`` at
+   host ahead beside the generic 32-slot list at the same shape (the route
+   before the ball route), which is held bit-equal to its plain version
+   there too; (c) ``Model.interp_step`` at
    the bench shape (B=48, N=12288, M=32768; x-sorted subtiles in
    normalized units, window 4608) against the plain path (argmax agreement
    >= 0.999), ms per batch, Mpts/s, host enqueue, launches per step (K1 8:
@@ -2056,18 +2057,15 @@ def phase_pn2_searches(dev):
     """16b: K1 at the PointNet++ searches (full scans), B=48 and B=16: the
     ball route (lists from r^2) at the four ball queries and the 4-slot list
     at the four k=3 searches, as the model calls them (the ball queries
-    x-ordered, ``order="x"``, which one tile of queries takes in row order;
-    the k=3 searches in row order), bit-equal to their plain versions;
-    timed with the host ahead beside the other walk (row order for a ball
-    query, x order for a k=3 search) and the generic 32-slot list of PR
-    12's path at the same shape (for a ball query, its 32 nearest keys
-    before the radius), all in this call. Returns the B=48 rows of the
-    kernels line, ball route and 4-slot list apart."""
-    import torch
-
+    walked in x order where they fill more than one tile, the k=3 searches
+    in row order), bit-equal to their plain versions; timed with the host
+    ahead beside the generic 32-slot list, the route before these, at the
+    same shape (for a ball query, its 32 nearest keys before the radius), held
+    bit-equal to its own plain version, all in this call. Returns the B=48
+    rows of the kernels line, ball route and 4-slot list apart."""
     from myria3d_tpu_torch.ops.cuda_knn import (
-        TILE_Q,
         _windows,
+        ball_walk,
         knn_topk,
         knn_topk_plain,
         launch,
@@ -2077,25 +2075,23 @@ def phase_pn2_searches(dev):
     for b in (B, PN2_TRAIN_B):
         for label, q4, k4, qm, k, r2 in pn2_searches(dev, b):
             ball = r2 is not None
-            order, other = ("x", None) if ball else (None, "x")
-            idx_k, d2_k = knn_topk(q4, k4, k, query_mask=qm, order=order, r2=r2)
+            idx_k, d2_k = knn_topk(q4, k4, k, query_mask=qm, r2=r2)
             idx_p, d2_p = knn_topk_plain(q4, k4, k, query_mask=qm, r2=r2)
             err = check_k1(idx_k, d2_k, idx_p, d2_p, label)
-            ms = cuda_ms(lambda: knn_topk(q4, k4, k, query_mask=qm, order=order, r2=r2), 5,
-                         ahead=True)
-            other_ms = cuda_ms(lambda: launch(q4, k4, k, query_mask=qm, order=other, r2=r2), 5,
-                               ahead=True)
-            generic_ms = cuda_ms(lambda: launch(q4, k4, 32 if ball else k, list_k=32), 5,
-                                 ahead=True)
+            kg = 32 if ball else k
+            check_k1(*launch(q4, k4, kg, list_k=32), *knn_topk_plain(q4, k4, kg, query_mask=qm),
+                     f"{label} on the generic 32-slot list")
+            ms = cuda_ms(lambda: knn_topk(q4, k4, k, query_mask=qm, r2=r2), 5, ahead=True)
+            generic_ms = cuda_ms(lambda: launch(q4, k4, kg, list_k=32), 5, ahead=True)
             plain_ms = cuda_ms(lambda: knn_topk_plain(q4, k4, k, query_mask=qm, r2=r2), 1,
                                warmup=0)
             bnd = bound(PAIR_INSTR * float(qm.sum()) * _windows(q4, k4, 0, qm)[1],
                         nbytes(q4, k4, idx_k, d2_k))
-            walk = "x-ordered" if ball and q4.shape[1] > TILE_Q else "row order"
+            walk = "x-ordered" if ball and ball_walk(q4) is not None else "row order"
             print(f"phase 16b K1 {label} B={b} ({'ball route' if ball else '4-slot list'}, "
-                  f"{walk}): bit-equal, {ms:.3f} ms ({'row order' if ball else 'x-ordered'} "
-                  f"{other_ms:.3f} ms; generic 32-slot list {generic_ms:.3f} ms, "
-                  f"{generic_ms / ms:.2f}x), plain {plain_ms:.1f} ms, {bounds_text(bnd)}")
+                  f"{walk}): bit-equal, {ms:.3f} ms (generic 32-slot list, bit-equal to its "
+                  f"plain version: {generic_ms:.3f} ms, {generic_ms / ms:.2f}x), plain "
+                  f"{plain_ms:.1f} ms, {bounds_text(bnd)}")
             if b == B:
                 rows["K1_ball" if ball else "K1_small"].append((err, ms, plain_ms, bnd, None))
     return rows
@@ -2106,7 +2102,7 @@ def generic_searches():
     """PointNet++'s searches as before the ball route (16c, 16d compare the
     steps):
     the ball query as the generic 32-slot list's 32 nearest keys filtered
-    by the radius, the k=3 searches on the generic list, both in row order."""
+    by the radius, the k=3 searches on the generic list."""
     from myria3d_tpu_torch.models.modules import pointnet2
     from myria3d_tpu_torch.ops import cuda_knn
     from myria3d_tpu_torch.ops import knn as knn_ops
@@ -2116,7 +2112,7 @@ def generic_searches():
                                                  query_mask)
         return idx, neigh_valid
 
-    def generic(q4, k4, k, window=0, query_mask=None, order=None):
+    def generic(q4, k4, k, window=0, query_mask=None):
         return cuda_knn.launch(q4, k4, k, window, query_mask, list_k=32)
 
     saved = pointnet2.ball_neighbours, knn_ops.knn_topk
@@ -2247,7 +2243,8 @@ def phase_pn2_predict_step(dev):
 def phase_pn2_train_step(dev):
     """16d: a full-width PointNet++ train step at B=16, N=12288 (``bench.py
     --train``'s batch in normalized units): the gradient against the plain
-    path's, ms per step, peak memory and the launches per step."""
+    path's and bit-equal to the generic searches', ms per step, peak memory
+    and the launches per step."""
     import torch
 
     x, pos, y, mask = pn2_train_batch(dev)
@@ -2261,6 +2258,13 @@ def phase_pn2_train_step(dev):
     model = pn2_model(dev)
     model.init_train_state()
     g_k = grads(model)
+    generic = pn2_model(dev)
+    generic.init_train_state()
+    with generic_searches():
+        g_g = grads(generic)
+    del generic
+    need(bool(torch.equal(g_g, g_k)), "PointNet++ train step: the generic searches' gradient "
+         "differs from the new routes'")
     plain = pn2_model(dev)
     plain.init_train_state()
     with plain_versions():

@@ -17,8 +17,6 @@
 // self-kNN), K=1 Q=2 (decoder searches), K=4 Q=1 for k in [2, 4]
 // (PointNet++'s k=3 feature propagation), and a generic K=32 Q=1 list for
 // any other k in [1, 32] (it keeps the 32 best and writes the first k).
-// A full scan may walk its queries through a permutation (``perm``: the
-// queries in x order, where their rows are not x-sorted).
 //
 // The ball route (knn_ball_kernel, PointNet++'s ball query; the JAX
 // package's ball_query is _knn_kernel_vpu's full scan, then the radius on
@@ -28,6 +26,8 @@
 // of the K nearest overall filtered by the radius. Slots left unfilled and
 // the rows of masked queries read (-1, +inf); a tile of masked queries
 // (they walk last) skips its scan. Every key of the cloud is still tested.
+// Its queries, FPS centroids in no order, walk their tiles in x order
+// (``perm``, which the wrapper makes where they fill more than one tile).
 //
 // Bound on the H100: FP32 issue, ~8 instructions per (query, key) pair
 // (B*Nq*W pairs: 2.1e9 at B=48, Nq=12288, W=3584 keys: 0.5 ms); memory
@@ -110,7 +110,8 @@ __device__ __forceinline__ void store_ball(const TopK<K>& t, int k, bool keep,
 // nq searched and written, ``qmask`` NULL) or the ball route (Ball true:
 // lists start at (r2, INT_MAX), so only keys with d2 <= r2 enter; rows
 // outside ``qmask`` are written empty, and a tile with no used row skips
-// the scan). ``perm`` (B, nq) or NULL: the tile walk's rows (tile_queries).
+// the scan). ``perm`` (B, nq) or NULL: the ball route's tile walk
+// (tile_queries); the kNN route walks its rows in order.
 template <int K, int Q, bool Ball>
 __device__ __forceinline__ void knn_tile(const float4* __restrict__ q,
                                          const float4* __restrict__ keys,
@@ -162,30 +163,24 @@ __device__ __forceinline__ void knn_tile(const float4* __restrict__ q,
 template <int K, int Q>
 __global__ void __launch_bounds__(TILE_Q / Q) knn_topk_kernel(
     const float4* __restrict__ q, const float4* __restrict__ keys,
-    const int* __restrict__ bases, const int* __restrict__ perm, int nq, int nk, int n_tiles,
-    int win_len, int k, int* __restrict__ idx_out, float* __restrict__ d2_out) {
-  knn_tile<K, Q, false>(q, keys, bases, perm, nullptr, nq, nk, n_tiles, win_len, k, INFINITY,
+    const int* __restrict__ bases, int nq, int nk, int n_tiles, int win_len, int k,
+    int* __restrict__ idx_out, float* __restrict__ d2_out) {
+  knn_tile<K, Q, false>(q, keys, bases, nullptr, nullptr, nq, nk, n_tiles, win_len, k, INFINITY,
                         idx_out, d2_out);
 }
 
-// The ball route's blocks held resident an SM: its K = 32 list takes 108
-// registers, two blocks an SM; held to three (80 registers) it spilled and
-// took 8-15 % more time at PointNet++'s ball queries, B=48
-// (scripts/tune_search_q.py, variant ballmb:3).
-constexpr int BALL_MIN_BLOCKS = 1;
-
 template <int K, int Q>
-__global__ void __launch_bounds__(TILE_Q / Q, BALL_MIN_BLOCKS) knn_ball_kernel(
+__global__ void __launch_bounds__(TILE_Q / Q) knn_ball_kernel(
     const float4* __restrict__ q, const float4* __restrict__ keys,
-    const int* __restrict__ bases, const int* __restrict__ perm,
-    const unsigned char* __restrict__ qmask, int nq, int nk, int n_tiles, int win_len, int k,
-    float r2, int* __restrict__ idx_out, float* __restrict__ d2_out) {
-  knn_tile<K, Q, true>(q, keys, bases, perm, qmask, nq, nk, n_tiles, win_len, k, r2, idx_out,
+    const int* __restrict__ perm, const unsigned char* __restrict__ qmask, int nq, int nk,
+    int n_tiles, int win_len, int k, float r2, int* __restrict__ idx_out,
+    float* __restrict__ d2_out) {
+  knn_tile<K, Q, true>(q, keys, nullptr, perm, qmask, nq, nk, n_tiles, win_len, k, r2, idx_out,
                        d2_out);
 }
 
 template <int K, int Q>
-static int launch(const float4* q, const float4* keys, const int* bases, const int* perm,
+static int launch(const float4* q, const float4* keys, const int* bases,
                   int B, int nq, int nk, int n_tiles, int win_len, int k,
                   int* idx, float* d2, cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
@@ -193,12 +188,12 @@ static int launch(const float4* q, const float4* keys, const int* bases, const i
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(n_tiles, B);
   knn_topk_kernel<K, Q><<<grid, TILE_Q / Q, search_smem_bytes(win_len), stream>>>(
-      q, keys, bases, perm, nq, nk, n_tiles, win_len, k, idx, d2);
+      q, keys, bases, nq, nk, n_tiles, win_len, k, idx, d2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int K, int Q>
-static int launch_ball(const float4* q, const float4* keys, const int* bases, const int* perm,
+static int launch_ball(const float4* q, const float4* keys, const int* perm,
                        const unsigned char* qmask, int B, int nq, int nk, int n_tiles,
                        int win_len, int k, float r2, int* idx, float* d2, cudaStream_t stream) {
   static std::atomic<unsigned long long> ready{0};
@@ -206,7 +201,7 @@ static int launch_ball(const float4* q, const float4* keys, const int* bases, co
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(n_tiles, B);
   knn_ball_kernel<K, Q><<<grid, TILE_Q / Q, search_smem_bytes(win_len), stream>>>(
-      q, keys, bases, perm, qmask, nq, nk, n_tiles, win_len, k, r2, idx, d2);
+      q, keys, perm, qmask, nq, nk, n_tiles, win_len, k, r2, idx, d2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,12 +255,13 @@ static int launch_mxu(const float4* q, const float4* keys, int B, int nq, int nk
 // q (B, nq, 4) f32 centred queries (w = 0); keys (B, nk, 4) f32 centred
 // keys (w = 0 valid, 1e4 pad); bases (B, n_tiles) i32 window base chunk
 // per query tile, or NULL for a full scan from position 0; win_len key
-// positions per window (a multiple of 512); perm (B, nq) i32, a permutation
-// of each cloud's queries (the tile walk's rows), or NULL for the identity.
-// list_k: the register list, 1 (k = 1), 4 (k <= 4), 16 (k <= 16) or 32.
-// r2 = +inf: the kNN route, qmask ignored. Any other r2 (below the pad
-// keys' d2): the ball route, list_k 32, qmask (B, nq) u8 or NULL; slots
-// left unfilled, and the rows of queries outside qmask, read (-1, +inf).
+// positions per window (a multiple of 512). list_k: the register list, 1
+// (k = 1), 4 (k <= 4), 16 (k <= 16) or 32. r2 = +inf: the kNN route, perm
+// and qmask NULL. Any other r2 (below the pad keys' d2): the ball route, a
+// full scan (bases NULL) on list_k 32; perm (B, nq) i32, a permutation of
+// each cloud's queries (the tile walk's rows), or NULL for row order; qmask
+// (B, nq) u8 or NULL. Slots left unfilled, and the rows of queries outside
+// qmask, read (-1, +inf).
 // Writes idx (B, nq, k) i32 and d2 (B, nq, k) f32, ascending, ties to the
 // lower key index. 1 <= k <= list_k.
 extern "C" int m3d_knn_topk(const void* q, const void* keys, const void* bases,
@@ -283,14 +279,15 @@ extern "C" int m3d_knn_topk(const void* q, const void* keys, const void* bases,
   auto dp = static_cast<float*>(d2);
   if (k < 1 || k > list_k) return static_cast<int>(cudaErrorInvalidValue);
   if (r2 != INFINITY) {
-    if (list_k != 32) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_ball<32, 1>(qp, kp, bp, pp, mp, B, nq, nk, n_tiles, win_len, k, r2, ip, dp, s);
+    if (list_k != 32 || bp) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_ball<32, 1>(qp, kp, pp, mp, B, nq, nk, n_tiles, win_len, k, r2, ip, dp, s);
   }
+  if (pp || mp) return static_cast<int>(cudaErrorInvalidValue);
   switch (list_k) {
-    case 1: return launch<1, 2>(qp, kp, bp, pp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
-    case 4: return launch<4, 1>(qp, kp, bp, pp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
-    case 16: return launch<16, 1>(qp, kp, bp, pp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
-    case 32: return launch<32, 1>(qp, kp, bp, pp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
+    case 1: return launch<1, 2>(qp, kp, bp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
+    case 4: return launch<4, 1>(qp, kp, bp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
+    case 16: return launch<16, 1>(qp, kp, bp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
+    case 32: return launch<32, 1>(qp, kp, bp, B, nq, nk, n_tiles, win_len, k, ip, dp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

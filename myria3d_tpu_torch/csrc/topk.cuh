@@ -40,7 +40,7 @@
 //    12288 took 4.4 ms that way, 2.6 ms in bands). The narrower the band,
 //    the rarer such waits, against fewer tests per shared read. Measured at
 //    the predict shapes (scripts/tune_search_q.py): Q = 1 for K = 16 and 10
-//    (64 and 59 registers; bands of 32 rows, 6-12 % faster than Q = 2 and
+//    (68 and 59 registers; bands of 32 rows, 6-12 % faster than Q = 2 and
 //    far faster than Q = 4), Q = 2 for K = 1 (40 registers; its insertion
 //    is cheap, so sharing the reads wins: 11 % faster than Q = 4), Q = 1
 //    for the generic 32-slot list (two such lists spilled at 168

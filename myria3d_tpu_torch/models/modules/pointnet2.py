@@ -102,8 +102,8 @@ class FeaturePropagation(nn.Module):
         self.nn = nn.ModuleDict({"mlp": SharedMLP([in_channels, *mlp], bn_momentum=bn_momentum)})
 
     def forward(self, x, pos, mask, x_skip, pos_skip, mask_skip):
-        # in row order: on the H100 the 4-slot list gained nothing from an
-        # x-ordered walk, whose sort cost more (PERF.md §6)
+        # in row order: on the H100 an x-ordered walk of these queries made
+        # the 4-slot list slower at every stage (PERF.md §6)
         idx, d2, neigh_valid = knn(pos_skip, pos, mask, self.k, query_mask=mask_skip)
         feats = neighbour_rows(self, x, idx, neigh_valid)                # (B, Nt, k, C)
         up = idw_combine(feats, d2, neigh_valid, mask_skip).to(x.dtype)

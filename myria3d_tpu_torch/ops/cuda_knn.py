@@ -19,16 +19,15 @@ squared distances, ties to the lower key index; distances are full f32.
 
 The list: a register list of 1 (k = 1), 4 (2 <= k <= 4), 16 (k = 16) or
 32 slots (any other k), which keeps the best of its size and writes the
-first k (:func:`list_size`). ``order`` gives the kernel's tile walk (a
-per-cloud permutation of the queries, or ``"x"``: their stable x order,
-masked queries last, :func:`x_order`), so that a block's 256 queries are
-neighbours where the clouds' rows are not x-sorted; the outputs do not
-depend on it. ``r2`` takes the ball route: every slot starts at
-``(r2, INT_MAX)``, so only keys with ``d2 <= r2`` enter, and the K nearest
-of those are kept (the K nearest keys overall, filtered by the radius,
-keep the same valid slots in the same order); unfilled slots and the rows
-of queries outside ``query_mask`` read ``(-1, +inf)``, and a tile of
-masked queries skips its scan.
+first k (:func:`list_size`). ``r2`` takes the ball route, a full scan:
+every slot starts at ``(r2, INT_MAX)``, so only keys with ``d2 <= r2``
+enter, and the K nearest of those are kept (the K nearest keys overall,
+filtered by the radius, keep the same valid slots in the same order);
+unfilled slots and the rows of queries outside ``query_mask`` read
+``(-1, +inf)``, and a tile of masked queries skips its scan. Its queries
+(PointNet++'s centroids, in FPS order) walk the kernel's tiles in x order
+where they fill more than one tile (:func:`ball_walk`), so that a block's
+256 queries are neighbours; the outputs do not depend on the walk.
 
 ``variant="mxu"`` is the JAX package's ``_knn_kernel``
 (``pallas_knn.py:115``): a full scan (a window raises, as there) that ranks
@@ -149,41 +148,28 @@ def list_size(k: int) -> int:
 
 def x_order(q4: torch.Tensor, query_mask: torch.Tensor | None = None) -> torch.Tensor:
     """(B, Nq) int32: each cloud's queries by a stable sort of their x,
-    the queries outside ``query_mask`` last (the kernel's tile walk)."""
+    the queries outside ``query_mask`` last."""
     x = q4[..., 0]
     if query_mask is not None:
         x = torch.where(query_mask, x, float("inf"))
     return torch.sort(x, dim=1, stable=True).indices.to(torch.int32)
 
 
-def _resolve_order(order, q4: torch.Tensor, query_mask: torch.Tensor | None, window: int):
-    """The (B, Nq) int32 walk of ``order`` (None, ``"x"`` or a tensor), or
-    None for row order (also ``"x"`` with one tile of queries). A tensor
-    must be a permutation of each cloud's rows (checked: on the card one
-    synchronisation); anything else raises ``ValueError``."""
-    if order is None:
-        return None
-    if window:
-        raise ValueError("order applies to full scans only (a window needs x-sorted queries)")
-    if isinstance(order, str):
-        if order != "x":
-            raise ValueError(f"unknown order {order!r}")
-        # one tile holds every query: its walk changes nothing
-        return x_order(q4, query_mask) if q4.shape[1] > TILE_Q else None
-    b, nq = q4.shape[:2]
-    if not isinstance(order, torch.Tensor) or order.shape != (b, nq) \
-            or order.dtype != torch.int32 or order.device != q4.device:
-        raise ValueError(f"order must be an int32 (B, Nq) = ({b}, {nq}) tensor on the "
-                         "queries' device")
-    ar = torch.arange(nq, dtype=torch.int32, device=order.device)
-    if not bool((order.sort(dim=1).values == ar).all()):
-        raise ValueError("order must be a permutation of each cloud's query rows")
-    return order.contiguous()
+def ball_walk(q4: torch.Tensor, query_mask: torch.Tensor | None = None):
+    """The ball route's tile walk: :func:`x_order` where the queries fill
+    more than one tile, else None (row order: one tile's walk changes
+    nothing). On the H100 the x walk took 7-17 % less time at PointNet++'s
+    sa1 and sa2 ball queries, B=48 (PERF.md)."""
+    return x_order(q4, query_mask) if q4.shape[1] > TILE_Q else None
 
 
-def _check_ball(r2) -> None:
-    if r2 is not None and not 0.0 <= r2 <= BALL_MAX_R2:
+def _check_ball(r2, window: int = 0) -> None:
+    if r2 is None:
+        return
+    if not 0.0 <= r2 <= BALL_MAX_R2:
         raise ValueError(f"r2={r2} must be in [0, {BALL_MAX_R2}] (below the pad keys' d2)")
+    if window:
+        raise ValueError("the ball route is a full scan (window=0)")
 
 
 def require_float4(name: str, *tensors: torch.Tensor) -> None:
@@ -195,10 +181,9 @@ def require_float4(name: str, *tensors: torch.Tensor) -> None:
 
 def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
                    query_mask: torch.Tensor | None = None, variant: str = "vpu",
-                   order=None, r2: float | None = None):
+                   r2: float | None = None):
     """Plain PyTorch version of K1: same windows, same exact selection
-    (of K7 for ``variant="mxu"``: :func:`knn_topk_mxu_plain`). ``order`` is
-    checked and changes nothing.
+    (of K7 for ``variant="mxu"``: :func:`knn_topk_mxu_plain`).
 
     Distances are summed in the kernel's association (w², then dx², dy²,
     dz², each op rounded); ranking is on int64 keys (distance bits << 32 |
@@ -207,9 +192,8 @@ def knn_topk_plain(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
     of a query outside ``query_mask``, ranks last; a slot that only such
     keys fill reads ``(-1, +inf)``.
     """
-    _check_variant(variant, window, order, r2)
-    _check_ball(r2)
-    _resolve_order(order, q4, query_mask, window)
+    _check_variant(variant, window, r2)
+    _check_ball(r2, window)
     if variant == "mxu":
         return knn_topk_mxu_plain(q4, k4, k)
     _check(q4, k4, k)
@@ -355,24 +339,24 @@ def knn_topk_mxu(q4: torch.Tensor, k4: torch.Tensor, k: int):
 knn_topk_mxu.launches = 0
 
 
-def _check_variant(variant: str, window: int, order=None, r2=None) -> None:
+def _check_variant(variant: str, window: int, r2=None) -> None:
     if variant not in ("vpu", "mxu"):
         raise ValueError(f"unknown kNN kernel variant {variant!r}")
     if window and variant != "vpu":
         raise ValueError("windowed kNN requires the vpu variant")
-    if variant != "vpu" and (order is not None or r2 is not None):
-        raise ValueError("order and r2 are K1's (variant='vpu')")
+    if variant != "vpu" and r2 is not None:
+        raise ValueError("r2 is K1's (variant='vpu')")
 
 
 def launch(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
-           query_mask: torch.Tensor | None = None, order=None, r2: float | None = None,
+           query_mask: torch.Tensor | None = None, r2: float | None = None,
            list_k: int | None = None):
     """K1 on CUDA tensors, uncounted (:func:`knn_topk` counts): any list of
     ``LISTS`` that holds ``k`` (``list_k``; by default :func:`list_size`,
-    and the ball route's ``BALL_LIST``), ``order`` and ``r2`` as
-    :func:`knn_topk`. Returns ``(idx, d2)``."""
+    and the ball route's ``BALL_LIST``), ``r2`` as :func:`knn_topk`.
+    Returns ``(idx, d2)``."""
     _check(q4, k4, k)
-    _check_ball(r2)
+    _check_ball(r2, window)
     default = BALL_LIST if r2 is not None else list_size(k)
     list_k = default if list_k is None else list_k
     if list_k not in ((BALL_LIST,) if r2 is not None else LISTS) or k > list_k:
@@ -380,10 +364,11 @@ def launch(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
                          f"{'ball' if r2 is not None else 'kNN'} route")
     _ext.require_cuda("knn_topk", q4, k4)
     require_float4("knn_topk", q4, k4)
-    perm = _resolve_order(order, q4, query_mask, window)
-    qmask = None
-    if r2 is not None and query_mask is not None:
-        qmask = query_mask.to(torch.uint8).contiguous()
+    perm = qmask = None
+    if r2 is not None:
+        perm = ball_walk(q4, query_mask)
+        if query_mask is not None:
+            qmask = query_mask.to(torch.uint8).contiguous()
     b, nq, _ = q4.shape
     nk = k4.shape[1]
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=q4.device)
@@ -407,24 +392,23 @@ def launch(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
 
 def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
              query_mask: torch.Tensor | None = None, variant: str = "vpu",
-             order=None, r2: float | None = None):
+             r2: float | None = None):
     """K nearest keys of every query: ``(idx (B, Nq, k) int32,
     d2 (B, Nq, k) float32)``, ascending.
 
     CPU tensors take :func:`knn_topk_plain`; CUDA tensors launch the
     kernel (or raise): K1, or K7 for ``variant="mxu"`` (full scan only).
-    ``window > 0`` requires x-sorted clouds. ``order`` (a full scan's tile
-    walk: ``"x"`` or a per-cloud permutation) and ``r2`` (the ball route)
-    are K1's, as in the module's docstring. Every launch counts in
+    ``window > 0`` requires x-sorted clouds. ``r2`` (the ball route, a full
+    scan) is K1's, as in the module's docstring. Every launch counts in
     ``knn_topk.launches``; the ball route's also in ``ball_route.launches``,
     the 4-slot list's in ``small_list.launches``.
     """
-    _check_variant(variant, window, order, r2)
+    _check_variant(variant, window, r2)
     if q4.device.type == "cpu":
-        return knn_topk_plain(q4, k4, k, window, query_mask, variant, order, r2)
+        return knn_topk_plain(q4, k4, k, window, query_mask, variant, r2)
     if variant == "mxu":
         return knn_topk_mxu(q4, k4, k)
-    out = launch(q4, k4, k, window, query_mask, order, r2)
+    out = launch(q4, k4, k, window, query_mask, r2)
     if q4.shape[0] * q4.shape[1]:   # no queries: nothing launched
         knn_topk.launches += 1
         if r2 is not None:

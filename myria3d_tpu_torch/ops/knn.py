@@ -108,14 +108,13 @@ def ball_neighbours(query_pos: torch.Tensor, key_pos: torch.Tensor, key_mask: to
                     k: int, radius: float, query_mask: torch.Tensor | None = None):
     """:func:`ball_query`'s ``idx`` and ``neigh_valid`` on K1's ball route:
     the lists start at the radius, so keys outside the ball never enter,
-    and the queries walk in x order (``order="x"``: PointNet++'s centroids
-    come in FPS order; on the H100 the walk took 7-17 % less time where
-    they fill more than one tile, at sa1 and sa2). The valid slots and their
-    order are :func:`ball_query`'s: the K nearest valid keys inside the
+    and the queries walk in x order (``cuda_knn.ball_walk``: PointNet++'s
+    centroids come in FPS order). The valid slots and their order are
+    :func:`ball_query`'s: the K nearest valid keys inside the
     ball, ties to the lower index; invalid slots read index 0."""
     k_eff = min(k, key_pos.shape[1])
     q4, k4 = centred_clouds(query_pos, key_pos, key_mask)
-    idx, _ = knn_topk(q4, k4, k_eff, query_mask=query_mask, order="x", r2=ball_r2(radius))
+    idx, _ = knn_topk(q4, k4, k_eff, query_mask=query_mask, r2=ball_r2(radius))
     if k_eff < k:
         idx = torch.nn.functional.pad(idx, (0, k - k_eff), value=-1)
     neigh_valid = idx >= 0

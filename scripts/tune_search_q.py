@@ -12,11 +12,10 @@ running ahead (``chip_smoke.cuda_ms(..., ahead=True)``).
 
 The cases also hold K1's PointNet++ routes at their full-scale searches
 (``chip_smoke.pn2_searches``, B=48): the ball route at the four ball
-queries (x-ordered) and the 4-slot list at the four k=3 searches (row
+queries and the 4-slot list at the four k=3 searches (row
 order), as the model calls them.
 A variant lists ``K:Q`` for the K1 K=1, K=4 and K=16 lists and the K3 k=10
-list, ``b32:Q`` for K1's ball route and ``ballmb:N`` for its blocks held
-resident an SM (``__launch_bounds__``), ``mK:Q`` for K7's K=1, K=16 and
+list, ``b32:Q`` for K1's ball route, ``mK:Q`` for K7's K=1, K=16 and
 generic K=32 lists,
 ``ring:N`` for the keys of a ring chunk of the scans longer than the
 staged window (``RING`` in ``topk.cuh``), and ``gate:false`` for K7's
@@ -43,13 +42,12 @@ import chip_smoke  # noqa: E402
 from myria3d_tpu_torch import _ext  # noqa: E402
 
 SHIPPED = "1:2,4:1,16:1,10:1,b32:1,m1:2,m16:1,m32:1"
-DEFAULT = [SHIPPED, "4:2", "ballmb:3", "gate:false", "m1:4,m16:2", "ring:2048", "1:4,16:2,10:2"]
+DEFAULT = [SHIPPED, "4:2", "gate:false", "m1:4,m16:2", "ring:2048", "1:4,16:2,10:2"]
 # what a variant rewrites: (file, name, pattern (before)(value)(after))
 DISPATCH = [("knn.cu", "1", r"(launch<1, )(\d+)(>\(qp, kp, bp)"),
             ("knn.cu", "4", r"(launch<4, )(\d+)(>\(qp, kp, bp)"),
             ("knn.cu", "16", r"(launch<16, )(\d+)(>\(qp, kp, bp)"),
-            ("knn.cu", "b32", r"(launch_ball<32, )(\d+)(>\(qp, kp, bp)"),
-            ("knn.cu", "ballmb", r"(constexpr int BALL_MIN_BLOCKS = )(\d+)(;)"),
+            ("knn.cu", "b32", r"(launch_ball<32, )(\d+)(>\(qp, kp, pp)"),
             ("interp.cu", "10", r"(launch<10, )(\d+)(>\(xp, qp, kp)"),
             ("knn.cu", "m1", r"(launch_mxu<1, )(\d+)(>\(qp, kp)"),
             ("knn.cu", "m16", r"(launch_mxu<16, )(\d+)(>\(qp, kp)"),
@@ -123,8 +121,7 @@ def cases(dev):
                     knn_interp(logits, q4, k4, 10, window=w, query_mask=full_mask)))
     for label, q4, k4, qm, k, r2 in chip_smoke.pn2_searches(dev):
         out.append((f"K1 PointNet++ {label}", lambda q4=q4, k4=k4, qm=qm, k=k, r2=r2:
-                    knn_topk(q4, k4, k, query_mask=qm, order="x" if r2 is not None else None,
-                             r2=r2)))
+                    knn_topk(q4, k4, k, query_mask=qm, r2=r2)))
     stages = chip_smoke.knn_mxu_stages(dev)
     for i, k in ((0, 16), (2, 16), (3, 16), (0, 1), (1, 10)):
         q4, k4 = centred_clouds(stages[i][0], stages[i][0], stages[i][1])

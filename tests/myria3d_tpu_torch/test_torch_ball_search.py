@@ -1,6 +1,6 @@
 """K1's PointNet++ routes on the CPU: the ball route (lists that start at
-the radius) and the 4-slot list for k in [2, 4], with the x-ordered tile
-walk (``order``), held against the port's generic searches and the JAX
+the radius, its queries walked in x order) and the 4-slot list for k in
+[2, 4], held against the port's generic searches and the JAX
 package's ``ball_query`` (its search on its own Pallas kernel in interpret
 mode, ``jax_search_on_its_kernel``).
 
@@ -28,6 +28,7 @@ from myria3d_tpu_torch.models.modules import pointnet2
 from myria3d_tpu_torch.ops import cuda_knn
 from myria3d_tpu_torch.ops.cuda_knn import (
     BALL_MAX_R2,
+    ball_walk,
     knn_topk,
     knn_topk_plain,
     launch,
@@ -119,11 +120,11 @@ def test_ball_r2_is_the_bound_the_radius_filter_compares_with(radius):
 @pytest.mark.parametrize("k", [2, 3, 4])
 def test_small_list_is_the_generic_lists_first_k(k):
     """k in [2, 4] takes the 4-slot list; its k nearest, ties included, are
-    the generic list's first k, whatever the tile walk."""
+    the generic list's first k."""
     q, kp, km, qm = _grid_clouds(11)
     q4, k4 = centred_clouds(*(torch.from_numpy(a) for a in (q, kp, km)))
     assert list_size(k) == 4
-    idx, d2 = knn_topk(q4, k4, k, query_mask=torch.from_numpy(qm), order="x")
+    idx, d2 = knn_topk(q4, k4, k, query_mask=torch.from_numpy(qm))
     gidx, gd2 = knn_topk_plain(q4, k4, 32)
     assert torch.equal(idx, gidx[..., :k]) and torch.equal(d2, gd2[..., :k])
 
@@ -140,57 +141,43 @@ def test_x_order_is_stable_with_masked_queries_last():
     assert x_order(q4).tolist() == [[3, 1, 4, 0, 2]]
     assert x_order(q4, mask).tolist() == [[1, 4, 0, 2, 3]]
     assert x_order(q4).dtype == torch.int32
-    # "x" walks in x order where the queries fill more than one tile
+    # the ball route walks in x order where the queries fill more than one tile
     for nq, walks in ((cuda_knn.TILE_Q, False), (cuda_knn.TILE_Q + 1, True)):
         q = torch.rand((2, nq, 4))
-        got = cuda_knn._resolve_order("x", q, None, 0)
+        got = ball_walk(q)
         assert (got is not None) == walks
         if walks:
             assert torch.equal(got, x_order(q))
 
 
-def _bad_orders(b, nq):
-    ident = torch.arange(nq, dtype=torch.int32).expand(b, nq)
-    dup = ident.clone()
-    dup[1, 0] = 1
-    out_of_range = ident.clone()
-    out_of_range[0, 2] = nq
-    return {"shape": ident[:, :-1].contiguous(), "rows": ident[:1].contiguous(),
-            "dtype": ident.long(), "duplicate": dup, "out_of_range": out_of_range,
-            "list": ident.tolist(), "name": "y"}
-
-
-@pytest.mark.parametrize("bad", ["shape", "rows", "dtype", "duplicate", "out_of_range", "list",
-                                 "name"])
-def test_order_must_be_a_permutation_of_each_clouds_rows(bad):
-    """``order`` is None, "x" or an int32 (B, Nq) permutation of each
-    cloud's rows; anything else raises ``ValueError``, in the wrapper and
-    in the plain version alike."""
-    q, kp, km, qm = _grid_clouds(2, n_half=40, nq=30)
-    q4, k4 = centred_clouds(*(torch.from_numpy(a) for a in (q, kp, km)))
-    order = _bad_orders(3, 30)[bad]
-    for fn in (knn_topk, knn_topk_plain):
-        with pytest.raises(ValueError, match="order"):
-            fn(q4, k4, 3, order=order)
-    with pytest.raises(ValueError, match="order"):
-        cuda_knn._resolve_order(order, q4, None, 0)
-
-
-def test_a_permutation_changes_nothing_and_order_is_k1s_full_scan_only():
+@pytest.mark.parametrize("k,radius", [(3, None), (16, None), (32, 0.5), (3, 0.5)])
+def test_shuffled_query_rows_give_the_same_rows_shuffled(k, radius):
+    """A query's neighbours do not depend on where its row lies (the ball
+    route walks its queries in x order, the kNN route in row order): the
+    queries and their mask shuffled per cloud give the same rows of output,
+    shuffled alike."""
     q, kp, km, qm = _grid_clouds(4, n_half=300, nq=200)
     q4, k4 = centred_clouds(*(torch.from_numpy(a) for a in (q, kp, km)))
-    g = torch.Generator().manual_seed(0)
-    perm = torch.stack([torch.randperm(200, generator=g) for _ in range(3)]).to(torch.int32)
-    for r2 in (None, ball_r2(0.5)):
-        want = knn_topk(q4, k4, 16, r2=r2)
-        for order in (perm, "x"):
-            got = knn_topk(q4, k4, 16, order=order, r2=r2)
-            assert all(torch.equal(a, w) for a, w in zip(got, want))
-    with pytest.raises(ValueError, match="full scans"):
-        knn_topk(q4, k4, 4, window=512, order="x")
-    for kw in ({"order": "x"}, {"r2": 0.25}):
-        with pytest.raises(ValueError, match="K1's"):
-            knn_topk(q4, k4, 4, variant="mxu", **kw)
+    qm = torch.from_numpy(qm)
+    r2 = None if radius is None else ball_r2(radius)
+    g = torch.Generator().manual_seed(k)
+    perm = torch.stack([torch.randperm(200, generator=g) for _ in range(3)])
+    want = knn_topk(q4, k4, k, query_mask=qm, r2=r2)
+    got = knn_topk(torch.take_along_dim(q4, perm[..., None], dim=1), k4, k,
+                   query_mask=torch.take_along_dim(qm, perm, dim=1), r2=r2)
+    for a, w in zip(got, want):
+        assert torch.equal(a, torch.take_along_dim(w, perm[..., None], dim=1))
+
+
+@pytest.mark.parametrize("kw", [{"window": 512}, {"variant": "mxu"}])
+def test_the_ball_route_is_k1s_full_scan_only(kw):
+    """``r2`` with a window, or with K7, raises ``ValueError``, in the
+    wrapper and in the plain version alike."""
+    q, kp, km, _ = _grid_clouds(4, n_half=300, nq=200)
+    q4, k4 = centred_clouds(*(torch.from_numpy(a) for a in (q, kp, km)))
+    for fn in (knn_topk, knn_topk_plain):
+        with pytest.raises(ValueError, match="full scan|K1's"):
+            fn(q4, k4, 4, r2=0.25, **kw)
 
 
 @pytest.mark.parametrize("r2,list_k", [(-1.0, None), (BALL_MAX_R2 * 1.01, None),

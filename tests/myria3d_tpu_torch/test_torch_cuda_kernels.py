@@ -554,15 +554,15 @@ def test_train_step_runs_its_kernels(cuda_device, fused):
                                                                   else [8, 0, 0, 4])
 
 
-def _card_train_model(cuda_device, **kw):
+def _card_train_model(cuda_device, b=4, n=4096, **kw):
     torch.manual_seed(0)
     model = build_model("RandLANet", {"num_features": 9, "num_classes": 7, "knn_window": 4608,
                                       "sort_inputs": True, "fused_train_lfa": True}, **kw)
     model.to(cuda_device)
     model.init_train_state()
-    pos, mask = _sorted_cloud(4, 4096, cuda_device, 12)
-    x = torch.rand((4, 4096, 9), device=cuda_device)
-    y = torch.randint(0, 7, (4, 4096), device=cuda_device).masked_fill(~mask, 65)
+    pos, mask = _sorted_cloud(b, n, cuda_device, 12)
+    x = torch.rand((b, n, 9), device=cuda_device)
+    y = torch.randint(0, 7, (b, n), device=cuda_device).masked_fill(~mask, 65)
     return model, (x, pos, y, mask)
 
 
@@ -799,14 +799,14 @@ def _pn2_searches(b, stage, dev, seed=0):
 @pytest.mark.parametrize("stage", range(4))
 @pytest.mark.parametrize("b", [16, 48])
 def test_ball_route_matches_plain(cuda_device, b, stage):
-    """The ball route (x-ordered tiles, lists from r^2, masked centroids
-    skipped) bit-equal to its plain version, and its valid slots those of
+    """The ball route (x-ordered tiles above one tile of centroids, lists
+    from r^2, masked centroids skipped) bit-equal to its plain version, and its valid slots those of
     the generic list's 32 nearest filtered by the radius."""
     from myria3d_tpu_torch.ops.cuda_knn import ball_route
 
     (q4, k4, qm), _, r2 = _pn2_searches(b, stage, cuda_device)
     before = ball_route.launches
-    idx, d2 = knn_topk(q4, k4, 32, query_mask=qm, order="x", r2=r2)
+    idx, d2 = knn_topk(q4, k4, 32, query_mask=qm, r2=r2)
     assert ball_route.launches == before + 1
     pidx, pd2 = knn_topk_plain(q4, k4, 32, query_mask=qm, r2=r2)
     assert torch.equal(idx, pidx) and torch.equal(d2, pd2)
@@ -820,14 +820,14 @@ def test_ball_route_matches_plain(cuda_device, b, stage):
 @pytest.mark.parametrize("stage", range(4))
 @pytest.mark.parametrize("b", [16, 48])
 def test_small_list_matches_the_generic_list(cuda_device, b, stage):
-    """The 4-slot list at k = 3 (x-ordered tiles) bit-equal to the generic
+    """The 4-slot list at k = 3 bit-equal to the generic
     32-slot list's first 3 and to the plain version; k = 2 and 4 too."""
     from myria3d_tpu_torch.ops.cuda_knn import launch, small_list
 
     _, (q4, k4, qm), _ = _pn2_searches(b, stage, cuda_device)
     for k in (2, 3, 4):
         before = small_list.launches
-        idx, d2 = knn_topk(q4, k4, k, query_mask=qm, order="x")
+        idx, d2 = knn_topk(q4, k4, k, query_mask=qm)
         assert small_list.launches == before + 1
         gidx, gd2 = launch(q4, k4, k, list_k=32)
         assert torch.equal(idx, gidx) and torch.equal(d2, gd2)
@@ -837,30 +837,52 @@ def test_small_list_matches_the_generic_list(cuda_device, b, stage):
 
 @pytest.mark.parametrize("stage", range(4))
 @pytest.mark.parametrize("b", [16, 48])
-def test_a_shuffled_order_gives_the_identity_outputs(cuda_device, b, stage):
-    """Both routes under a random per-cloud walk equal their outputs under
-    the identity (no order)."""
+def test_shuffled_query_rows_give_the_same_rows_shuffled(cuda_device, b, stage):
+    """Both routes (the ball route walking its centroids in x order, the
+    4-slot list in row order) give a query the same neighbours wherever
+    its row lies: the queries and their mask shuffled per cloud give the
+    same rows of output, shuffled alike."""
     (bq, bk, bm), (q4, k4, qm), r2 = _pn2_searches(b, stage, cuda_device)
     for (q, k, m), kk, radius in (((bq, bk, bm), 32, r2), ((q4, k4, qm), 3, None)):
         g = torch.Generator().manual_seed(stage)
-        shuffled = torch.stack([torch.randperm(q.shape[1], generator=g)
-                                for _ in range(b)]).to(torch.int32).to(cuda_device)
+        perm = torch.stack([torch.randperm(q.shape[1], generator=g)
+                            for _ in range(b)]).to(cuda_device)
         want = knn_topk(q, k, kk, query_mask=m, r2=radius)
-        got = knn_topk(q, k, kk, query_mask=m, r2=radius, order=shuffled)
-        assert all(torch.equal(a, w) for a, w in zip(got, want))
+        got = knn_topk(torch.take_along_dim(q, perm[..., None], dim=1).contiguous(), k, kk,
+                       query_mask=torch.take_along_dim(m, perm, dim=1), r2=radius)
+        for a, w in zip(got, want):
+            assert torch.equal(a, torch.take_along_dim(w, perm[..., None], dim=1))
 
 
-def test_randla_net_steps_take_none_of_the_pointnet2_routes(cuda_device):
-    """RandLA-Net's eval and train steps launch K1's K = 16 and k = 1 lists
-    only: neither the ball route nor the 4-slot list."""
-    from myria3d_tpu_torch.ops.cuda_knn import ball_route, small_list
+@pytest.mark.parametrize("b", [16, 48])
+def test_randla_net_steps_take_none_of_the_pointnet2_routes(cuda_device, monkeypatch, b):
+    """RandLA-Net's train step and eval forward at B=16 and 48 (N=12288)
+    each launch K1's K = 16 list four times (the encoder) and its k = 1
+    list four times (the decoder), the 8 K1 launches a step of
+    chip_smoke.py's phases 5 and 8, and neither the ball route nor the
+    4-slot list."""
+    from collections import Counter
 
-    model, (x, pos, y, mask) = _card_train_model(cuda_device)
-    before = (ball_route.launches, small_list.launches, knn_topk.launches)
+    from myria3d_tpu_torch.ops import cuda_knn
+
+    calls = Counter()
+    real = cuda_knn.launch
+
+    def spy(q4, k4, k, window=0, query_mask=None, r2=None, list_k=None):
+        calls[(k, r2, list_k)] += 1
+        return real(q4, k4, k, window, query_mask, r2, list_k)
+
+    monkeypatch.setattr(cuda_knn, "launch", spy)
+    model, (x, pos, y, mask) = _card_train_model(cuda_device, b=b, n=12288)
+    before = (cuda_knn.ball_route.launches, cuda_knn.small_list.launches, knn_topk.launches)
+    want = Counter({(16, None, None): 4, (1, None, None): 4})
     model.train_step(x, pos, y, mask, torch.Generator(device=cuda_device).manual_seed(0))
+    assert calls == want
+    calls.clear()
     model.net.eval()
     with torch.inference_mode():
         model.net(x, pos, mask)
     torch.cuda.synchronize()
-    assert (ball_route.launches, small_list.launches) == before[:2]
-    assert knn_topk.launches > before[2]
+    assert calls == want
+    assert (cuda_knn.ball_route.launches, cuda_knn.small_list.launches) == before[:2]
+    assert knn_topk.launches == before[2] + 16
