@@ -184,12 +184,36 @@ PyTorch built for CUDA. Phases, one line each:
    near-ties (top two within 2e-3), on at least 0.999 of the points; the
    RandLA-Net train step at B=16 with ``remat: true`` against ``false``:
    gradients within 1e-6 of the net's largest, BN running stats equal, ms
-   per step and peak memory of both.
+   per step and peak memory of both;
+20. the exact_knn RandLA-Net (full width, ``knn_window: 4608`` and
+   ``exact_knn: true`` in its hparams, random weights from seed 0): (a) K1
+   at its searches at B=48 (the encoder graphs K=16 self 12288, 3072, 768,
+   192 and the decoder's k=1, every one a full scan), bit-equal to the
+   plain version and timed beside it; then the predict step at the bench
+   shape (sorted window 4608): its net's logits bit-equal to the same
+   weights' with ``knn_window: 0``, the full-cloud argmax of its K3 step
+   (windowed) against its exact two-op step (>= 0.999), K1's launches per
+   step by instantiation (``cuda_knn.scans``: full scans only, K=16 and
+   k=1), K2 and K3 launched, ms per batch and host enqueue in turns (exact,
+   windowed, windowed, exact) beside the windowed net's; (b) the train step
+   at B=16, N=12288 (x-sorted) on the unfused route, as the JAX package
+   routes exact_knn: K4 and no K5/K6, K1 full scans only, the gradient's
+   cosine against the same weights with ``knn_window: 0`` (>= 0.999999)
+   and its largest gap, ms per step and peak memory beside the windowed
+   net's fused step; (c) ``predict()`` on the toy tile with a checkpoint
+   whose hparams carry ``exact_knn: true`` and with ``predict.exact_knn=
+   true`` on the toy checkpoint: K1 full scans only, K2 and K3 launched,
+   GT accuracy within 0.02 of the CPU plain path's; (d) a two-step
+   ``Trainer.fit`` with ``logger=comet`` and no credentials (a stand-in
+   ``comet_ml`` module records any call): it fits and no Comet call is
+   made.
 
-Phases 11-19 each set the launch counts to 0 before their path and read
+Phases 11-20 each set the launch counts to 0 before their path and read
 them after it; the kernels line's K8 launches are phase 16's predict and
-train steps', K2_16's phase 18e's. Every number of phases 15b, 18 and 19
-is printed beside the card's name and power limit.
+train steps', K2_16's phase 18e's; phase 20's K2, K3 and K4 launches are
+added to those entries, and its K1 launches (every one a full scan) are
+the ``K1_full`` entry's, with phase 20a's times. Every number of phases
+15b and 18-20 is printed beside the card's name and power limit.
 
 Every kernel line of phases 3, 6 and 9 carries ``bound_ms``: the larger of
 the bytes its call must move (inputs read once, outputs written once) over
@@ -2776,6 +2800,284 @@ def phase_log_probs_and_remat(dev, work: str):
           f"ms/step, peak {res[False][3]:.2f} GiB [{CARD}]")
 
 
+# phase 20: the exact_knn RandLA-Net (model.neural_net_hparams.exact_knn,
+# predict.exact_knn) and logger=comet
+EXACT_GRAD_COS = 0.999999       # the exact net's gradient against knn_window 0's
+
+
+def enqueue_ms(step, reps: int = 3) -> float:
+    """The host's time to enqueue ``reps`` steps without waiting for the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_exact_k1(dev):
+    """20 (a): K1 at the exact predict step's searches (B=48, every one a
+    full scan): the encoder graphs K=16 and the decoder's k=1, each
+    bit-equal to its plain version and timed beside it. The rows of the
+    kernels line's ``K1_full`` entry."""
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_knn import _windows, knn_topk, knn_topk_plain
+    from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows
+    from myria3d_tpu_torch.ops.sampling import random_decimation
+
+    _, pos, mask, _, _ = (torch.from_numpy(a).to(dev) for a in bench_subtiles(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stages = [(pos, mask)]
+    for _ in range(4):
+        p, m = stages[-1]
+        idx, m2 = random_decimation(m, 4, gen)
+        stages.append((gather_rows(p, idx), m2))
+    cases = [(f"K=16 self {stages[i][0].shape[1]}", stages[i], stages[i], 16) for i in range(4)]
+    cases += [(f"K=1 {stages[i][0].shape[1]}<-{stages[i + 1][0].shape[1]}", stages[i],
+               stages[i + 1], 1) for i in range(3, -1, -1)]
+    rows = []
+    for label, (qp, qm), (kp, km), k in cases:
+        q4, k4 = centred_clouds(qp, kp, km)
+        idx_k, d2_k = knn_topk(q4, k4, k, query_mask=qm)
+        err = check_k1(idx_k, d2_k, *knn_topk_plain(q4, k4, k, query_mask=qm), label)
+        bnd = bound(PAIR_INSTR * float(qm.sum()) * _windows(q4, k4, 0, qm)[1],
+                    nbytes(q4, k4, idx_k, d2_k))
+        ms = cuda_ms(lambda: knn_topk(q4, k4, k, query_mask=qm), 5, ahead=True)
+        plain_ms = cuda_ms(lambda: knn_topk_plain(q4, k4, k, query_mask=qm), 1)
+        rows.append((err, ms, plain_ms, bnd, None))
+        print(f"phase 20a K1 full scan {label} B={B}: bit-equal, {ms:.3f} ms (host ahead), "
+              f"plain {plain_ms:.3f} ms, {bounds_text(bnd)} [{CARD}]")
+    return rows
+
+
+def phase_exact_knn(dev, work: str):
+    """Phase 20: the full-width RandLA-Net with ``knn_window: 4608`` and
+    ``exact_knn: true`` in its hparams. (a) the predict step at the bench
+    shape: its logits bit-equal to the same weights' with ``knn_window:
+    0``, its full-cloud argmax against the exact two-op step, K1's
+    launches by instantiation (full scans only), ms/batch and host enqueue
+    in turns beside the windowed step; (b) the train step at B=16 on the
+    unfused route: its gradient against ``knn_window: 0``'s on that route,
+    ms/step and peak memory beside the windowed (fused) step; (c)
+    ``predict()`` on the toy tile with a checkpoint whose hparams carry
+    ``exact_knn: true`` and with ``predict.exact_knn=true``; (d) a two-step
+    ``Trainer.fit`` with ``logger=comet`` and no credentials. Returns the
+    ``K1_full`` rows and the launches of (a)-(c)."""
+    import shutil
+    import types
+
+    import torch
+
+    from myria3d_tpu_torch.ops.cuda_knn import scans
+    from myria3d_tpu_torch.pctl.io.las import read_las
+    from myria3d_tpu_torch.predict import predict
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+    from myria3d_tpu_torch.train import build_trainer
+
+    with torch.inference_mode():
+        rows = phase_exact_k1(dev)
+    counters = reset_launches()
+    scans.clear()   # K1's kNN-route launches by (list size, window or full scan)
+    total = {}
+
+    def add(used):
+        for name, v in used.items():
+            total[name] = total.get(name, 0) + v
+
+    # (a) the predict step
+    exact, full, windowed = (randla_train_model(dev, **hp) for hp in (
+        {"exact_knn": True}, {"knn_window": 0}, {}))
+    for model in (exact, full, windowed):
+        model.set_sorted_window(WINDOW if model is not full else 0)
+    need(exact.net.exact_knn and exact.net.knn_window == WINDOW and exact.exact_knn,
+         "the exact_knn hparam did not reach the net")
+    x, pos, mask, full_pos, full_mask = (torch.from_numpy(a).to(dev) for a in bench_subtiles(0))
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    with torch.inference_mode():
+        exact.net.eval()
+        full.net.eval()
+        logits_e, logits_f = exact.net(x, pos, mask, gen(1)), full.net(x, pos, mask, gen(1))
+        need(bool(torch.equal(logits_e, logits_f)),
+             f"exact_knn logits differ from knn_window 0's by "
+             f"{float((logits_e - logits_f).abs().max()):.3g}")
+
+        def steps(model, fused=True):
+            return lambda: model.interp_step(x, pos, mask, pos, full_pos, full_mask, gen(1),
+                                             fused=fused)
+
+        out_k3, out_two_op = steps(exact)(), steps(exact, False)()
+        agree = float((out_k3.argmax(-1) == out_two_op.argmax(-1))[full_mask].float().mean())
+        need(agree >= 0.999, f"exact_knn: K3 / two-op full-cloud argmax agreement {agree:.5f}")
+        step_e, step_w = steps(exact), steps(windowed)
+        step_e()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        scans.clear()
+        for _ in range(3):
+            step_e()
+        torch.cuda.synchronize()
+        per_step = {n: fn.launches / 3 for n, fn in counters.items() if fn.launches}
+        by_list = {f"K={kl} {kind}": v / 3 for (kl, kind), v in sorted(scans.items())}
+        add({n: fn.launches for n, fn in counters.items()})
+        need(not any(kind == "window" for _, kind in scans) and scans.get((16, "full scan"))
+             and scans.get((1, "full scan")) and per_step.get("K2") and per_step.get("K3"),
+             f"exact_knn predict step: K1 {by_list}, launches per step {per_step}")
+        ms = {"exact": [], "windowed": []}
+        host = {"exact": [], "windowed": []}
+        for name in ("exact", "windowed", "windowed", "exact"):
+            step = step_e if name == "exact" else step_w
+            ms[name].append(timed_steps(step, 3)[0])
+            host[name].append(enqueue_ms(step))
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    print(f"phase 20a exact_knn predict step B={B} N={N} M={M} (knn_window {WINDOW}, exact_knn "
+          f"true, sorted window {WINDOW}): logits bit-equal to knn_window 0's; full-cloud "
+          f"argmax K3 (windowed) / exact two-op {agree:.6f}; K1 per step {by_list}, launches "
+          f"per step {per_step}")
+    print(f"phase 20a exact_knn predict step: {mean['exact']:.1f} ms/batch "
+          f"({B * RAW / mean['exact'] / 1e3:.3f} Mpts/s; turns {ms['exact'][0]:.1f}, "
+          f"{ms['exact'][1]:.1f}; host enqueue {np.mean(host['exact']):.1f} ms), windowed "
+          f"{mean['windowed']:.1f} ms/batch ({B * RAW / mean['windowed'] / 1e3:.3f} Mpts/s; turns "
+          f"{ms['windowed'][0]:.1f}, {ms['windowed'][1]:.1f}; host enqueue "
+          f"{np.mean(host['windowed']):.1f} ms) [{CARD}]")
+    del exact, full, windowed, out_k3, out_two_op
+    torch.cuda.empty_cache()
+
+    # (b) the train step on the route JAX takes under exact_knn (unfused);
+    # clouds x-sorted, so the in-model sort of the windowed nets is the
+    # identity and every net draws the same decimations
+    xs, ps, ys, ms_ = train_batch(PN2_TRAIN_B)
+    order = np.argsort(ps[..., 0], axis=1, kind="stable")
+    batch = tuple(torch.from_numpy(np.take_along_axis(a, order[..., None] if a.ndim == 3 else order,
+                                                      axis=1)).to(dev) for a in (xs, ps, ys, ms_))
+    grads, res = {}, {}
+    for name, hp in (("exact", {"exact_knn": True}),
+                     ("full", {"knn_window": 0, "fused_train_lfa": False}), ("windowed", {})):
+        model = randla_train_model(dev, **hp)
+        model.init_train_state()
+        model.optimizer.zero_grad(set_to_none=True)
+        for fn in counters.values():
+            fn.launches = 0
+        scans.clear()
+        model.grad_step(*batch, gen(7))
+        torch.cuda.synchronize()
+        used = {n: fn.launches for n, fn in counters.items() if fn.launches}
+        if name == "exact":
+            add(used)
+            need(not used.get("K5") and not used.get("K6") and used.get("K4")
+                 and not any(kind == "window" for _, kind in scans),
+                 f"exact_knn train step: launches {used}, K1 {scans} (the unfused route, "
+                 f"full scans)")
+            train_used = (used, dict(scans))
+        grads[name] = torch.cat([p.grad.detach().flatten() for p in model.net.parameters()])
+        if name != "full":
+            model.train_step(*batch, gen(0))   # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            for i in range(3):
+                loss, _ = model.train_step(*batch, gen(i))
+            chk = sum(float(p.detach().sum()) for p in model.net.parameters())
+            res[name] = ((time.perf_counter() - t0) * 1e3 / 3,
+                         torch.cuda.max_memory_allocated(dev) / 2**30)
+            need(np.isfinite(float(loss)) and np.isfinite(chk), f"{name}: non-finite train step")
+        del model
+        torch.cuda.empty_cache()
+    a, b = grads["exact"].double(), grads["full"].double()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    gap = float((a - b).abs().max() / b.abs().max())
+    need(cos >= EXACT_GRAD_COS, f"exact_knn gradient cosine {cos:.9f} against knn_window 0's "
+         f"< {EXACT_GRAD_COS}")
+    print(f"phase 20b exact_knn train step B={PN2_TRAIN_B} N={TRAIN_N} (unfused route): gradient "
+          f"cosine against knn_window 0's {cos:.9f}, largest gap {gap:.3g} of the largest "
+          f"gradient; launches {train_used[0]}, K1 {train_used[1]}; {res['exact'][0]:.1f} ms/step, "
+          f"peak {res['exact'][1]:.2f} GiB; windowed (fused route) {res['windowed'][0]:.1f} "
+          f"ms/step, peak {res['windowed'][1]:.2f} GiB [{CARD}]")
+
+    # (c) predict() on the toy tile: exact_knn from the checkpoint, and
+    # predict.exact_knn on the default checkpoint
+    ckpt = os.path.join(work, "exact_knn_ckpt")
+    shutil.copytree(ASSETS, ckpt)
+    with open(os.path.join(ckpt, "hparams.json")) as f:
+        hp = json.load(f)
+    hp["neural_net_hparams"]["exact_knn"] = True
+    with open(os.path.join(ckpt, "hparams.json"), "w") as f:
+        json.dump(hp, f)
+    tile = os.path.join(ASSETS, "toy_tile.las")
+    for label, path, extra in (("checkpoint hparam exact_knn: true", ckpt, []),
+                               ("predict.exact_knn=true", ASSETS, ["predict.exact_knn=true"])):
+        cfg = compose_config(CONFIG_DIR, "config.yaml", [
+            "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={path}",
+            f"predict.output_dir={work}/pred_exact_{len(extra)}", "datamodule.batch_size=4",
+            *extra])
+        for fn in counters.values():
+            fn.launches = 0
+        scans.clear()
+        t0 = time.perf_counter()
+        res_las = read_las(predict(cfg)).points
+        dt = time.perf_counter() - t0
+        used = {n: fn.launches for n, fn in counters.items() if fn.launches}
+        add(used)
+        need(not any(kind == "window" for _, kind in scans) and all(
+            used.get(k, 0) > 0 for k in ("K1", "K2", "K3")),
+            f"predict() {label}: launches {used}, K1 {scans}")
+        acc = float((np.asarray(res_las["PredictedClassification"])
+                     == np.asarray(res_las["Classification"])).mean())
+        need(abs(acc - CPU_PLAIN_ACCURACY) <= ACCURACY_MARGIN,
+             f"predict() {label}: GT accuracy {acc:.4f} vs CPU plain {CPU_PLAIN_ACCURACY:.4f}")
+        print(f"phase 20c predict() {label} on the toy tile: {dt:.2f} s, GT accuracy {acc:.4f} "
+              f"(CPU plain {CPU_PLAIN_ACCURACY:.4f}), launches {used}, K1 "
+              f"{dict(sorted(scans.items()))} [{CARD}]")
+
+    # (d) logger=comet without credentials: the fit runs, no Comet call
+    stand_in = types.ModuleType("comet_ml")
+    stand_in.calls = []
+
+    class Experiment:
+        def __init__(self, *args, **kwargs):
+            stand_in.calls.append("Experiment")
+
+    stand_in.Experiment = Experiment
+    token = os.environ.pop("COMET_API_TOKEN", None)   # no credentials
+    previous = sys.modules.get("comet_ml")
+    sys.modules["comet_ml"] = stand_in
+    try:
+        run_dir = os.path.join(work, "comet")
+        cfg = compose_config(CONFIG_DIR, "config.yaml", [
+            "dataset_description=toy_synthetic", "logger=comet", f"hydra.run.dir={run_dir}",
+            "datamodule.batch_size=4", "datamodule.subtile_width=16", "task.task_name=fit",
+            f"callbacks.model_checkpoint.dirpath={run_dir}/checkpoints",
+            "trainer.max_epochs=1", "trainer.limit_train_batches=2", "trainer.limit_val_batches=1"])
+        trainer, model = build_trainer(cfg)
+        t0 = time.perf_counter()
+        trainer.fit(model, TileDataModule(cfg))
+        dt = time.perf_counter() - t0
+    finally:
+        if token is not None:
+            os.environ["COMET_API_TOKEN"] = token
+        if previous is None:
+            sys.modules.pop("comet_ml", None)
+        else:
+            sys.modules["comet_ml"] = previous
+    logger = trainer.logger
+    need(type(logger).__name__ == "CometLogger" and logger.experiment is None
+         and not stand_in.calls and trainer.global_step == 2
+         and all(np.isfinite(trainer.train_losses)),
+         f"logger=comet fit: {type(logger).__name__}, steps {trainer.global_step}, Comet calls "
+         f"{stand_in.calls}")
+    print(f"phase 20d Trainer.fit with logger=comet and no credentials: {trainer.global_step} "
+          f"steps in {dt:.1f} s, losses {[round(v, 4) for v in trainer.train_losses]}, no Comet "
+          f"call")
+    return rows, total
+
+
 def foreign_modules() -> list:
     """Modules of JAX, flax or the JAX package loaded in this process."""
     return sorted(m for m in sys.modules
@@ -2845,6 +3147,10 @@ def main() -> int:
             launches["K2_16"] = dtype_launches["K2_16"]
             del model
             phase_log_probs_and_remat(dev, work)
+            stats["K1_full"], exact_launches = phase_exact_knn(dev, work)
+            launches["K1_full"] = exact_launches["K1"]
+            for name in ("K2", "K3", "K4"):
+                launches[name] += exact_launches.get(name, 0)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")
@@ -2854,6 +3160,7 @@ def main() -> int:
         print(f"FAIL: modules of JAX or of the JAX package were loaded: {foreign}")
         return 1
     sources = {"K1": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:238"),
+               "K1_full": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
                "K1_ball": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
                "K1_small": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
                "K2": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),

@@ -1,11 +1,14 @@
-"""CSV metrics logger and LR monitor.
+"""Loggers and LR monitor.
 
 Port of ``myria3d_tpu/callbacks/logging_callbacks.py`` (``CSVLogger``,
-``LearningRateMonitor``): one ``metrics.csv`` with a union-of-keys header
-and one row per logged step or epoch, plus ``hparams.yaml``, written by
-rank 0 alone in data-parallel training (the other ranks' loggers make no
-directory and write nothing). The Comet logger needs a network and is not
-ported.
+``CometLogger``, ``LearningRateMonitor``). ``CSVLogger``: one
+``metrics.csv`` with a union-of-keys header and one row per logged step or
+epoch, plus ``hparams.yaml``. ``CometLogger`` sends the same to a Comet
+experiment; it imports ``comet_ml`` only when it has an ``api_key``, and
+without one, with ``disabled``, or without ``comet_ml`` (a warning) it does
+nothing, so ``logger=comet`` composes and fits with no network. Both are
+written by rank 0 alone in data-parallel training (the other ranks'
+loggers make no directory, no experiment, and write nothing).
 """
 
 from __future__ import annotations
@@ -62,6 +65,62 @@ def _scalar(v) -> float:
         return float(v)
     except (TypeError, ValueError):
         return float("nan")
+
+
+class CometLogger:
+    """Comet logger (reference ``configs/logger/comet.yaml``; the JAX
+    package's ``logging_callbacks.py:67-133``): a ``comet_ml.Experiment``
+    when ``api_key`` is set, ``comet_ml`` imports and this is rank 0; else
+    every method does nothing (reference ``get_comet_logger`` returning
+    None, ``comet_callbacks.py:23-39``)."""
+
+    def __init__(self, api_key: str = "", workspace: str = "", project_name: str = "",
+                 experiment_name: Optional[str] = None, disabled: bool = False):
+        self.experiment = None
+        if disabled or not api_key or not ddp.is_rank_zero():
+            return
+        try:
+            import comet_ml
+        except ImportError:
+            import warnings
+
+            warnings.warn("comet_ml is not installed; CometLogger is a no-op. "
+                          "Use logger=csv instead.")
+            return
+        self.experiment = comet_ml.Experiment(api_key=api_key, workspace=workspace or None,
+                                              project_name=project_name or None)
+        if experiment_name:
+            self.experiment.set_name(experiment_name)
+
+    def log_metrics(self, metrics: Dict[str, float], step: Optional[int] = None) -> None:
+        if self.experiment is not None:
+            self.experiment.log_metrics({k: _scalar(v) for k, v in metrics.items()}, step=step)
+
+    def log_hyperparams(self, params: dict) -> None:
+        if self.experiment is not None:
+            self.experiment.log_parameters(params)
+
+    def log_confusion_matrix(self, cm, labels, epoch: int, title: str) -> None:
+        """Reference ``log_comet_cm`` (``comet_callbacks.py:61-87``)."""
+        if self.experiment is not None:
+            self.experiment.log_confusion_matrix(matrix=cm.tolist(), labels=labels, epoch=epoch,
+                                                 title=title)
+
+    def log_code(self, root: str) -> None:
+        """Uploads the source under ``root`` (reference ``LogCode``,
+        ``comet_callbacks.py:42-52``)."""
+        if self.experiment is not None:
+            self.experiment.log_code(folder=root)
+
+    def log_logs_path(self, logs_dir: str) -> None:
+        """The run's logs directory as an experiment parameter (reference
+        ``LogLogsPath``, ``comet_callbacks.py:55-60``)."""
+        if self.experiment is not None:
+            self.experiment.log_parameter("experiment_logs_dirpath", logs_dir)
+
+    def finalize(self) -> None:
+        if self.experiment is not None:
+            self.experiment.end()
 
 
 class LearningRateMonitor:

@@ -78,6 +78,7 @@ class ModelMetrics:
         names = list((classification_dict or {}).values())
         self.class_names = {i: n for i, n in enumerate(names)}
         self._cms: Dict[str, torch.Tensor] = {}
+        self._summed: set = set()   # phases whose matrix holds every rank's
 
     def update(self, phase: str, logits, targets, mask=None) -> None:
         cm = self._cms.get(phase)
@@ -92,15 +93,23 @@ class ModelMetrics:
             return np.zeros((self.num_classes, self.num_classes))
         return cm.cpu().numpy()
 
-    def compute_and_reset(self, phase: str) -> Dict[str, float]:
-        """The phase's metrics, from its matrix summed over the ranks (each
-        rank calls this in turn, a rank without a batch with zeros)."""
-        if ddp.world_size() > 1:
+    def summed(self, phase: str) -> np.ndarray:
+        """The phase's matrix summed over the ranks, once per epoch (each
+        rank calls this in turn, a rank without a batch with zeros; again
+        before ``compute_and_reset`` it sums nothing twice)."""
+        if ddp.world_size() > 1 and phase not in self._summed:
             cm = self._cms.get(phase)
             if cm is None:
                 cm = torch.zeros((self.num_classes, self.num_classes), dtype=torch.float64,
                                  device=ddp.device())
             self._cms[phase] = ddp.all_reduce(cm)
-        cm = self.confusion_matrix(phase)
+            self._summed.add(phase)
+        return self.confusion_matrix(phase)
+
+    def compute_and_reset(self, phase: str) -> Dict[str, float]:
+        """The phase's metrics, from its matrix summed over the ranks
+        (:meth:`summed`)."""
+        cm = self.summed(phase)
         self._cms.pop(phase, None)
+        self._summed.discard(phase)
         return metrics_from_confusion_matrix(cm, self.class_names, prefix=f"{phase}/")

@@ -43,9 +43,6 @@ from myria3d_tpu_torch.models.optimizers import adam, set_learning_rate_scale
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
 from myria3d_tpu_torch.ops.interpolate import knn_interpolate
 
-# the JAX hparam of search exactness, which the callers read (predict and
-# train switch every search to a full scan); K1 is exact within its window
-_IGNORED_NET_HPARAMS = {"exact_knn"}
 TRAIN_STATE = "train_state.pt"
 
 
@@ -63,9 +60,9 @@ def build_net(neural_net_class_name: str, neural_net_hparams: Dict[str, Any]) ->
     """The zoo's net (``models.modules.MODEL_ZOO``: RandLA-Net, PointNet++)
     from the JAX hparams: ``dtype`` is a compute dtype's name
     (``nn.as_dtype``), an hparam the net lacks raises ``TypeError`` as the
-    flax dataclass does (``remat`` on PointNet++)."""
+    flax dataclass does (``remat`` or ``exact_knn`` on PointNet++)."""
     net_class = get_neural_net_class(neural_net_class_name)
-    hp = {k: v for k, v in neural_net_hparams.items() if k not in _IGNORED_NET_HPARAMS}
+    hp = dict(neural_net_hparams)
     if hp.get("dtype") is None:   # null in a config: the net's default, f32
         hp.pop("dtype", None)
     return net_class(**hp)
@@ -86,6 +83,9 @@ class Model(nn.Module):
         # x-sorted window of the full-cloud interpolation search (key
         # positions; 0 is a full scan): set_sorted_window
         self.interp_window = 0
+        # every search a full scan, the two-op interpolation's too: the net
+        # hparam, as model.py:94 reads it (set_exact_knn)
+        self.exact_knn = bool(getattr(net, "exact_knn", False))
         self.lr = float(lr)
         self.optimizer_factory = optimizer if optimizer is not None else adam
         self.lr_scheduler_factory = lr_scheduler
@@ -113,6 +113,20 @@ class Model(nn.Module):
         if hasattr(self.net, "knn_window"):
             self.net.knn_window = int(window)
             self.net.sort_inputs = False
+
+    def set_exact_knn(self, enable: bool = True) -> None:
+        """Every search a full scan (``predict.exact_knn``, JAX
+        ``model.py:177-189``): the net's encoder graphs and decoder
+        upsampling where the net has an ``exact_knn`` flag (RandLA-Net,
+        whose checkpoint hparams then record it; it overrides any
+        ``knn_window``), and the full-cloud interpolation's search on the
+        two-op path (``interp_step(fused=False)``); K3 keeps its window."""
+        self.exact_knn = bool(enable)
+        if hasattr(self.net, "exact_knn"):
+            self.net.exact_knn = bool(enable)
+            if self.hparams is not None:
+                self.hparams["neural_net_hparams"] = {**self.hparams["neural_net_hparams"],
+                                                      "exact_knn": bool(enable)}
 
     def set_compute_dtype(self, dtype: Any) -> None:
         """The net's compute dtype (``predict.compute_dtype``, JAX
@@ -267,14 +281,16 @@ class Model(nn.Module):
         logits onto the full clouds: ``(B, M, num_classes)`` float16.
         ``fused=False`` takes the two-op f32 interpolation (K1, then the
         weighting in torch) instead of K3 (``exact_interp_step``,
-        ``predict.exact_interpolation``)."""
+        ``predict.exact_interpolation``); its search scans every key under
+        ``exact_knn`` (``model.py:383-389``), K3's keeps ``interp_window``."""
         self.net.eval()
         logits = self.net(x, pos, mask, generator)
         full = knn_interpolate(
             logits, sampled_pos, mask, full_pos, full_mask,
             k=self.interpolation_k, fused_payload=fused,
             # density-scaled by the sampled (key) cloud's count
-            window=stage_window(self.interp_window, sampled_pos.shape[1]),
+            window=0 if self.exact_knn and not fused
+            else stage_window(self.interp_window, sampled_pos.shape[1]),
         )
         return full.to(torch.float16)
 

@@ -26,7 +26,15 @@ Routes of the two LFAs of a block (on CUDA every search runs on K1):
   on the encoder over the valid neighbour slots, attention in torch.
 
 Unlike the JAX package, neither train route needs a search window (K2, K4
-and K6 gather directly), so the routing depends on the batch only.
+and K6 gather directly), so the routing depends on the batch only, and on
+``exact_knn``: as in ``randla_net.py:279-280,354``, it takes the unfused
+route.
+
+``exact_knn=True`` makes every search of the net a full scan whatever
+``knn_window`` says (``randla_net.py:245-252,530-541``; ``knn.py:105-106``:
+the window is ignored under ``exact``): the encoder graphs and the
+decoder's k=1 upsampling run K1 over every key. The window still decides
+the in-model sort (``sort_inputs``), as in the JAX net.
 
 The compute dtype ``dtype`` (float32, bfloat16, float16) follows the JAX
 package op by op (``randla_net.py:116-117,268-271,337,466,480,544,556``):
@@ -193,7 +201,8 @@ class RandLANet(nn.Module):
     ``knn_window > 0`` windows every search and requires x-sorted clouds:
     ``sort_inputs`` sorts them inside the forward (stable, pads last) and
     unsorts the logits; otherwise the caller sorts (``SortPointsByX``).
-    Decimation keeps them sorted.
+    Decimation keeps them sorted. ``exact_knn`` scans every key instead
+    (:attr:`search_window` is 0) and trains on the unfused route.
     """
 
     dtype = torch.float32   # the compute dtype (nn.set_compute_dtype)
@@ -202,8 +211,9 @@ class RandLANet(nn.Module):
                  num_neighbors: int = 16, bn_momentum: float = 0.01,
                  knn_window: int = 0, sort_inputs: bool = False,
                  fused_train_lfa="auto", dtype=torch.float32, return_logits: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, exact_knn: bool = False):
         super().__init__()
+        self.exact_knn = bool(exact_knn)
         self.return_logits = bool(return_logits)
         self.remat = bool(remat)
         self.decimation = decimation
@@ -229,6 +239,12 @@ class RandLANet(nn.Module):
         self.fc_classif = nn.Linear(32, num_classes)
         set_compute_dtype(self, dtype)
 
+    @property
+    def search_window(self) -> int:
+        """The window of every search: ``knn_window``, or 0 (a full scan)
+        under ``exact_knn``."""
+        return 0 if self.exact_knn else self.knn_window
+
     def run_block(self, block: DilatedResidualBlock, *args):
         """``block(*args)``; with ``remat`` in training, recomputed in the
         backward instead of keeping its activations, its running-stat
@@ -248,14 +264,15 @@ class RandLANet(nn.Module):
             order = key.sort(dim=1, stable=True).indices
             x, pos, mask = gather_rows(x, order), gather_rows(pos, order), mask.gather(1, order)
         # the fused train route is f32 only: a 16-bit net takes the unfused
-        # one (randla_net.py:268-271)
-        fused = (self.training and dt == torch.float32
+        # one (randla_net.py:268-271), and so does an exact_knn net (:279-280)
+        fused = (self.training and dt == torch.float32 and not self.exact_knn
                  and use_fused_train_lfa(self.fused_train_lfa, x.shape[0]))
+        window = self.search_window
         x = F.linear(x, self.fc0.weight.to(dt), self.fc0.bias.to(dt))
         blocks = (self.block1, self.block2, self.block3, self.block4)
         skips = []  # [b1_out @N, b1_dec @N/4, b2_dec @N/16, b3_dec @N/64]
         for i, block in enumerate(blocks):
-            x = self.run_block(block, x, pos, mask, self.knn_window, fused)
+            x = self.run_block(block, x, pos, mask, window, fused)
             if i == 0:
                 skips.append((x, pos, mask))
             dec_idx, mask = random_decimation(mask, self.decimation, generator)
@@ -266,7 +283,7 @@ class RandLANet(nn.Module):
         for fp in (self.fp4, self.fp3, self.fp2, self.fp1):
             x_skip, pos_skip, mask_skip = skips.pop()
             x = knn_interpolate(x, pos, mask, pos_skip, mask_skip, k=1,
-                                window=stage_window(self.knn_window, pos.shape[1])).to(dt)
+                                window=stage_window(window, pos.shape[1])).to(dt)
             x = fp.nn(torch.cat([x, x_skip], dim=-1), mask_skip)
             pos, mask = pos_skip, mask_skip
         # the head in f32 (randla_net.py:556)

@@ -119,12 +119,19 @@ def window_bases(q4: torch.Tensor, k4: torch.Tensor, w_chunks: int,
     return base.clamp(0, nk_pad // BINS - w_chunks).to(torch.int32)
 
 
+def scans_window(window: int, nk: int) -> bool:
+    """Whether a ``window`` into ``nk`` keys scans less than every key
+    chunk (else the search is a full scan)."""
+    nk_pad = _ceil_to(nk, BINS)
+    return bool(window) and window_chunks(window, nk_pad) < nk_pad // BINS
+
+
 def _windows(q4: torch.Tensor, k4: torch.Tensor, window: int,
              query_mask: torch.Tensor | None):
     """(bases or None for a full scan, window length in key positions)."""
     nk_pad = _ceil_to(k4.shape[1], BINS)
-    w_chunks = window_chunks(window, nk_pad) if window else 0
-    if 0 < w_chunks < nk_pad // BINS:
+    if scans_window(window, k4.shape[1]):
+        w_chunks = window_chunks(window, nk_pad)
         return window_bases(q4, k4, w_chunks, query_mask), w_chunks * BINS
     return None, nk_pad
 
@@ -401,7 +408,8 @@ def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
     ``window > 0`` requires x-sorted clouds. ``r2`` (the ball route, a full
     scan) is K1's, as in the module's docstring. Every launch counts in
     ``knn_topk.launches``; the ball route's also in ``ball_route.launches``,
-    the 4-slot list's in ``small_list.launches``.
+    the 4-slot list's in ``small_list.launches``; the kNN route's also in
+    ``scans``, by instantiation: ``(list size, "window" or "full scan")``.
     """
     _check_variant(variant, window, r2)
     if q4.device.type == "cpu":
@@ -413,11 +421,15 @@ def knn_topk(q4: torch.Tensor, k4: torch.Tensor, k: int, window: int = 0,
         knn_topk.launches += 1
         if r2 is not None:
             ball_route.launches += 1
-        elif list_size(k) == 4:
-            small_list.launches += 1
+        else:
+            if list_size(k) == 4:
+                small_list.launches += 1
+            kind = (list_size(k), "window" if scans_window(window, k4.shape[1]) else "full scan")
+            scans[kind] = scans.get(kind, 0) + 1
     return out
 
 
 knn_topk.launches = 0
 ball_route = SimpleNamespace(launches=0)   # K1's ball route
 small_list = SimpleNamespace(launches=0)   # K1's 4-slot list (2 <= k <= 4)
+scans: dict = {}                           # K1's kNN route by (list size, window or full scan)

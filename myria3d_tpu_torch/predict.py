@@ -24,6 +24,11 @@ first. ``predict(config, devices=[...])`` names the replicas' devices
 ``predict.compute_dtype`` (``bfloat16``, ``float16``; ``myria3d_tpu/predict.py:95-100``)
 runs the forward in that dtype (``Model.set_compute_dtype``); the weights,
 the logits and the interpolation stay f32.
+
+``predict.exact_knn`` (``myria3d_tpu/predict.py:80-94``) is set after the
+sorted window (``Model.set_exact_knn``): the net's searches scan every key,
+and so does the interpolation's with ``predict.exact_interpolation``;
+without it K3 keeps the sorted window (``models/model.py:383-389``).
 """
 
 from __future__ import annotations
@@ -136,9 +141,12 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     )
 
     model = load_checkpoint(pcfg["ckpt_path"], device)
-    # predict.exact_knn: every search a full scan (selection is exact
-    # within a window either way)
-    model.set_sorted_window(0 if pcfg.get("exact_knn") else sorted_window)
+    model.set_sorted_window(sorted_window)
+    # predict.exact_knn, after the window as in myria3d_tpu/predict.py:80-94:
+    # the net's searches scan every key, and so does the interpolation's on
+    # the two-op path (exact_interpolation); K3 keeps the sorted window
+    if pcfg.get("exact_knn"):
+        model.set_exact_knn(True)
     # predict.compute_dtype: the forward's compute dtype (params and logits
     # stay f32); set before the replicas are made, so they carry it
     if pcfg.get("compute_dtype"):

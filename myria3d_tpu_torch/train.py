@@ -24,6 +24,12 @@ ranks take the same scheduler and early-stopping decisions. In one process,
 ``trainer.devices`` > 1 tests over replicas of the model on the local
 devices (``_setup_parallel``).
 
+The logger (``logger=csv`` or ``logger=comet``) gets the metrics rows, the
+whole composed config (``utils.log_hyperparameters``), and where it has
+the hooks the code directory and the logs path at fit start and the
+``train_cm`` / ``val_cm`` / ``test_cm`` confusion matrices
+(``myria3d_tpu/train.py:184-195,444-458``), from rank 0.
+
 ``train(config)`` reads the composed config tree of ``configs/``, whose
 targets name the JAX package's classes: :func:`port_targets` redirects
 every one of them to the port's counterpart (and raises
@@ -55,6 +61,7 @@ from myria3d_tpu_torch.pctl.loader import BackgroundIterator
 from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
 from myria3d_tpu_torch.utils.config import instantiate
 from myria3d_tpu_torch.utils.profiling import StageTimer, annotate, trace
+from myria3d_tpu_torch.utils.utils import log_hyperparameters
 
 log = logging.getLogger(__name__)
 
@@ -238,6 +245,29 @@ class Trainer:
         if self.logger is not None and ddp.is_rank_zero():
             self.logger.log_metrics(metrics, step=self.global_step)
 
+    def _log_run_paths(self) -> None:
+        """The fit's start hooks (reference ``LogCode`` / ``LogLogsPath``,
+        ``myria3d_tpu/train.py:184-195``): the port's source directory and
+        the logs directory, to a logger that takes them."""
+        if self.logger is None or not ddp.is_rank_zero():
+            return
+        if hasattr(self.logger, "log_code"):
+            self.logger.log_code(os.path.dirname(os.path.abspath(__file__)))
+        if hasattr(self.logger, "log_logs_path"):
+            self.logger.log_logs_path(os.environ.get("LOGS_DIR", os.getcwd()))
+
+    def _phase_metrics(self, phase: str, epoch: int = 0) -> Dict[str, float]:
+        """The phase's epoch metrics, its confusion matrix summed over the
+        ranks first and pushed as ``<phase>_cm`` to a logger that takes one
+        (``_log_confusion_matrix``, ``myria3d_tpu/train.py:448-458``)."""
+        cm = self.metrics.summed(phase)
+        if (self.logger is not None and ddp.is_rank_zero()
+                and hasattr(self.logger, "log_confusion_matrix")):
+            labels = [self.metrics.class_names.get(i, str(i))
+                      for i in range(self.metrics.num_classes)]
+            self.logger.log_confusion_matrix(cm, labels, epoch, f"{phase}_cm")
+        return self.metrics.compute_and_reset(phase)
+
     def _setup_parallel(self, model: Model, batch_size: int, train: bool) -> None:
         """``myria3d_tpu/train.py:114-129``: ``self.par`` for a process
         group (DDP) or for ``trainer.devices`` > 1 local devices (replicas,
@@ -271,6 +301,7 @@ class Trainer:
         """Fit ``model``; ``ckpt_path`` resumes from a checkpoint, or with
         ``finetune`` takes its weights only (a fresh optimizer) and applies
         the ``finetune`` callback's multipliers at each epoch's start."""
+        self._log_run_paths()
         datamodule.prepare_data()
         datamodule.setup("fit")
         model.to(self.device)
@@ -372,7 +403,7 @@ class Trainer:
             "train/loss_epoch": float(np.mean(step_losses)) if step_losses else float("nan"),
         }
         if self.metrics is not None:
-            epoch_metrics.update(self.metrics.compute_and_reset("train"))
+            epoch_metrics.update(self._phase_metrics("train", epoch))
         val_metrics = self._val_epoch(model, datamodule, limit=self.cfg.limit_val_batches,
                                       overfit=overfit)
         if self.interrupted:
@@ -412,7 +443,7 @@ class Trainer:
             return {}
         out = {f"{log_prefix}/loss_epoch": _mean_over_ranks(losses)}
         if self.metrics is not None:
-            out.update(self.metrics.compute_and_reset(log_prefix))
+            out.update(self._phase_metrics(log_prefix))
         return out
 
     # ------------------------------------------------------------------
@@ -445,7 +476,7 @@ class Trainer:
             model.criterion = criterion
         model.to(self.device)
         if self.exact_knn:
-            model.set_sorted_window(0)
+            model.set_exact_knn(True)
         elif self.sorted_window > 0:
             model.set_sorted_window(self.sorted_window)
         fused = not self.exact_interpolation
@@ -495,7 +526,7 @@ class Trainer:
                 self.metrics.update("test", full_logits, full_y, dev["full_mask"])
         out = {"test/loss_epoch": _mean_over_ranks(losses)}
         if self.metrics is not None:
-            out.update(self.metrics.compute_and_reset("test"))
+            out.update(self._phase_metrics("test"))
         self._log(out)
         log.info("test: " + " ".join(f"{k}={v:.4f}" for k, v in out.items() if k.count("/") == 1))
         return out
@@ -504,7 +535,9 @@ class Trainer:
 def build_trainer(config: dict):
     """``(trainer, model)`` from the composed config: the model, callbacks,
     logger and trainer knobs, with their targets redirected to the port
-    (the datamodule is the caller's)."""
+    (the datamodule is the caller's). The logger gets the composed config
+    as it is (``myria3d_tpu/train.py:706-707``)."""
+    composed = config
     config = {k: port_targets(config[k]) if k in ("model", "callbacks", "logger", "trainer")
               else v for k, v in config.items()}
     seed = int(config.get("seed", 12345))
@@ -530,8 +563,7 @@ def build_trainer(config: dict):
     trainer.strict_full_cloud = bool(pcfg.get("strict_full_cloud", False))
     trainer.exact_knn = bool(pcfg.get("exact_knn", False))
     trainer.sorted_window = int(pcfg.get("sorted_window", 0) or 0)
-    if logger is not None:
-        logger.log_hyperparams({"model": model.hparams, "trainer": trainer_cfg, "seed": seed})
+    log_hyperparameters(logger, composed, model, None)
     return trainer, model
 
 

@@ -176,7 +176,8 @@ def load_state_dict(ckpt_dir: str, device: str | torch.device = "cpu") -> Dict[s
 def load_checkpoint(ckpt_dir: str, device: str | torch.device = "cpu") -> Model:
     """The eval-mode :class:`Model` stored in ``ckpt_dir``, on ``device``.
     Searches are full scans until the caller windows x-sorted clouds
-    (``Model.set_sorted_window``)."""
+    (``Model.set_sorted_window``); a net whose hparams carry ``exact_knn``
+    keeps it, and with it its full scans under any window."""
     with open(os.path.join(ckpt_dir, HPARAMS)) as f:
         hparams = json.load(f)
     net = build_net(hparams["neural_net_class_name"], hparams["neural_net_hparams"])

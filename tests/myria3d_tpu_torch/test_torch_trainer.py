@@ -1,10 +1,11 @@
 """The port's train loop on the CPU at a small size: gradient accumulation,
 the SIGTERM save and resume, the confusion-matrix metrics against the JAX
-package, the redirect of the config's targets to the port, and what
-raises: the parts that are not ported (Comet, and several nodes without
-torchrun: the port starts the ranks of one node) and what the JAX package
-refuses as well (``remat`` on PointNet++, a compute dtype outside
-float32 / bfloat16 / float16)."""
+package, the redirect of the config's targets to the port (a target
+without a counterpart raises), a fit with ``logger=comet`` and no
+credentials, and what raises: several nodes without torchrun (the port
+starts the ranks of one node) and what the JAX package refuses as well
+(``remat`` on PointNet++, a compute dtype outside float32 / bfloat16 /
+float16)."""
 
 import os
 import signal
@@ -19,7 +20,7 @@ from myria3d_tpu.callbacks.metric_callbacks import ModelMetrics as JaxModelMetri
 from myria3d_tpu.pctl.batching import PointCloudBatch
 from myria3d_tpu_torch.callbacks.metric_callbacks import ModelMetrics
 from myria3d_tpu_torch.models.model import build_model
-from myria3d_tpu_torch.train import Trainer, TrainerConfig, port_targets, train
+from myria3d_tpu_torch.train import Trainer, TrainerConfig, build_trainer, port_targets
 
 torch.set_num_threads(1)
 B, N = 2, 256
@@ -189,24 +190,48 @@ def test_config_targets_are_redirected_to_the_port():
     ft = "myria3d_tpu.callbacks.finetuning_callbacks.FinetuningFreezeUnfreeze"
     assert port_targets({"_target_": ft})["_target_"] == (
         "myria3d_tpu_torch.callbacks.finetuning_callbacks.FinetuningFreezeUnfreeze")
-    missing = "myria3d_tpu.callbacks.logging_callbacks.CometLogger"
+    comet = "myria3d_tpu.callbacks.logging_callbacks.CometLogger"
+    assert port_targets({"_target_": comet})["_target_"] == (
+        "myria3d_tpu_torch.callbacks.logging_callbacks.CometLogger")
+    missing = "myria3d_tpu.callbacks.logging_callbacks.NoSuchLogger"
     with pytest.raises(NotImplementedError, match=missing):
         port_targets({"_target_": missing})
 
 
+def _fit_with_comet_logger():
+    """``logger=comet`` without credentials composes and fits, as in the
+    JAX package: the logger makes no experiment and no call."""
+    trainer, model = build_trainer({
+        "model": {"_target_": "myria3d_tpu.models.model.Model",
+                  "neural_net_class_name": "RandLANet",
+                  "neural_net_hparams": {"num_features": 9, "num_classes": 7,
+                                         "num_neighbors": 8}},
+        "trainer": {"accelerator": "cpu", "max_epochs": 1},
+        "callbacks": {"model_detailed_metrics": {
+            "_target_": "myria3d_tpu.callbacks.metric_callbacks.ModelMetrics",
+            "num_classes": 7}},
+        "logger": {"comet": {"_target_": "myria3d_tpu.callbacks.logging_callbacks.CometLogger",
+                             "api_key": ""}}})
+    trainer.fit(model, FakeDataModule())
+    assert trainer.global_step == 2 and np.isfinite(trainer.train_losses).all()
+    assert type(trainer.logger).__module__ == "myria3d_tpu_torch.callbacks.logging_callbacks"
+    assert trainer.logger.experiment is None
+
+
 @pytest.mark.parametrize("what", ["comet_logger", "pointnet2", "float64", "devices"])
 def test_unported_parts_raise(what):
-    # what the JAX package refuses too: an hparam PointNet++ lacks (its
-    # dataclass raises TypeError) and a compute dtype outside its table
-    # (a KeyError there, ValueError here)
+    # the Comet logger is ported: its case fits. What the JAX package
+    # refuses too: an hparam PointNet++ lacks (its dataclass raises
+    # TypeError) and a compute dtype outside its table (a KeyError there,
+    # ValueError here)
+    if what == "comet_logger":
+        _fit_with_comet_logger()
+        return
     expected = {"pointnet2": TypeError, "float64": ValueError}.get(what, NotImplementedError)
     with pytest.raises(expected):
         if what == "pointnet2":
             build_model("PointNet2", {"num_features": 9, "num_classes": 7, "remat": True})
         elif what == "float64":
             build_model("RandLANet", {"num_features": 9, "num_classes": 7, "dtype": "float64"})
-        elif what == "devices":
-            Trainer(TrainerConfig(devices=2, num_nodes=2, accelerator="cpu"))
         else:
-            train({"task": {"task_name": "fit"}, "model": {},
-                   "logger": {"comet": {"_target_": "myria3d_tpu.callbacks.logging_callbacks.CometLogger"}}})
+            Trainer(TrainerConfig(devices=2, num_nodes=2, accelerator="cpu"))
