@@ -206,10 +206,21 @@ PyTorch built for CUDA. Phases, one line each:
    GT accuracy within 0.02 of the CPU plain path's; (d) a two-step
    ``Trainer.fit`` with ``logger=comet`` and no credentials (a stand-in
    ``comet_ml`` module records any call): it fits and no Comet call is
-   made.
+   made;
+21. the CLI: ``python -m myria3d_tpu_torch.run`` (run as ``-m`` runs it,
+   through ``runpy``) predicts the toy tile in a subprocess on the card
+   from a temporary cwd whose ``.env`` sets ``LOGS_DIR`` (removed from the
+   subprocess's environment), with ``--config-path=`` and
+   ``--config-name=``, ``experiment=predict`` and ``predict.output_dir=out``:
+   it exits 0 with no FAIL line, the LAS lands in
+   ``<LOGS_DIR>/runs/<date>/<time>/out/``, its GT accuracy is within 0.005
+   of phase 4's, and the subprocess's own counts show K1, K2 and K3
+   launched; the wall time is printed beside the card's name and power
+   limit.
 
-Phases 11-20 each set the launch counts to 0 before their path and read
-them after it; the kernels line's K8 launches are phase 16's predict and
+Phases 11-21 each set the launch counts to 0 before their path and read
+them after it (phase 21 in its subprocess, whose counts start at 0;
+they stay out of the kernels line); the kernels line's K8 launches are phase 16's predict and
 train steps', K2_16's phase 18e's; phase 20's K2, K3 and K4 launches are
 added to those entries, and its K1 launches (every one a full scan) are
 the ``K1_full`` entry's, with phase 20a's times. Every number of phases
@@ -239,6 +250,7 @@ package loaded during the run exits nonzero without a result.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import subprocess
@@ -701,7 +713,7 @@ def phase_main_path(dev):
          f"GT accuracy {acc:.4f} vs CPU plain {CPU_PLAIN_ACCURACY:.4f}")
     print(f"phase 4 main path: predict() {dt:.2f} s, {len(res)} points, covered {covered.mean():.4f}, "
           f"GT accuracy {acc:.4f} (CPU plain {CPU_PLAIN_ACCURACY:.4f}), launches {launches}")
-    return launches
+    return launches, acc
 
 
 def phase_step(model, dev):
@@ -3078,6 +3090,66 @@ def phase_exact_knn(dev, work: str):
     return rows, total
 
 
+# phase 21: the CLI, ``python -m myria3d_tpu_torch.run``, as a user runs it.
+# The module runs as ``-m`` runs it (``runpy``, ``__main__``); the wrapper
+# then prints the launch counts of its process, which start at 0 there.
+CLI_WRAPPER = r'''
+import json, runpy, sys
+try:
+    runpy.run_module("myria3d_tpu_torch.run", run_name="__main__", alter_sys=True)
+finally:
+    from myria3d_tpu_torch.ops.cuda_interp import knn_interp
+    from myria3d_tpu_torch.ops.cuda_knn import knn_topk
+    from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention
+    print("CLI launches " + json.dumps({"K1": knn_topk.launches, "K2": lfa_attention.launches,
+                                        "K3": knn_interp.launches}))
+'''
+CLI_ACCURACY_MARGIN = 0.005    # the CLI's GT accuracy against phase 4's
+
+
+def phase_cli(main_acc: float) -> None:
+    """Phase 21: ``python -m myria3d_tpu_torch.run`` predicts the toy tile
+    on the card in a subprocess, from a temporary cwd whose ``.env`` sets
+    ``LOGS_DIR`` (unset in the subprocess's environment), with the ``=``
+    forms of the config flags and a relative ``predict.output_dir``: the LAS
+    lands in ``<LOGS_DIR>/runs/<date>/<time>/out/``, its GT accuracy within
+    0.005 of phase 4's, K1, K2 and K3 launched, and no FAIL line."""
+    from myria3d_tpu_torch.pctl.io.las import read_las
+
+    with tempfile.TemporaryDirectory(prefix="m3d_cli_") as cwd:
+        with open(os.path.join(cwd, ".env"), "w") as f:
+            f.write(f"LOGS_DIR={cwd}/logs_env\n")
+        env = {k: v for k, v in os.environ.items() if k != "LOGS_DIR"}
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+        argv = [f"--config-path={os.path.join(ROOT, 'configs')}", "--config-name=config",
+                "task.task_name=predict", "experiment=predict",
+                f"predict.src_las={os.path.join(ASSETS, 'toy_tile.las')}",
+                f"predict.ckpt_path={ASSETS}", "predict.output_dir=out"]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, *argv], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=600)
+        dt = time.perf_counter() - t0
+        lines = (res.stdout + res.stderr).splitlines()
+        need(res.returncode == 0, f"the CLI exited {res.returncode}: {res.stderr[-3000:]}")
+        need(not any(line.startswith("FAIL") for line in lines), "the CLI printed a FAIL line")
+        counts = [json.loads(line[len("CLI launches "):]) for line in lines
+                  if line.startswith("CLI launches ")]
+        need(len(counts) == 1 and all(v > 0 for v in counts[0].values()),
+             f"the CLI's launches: {counts}")
+        outs = glob.glob(os.path.join(cwd, "logs_env", "runs", "*", "*", "out", "toy_tile.las"))
+        need(len(outs) == 1, f"the CLI's LAS is not under the .env's LOGS_DIR run directory: "
+             f"{glob.glob(os.path.join(cwd, '**', '*.las'), recursive=True)}")
+        las = read_las(outs[0]).points
+    acc = float((np.asarray(las["PredictedClassification"])
+                 == np.asarray(las["Classification"])).mean())
+    need(abs(acc - main_acc) <= CLI_ACCURACY_MARGIN,
+         f"the CLI's GT accuracy {acc:.4f} against phase 4's {main_acc:.4f}")
+    print(f"phase 21 CLI: python -m myria3d_tpu_torch.run predict (.env LOGS_DIR, "
+          f"--config-path=, experiment=predict, batch 48) {dt:.2f} s wall, the LAS in "
+          f"{os.path.relpath(outs[0], cwd)}, GT accuracy {acc:.4f} (phase 4 {main_acc:.4f}), "
+          f"launches {counts[0]} [{CARD}]")
+
+
 def foreign_modules() -> list:
     """Modules of JAX, flax or the JAX package loaded in this process."""
     return sorted(m for m in sys.modules
@@ -3113,7 +3185,7 @@ def main() -> int:
         model = load_checkpoint(ASSETS, dev)
         with torch.inference_mode():
             stats = phase_kernels(model, dev)
-        launches = phase_main_path(dev)
+        launches, main_acc = phase_main_path(dev)
         phase_step(model, dev)
         del model
         train_stats = phase_train_kernels(dev)
@@ -3151,6 +3223,7 @@ def main() -> int:
             launches["K1_full"] = exact_launches["K1"]
             for name in ("K2", "K3", "K4"):
                 launches[name] += exact_launches.get(name, 0)
+        phase_cli(main_acc)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")

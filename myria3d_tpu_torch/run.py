@@ -1,32 +1,39 @@
 """CLI of the port — ``python -m myria3d_tpu_torch.run
-task.task_name={fit,fit+test,test,finetune,predict,create_hdf5} [--config-path DIR]
-[--config-name NAME] [a.b=value ...]``.
+task.task_name={fit,fit+test,test,finetune,predict,create_hdf5}
+[--config-path DIR | --config-path=DIR] [--config-name NAME | --config-name=NAME]
+[a.b=value ...]``.
 
-Mirrors ``run.py``. ``fit`` (the default task) composes the config tree
-under ``configs/`` (default experiment ``RandLaNetDebug``), enters the
-per-run directory ``hydra.run.dir`` like hydra, and runs
-``myria3d_tpu_torch.train.train``: fit, then the full-cloud test on the
-best checkpoint (``task.auto_lr_find=true`` runs the LR range test first
-and fits from its suggestion). ``test`` evaluates the checkpoint
-``model.ckpt_path`` on the test split, full-cloud. ``finetune`` (e.g.
-``experiment=DebugFineTune``) fits from the weights of ``model.ckpt_path``
-with a fresh optimizer, unfreezing the net's subtrees by epoch through the
-``finetune`` callback. ``predict`` (``launch_predict``, ``run.py:92``)
-composes with ``experiment=predict`` (unless a frozen config is given),
-``predict.src_las`` may be a glob, the next tile is read in the background
-while the current one streams through the device, and ``predict.resume``
-skips inputs whose output already exists. ``create_hdf5`` builds the HDF5
-sample cache of ``datamodule.hdf5_file_path`` from the LAS corpus
-(``launch_hdf5``, ``run.py:157``). Every task runs on the first CUDA
-device, and raises when there is none; ``trainer.accelerator=cpu`` runs it
-on the CPU.
+Mirrors ``run.py``. It first adds the variables of a ``.env`` in the cwd
+to the environment where unset (``LOGS_DIR``, the Comet credentials), then
+composes the config and enters the per-run directory ``hydra.run.dir``
+like hydra, for every task. ``fit`` (the default task) composes the config
+tree under ``configs/`` (default experiment ``RandLaNetDebug``), writes
+the config tree to ``config_tree.txt`` there (``print_config: false``
+skips it) and runs ``myria3d_tpu_torch.train.train``: fit, then the
+full-cloud test on the best checkpoint (``task.auto_lr_find=true`` runs
+the LR range test first and fits from its suggestion). ``test`` evaluates
+the checkpoint ``model.ckpt_path`` on the test split, full-cloud.
+``finetune`` (e.g. ``experiment=DebugFineTune``) fits from the weights of
+``model.ckpt_path`` with a fresh optimizer, unfreezing the net's subtrees
+by epoch through the ``finetune`` callback. ``predict`` (``launch_predict``,
+``run.py:92``) composes with ``experiment=predict`` when ``--config-path``
+is absent or ``configs`` and no experiment is given; relative paths of
+``predict`` resolve in the run directory (a frozen config with no
+``hydra`` node keeps the cwd); ``predict.src_las`` may be a glob, the next
+tile is read in the background while the current one streams through the
+device, and ``predict.resume`` skips inputs whose output already exists.
+``create_hdf5`` builds the HDF5 sample cache of
+``datamodule.hdf5_file_path`` from the LAS corpus (``launch_hdf5``,
+``run.py:157``). Every task runs on the first CUDA device, and raises when
+there is none; ``trainer.accelerator=cpu`` runs it on the CPU.
 
 ``fit``, ``test`` and ``finetune`` run data parallel over
 ``trainer.devices`` > 1 (``auto``: every local GPU): this process starts
-one rank per device (``parallel.ddp.spawn``) and waits for them. Under
-torchrun (``RANK`` and ``WORLD_SIZE`` set) each process joins torchrun's
-group instead; ``trainer.num_nodes`` > 1 needs torchrun. Predict splits
-its batches over the local GPUs in one process.
+one rank per device (``parallel.ddp.spawn``), each in this process's run
+directory, and waits for them. Under torchrun (``RANK`` and
+``WORLD_SIZE`` set) each process joins torchrun's group instead;
+``trainer.num_nodes`` > 1 needs torchrun. Predict splits its batches over
+the local GPUs in one process.
 """
 
 from __future__ import annotations
@@ -35,36 +42,75 @@ import glob
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import List
+from typing import List, Optional
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG_DIR = os.path.join(REPO_ROOT, "configs")
 TASK_PREFIX = "task.task_name="
+DEFAULT_DIRECTORY = "configs"   # --config-path spelled as run.py's default
+TASKS = ("fit", "fit+test", "test", "finetune", "predict", "create_hdf5")
 
 
-def parse_cli(argv: List[str]):
-    """argv -> (config_dir, config_name, overrides, task_name)."""
-    config_dir, config_name, overrides, task = CONFIG_DIR, "config.yaml", [], "fit"
+def task_of(overrides: List[str], task: str = "fit") -> str:
+    """The task the overrides name (the last ``task.task_name=`` wins)."""
+    for arg in overrides:
+        if arg.startswith(TASK_PREFIX):
+            task = arg[len(TASK_PREFIX):]
+    return task
+
+
+def _parse(argv: List[str]):
+    """argv -> (config_dir as given or None, config_name, overrides, task),
+    as ``run.py:_parse_cli``: ``--config-path DIR``, ``--config-path=DIR``,
+    ``-cp DIR`` and the same for the name; a bare argument is ignored."""
+    config_dir, config_name, overrides = None, "config.yaml", []
     it = iter(argv)
     for arg in it:
         if arg in ("--config-path", "-cp"):
             config_dir = next(it)
         elif arg in ("--config-name", "-cn"):
             config_name = next(it)
+        elif arg.startswith("--config-path="):
+            config_dir = arg.split("=", 1)[1]
+        elif arg.startswith("--config-name="):
+            config_name = arg.split("=", 1)[1]
         elif "=" in arg:
             overrides.append(arg)
-            if arg.startswith(TASK_PREFIX):
-                task = arg[len(TASK_PREFIX):]
         else:
-            raise SystemExit(f"unrecognized argument: {arg}")
+            print(f"Ignoring unrecognized argument: {arg}")
     if not config_name.endswith((".yaml", ".yml")):
         config_name += ".yaml"
-    return config_dir, config_name, overrides, task
+    return config_dir, config_name, overrides, task_of(overrides)
 
 
-def compose_config(config_dir: str, config_name: str, overrides: List[str]):
-    """Compose the config: the ``configs/`` tree (with ``experiment=predict``
-    for the predict task), or a frozen full config plus overrides."""
+def parse_cli(argv: List[str]):
+    """argv -> (config_dir, config_name, overrides, task_name); no
+    ``--config-path`` gives the repository's ``configs/``."""
+    config_dir, config_name, overrides, task = _parse(argv)
+    return config_dir or CONFIG_DIR, config_name, overrides, task
+
+
+def load_dotenv() -> None:
+    """Add the ``KEY=value`` lines of a ``.env`` in the cwd to the
+    environment where unset (``run.py:217-223``): blank, ``#`` and
+    ``=``-less lines are skipped, the value loses its surrounding spaces
+    and ``"``."""
+    if not os.path.isfile(".env"):
+        return
+    with open(".env") as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#") and "=" in line:
+                key, _, value = line.partition("=")
+                os.environ.setdefault(key.strip(), value.strip().strip('"'))
+
+
+def compose_config(config_dir: str, config_name: str, overrides: List[str],
+                   default_tree: Optional[bool] = None):
+    """Compose the config: the ``configs/`` tree, or a frozen full config
+    plus overrides. The predict task composes the tree with
+    ``experiment=predict`` when ``default_tree`` (the default: ``config_dir``
+    is ``CONFIG_DIR``) and no ``experiment=`` override is given."""
     import yaml
 
     from myria3d_tpu_torch.utils.config import compose, load_config, resolve_interpolations, update
@@ -73,8 +119,9 @@ def compose_config(config_dir: str, config_name: str, overrides: List[str]):
     with open(path) as f:
         layered = "defaults:" in f.read()
     if layered:
-        predict = TASK_PREFIX + "predict" in overrides
-        if predict and config_dir == CONFIG_DIR and not any(
+        if default_tree is None:
+            default_tree = config_dir == CONFIG_DIR
+        if default_tree and task_of(overrides) == "predict" and not any(
                 o.startswith("experiment=") for o in overrides):
             overrides = ["experiment=predict"] + overrides
         return compose(config_dir, config_name, overrides)
@@ -152,25 +199,43 @@ def launch_hdf5(config) -> None:
     )
 
 
+def launch_train(config):
+    """fit, test and finetune (``run.py:launch_train``): ``extras`` in every
+    rank, the config tree printed and saved to ``config_tree.txt`` on rank
+    zero, then ``train``."""
+    from myria3d_tpu_torch.parallel import ddp
+    from myria3d_tpu_torch.train import train
+    from myria3d_tpu_torch.utils import utils
+
+    utils.extras(config)
+    if config.get("print_config", True) and ddp.is_rank_zero():
+        utils.print_config(config)
+    return train(config)
+
+
 def main(argv: List[str]):
     if "--help" in argv or "-h" in argv:
         print(__doc__)
         return None
-    config_dir, config_name, overrides, task = parse_cli(argv)
-    if task == "predict":
-        return launch_predict(compose_config(config_dir, config_name, overrides))
-    if task not in ("fit", "fit+test", "test", "finetune", "create_hdf5"):
+    load_dotenv()
+    config_dir, config_name, overrides, task = _parse(argv)
+    if task not in TASKS:
         raise ValueError(
             f"task.task_name={task}: fit, fit+test, test, finetune, predict or create_hdf5")
-    config = compose_config(config_dir, config_name, overrides)
-    if task != "create_hdf5" and start_ranks(config, argv):
+    # run.py adds experiment=predict when --config-path is absent or "configs"
+    config = compose_config(config_dir or CONFIG_DIR, config_name, overrides,
+                            default_tree=config_dir in (None, DEFAULT_DIRECTORY))
+    if task not in ("predict", "create_hdf5") and start_ranks(config, argv):
         return None   # the ranks ran the task
     enter_run_dir(config)
+    if task == "predict":
+        from myria3d_tpu_torch.utils import utils
+
+        utils.extras(config)
+        return launch_predict(config)
     if task == "create_hdf5":
         return launch_hdf5(config)
-    from myria3d_tpu_torch.train import train
-
-    return train(config)
+    return launch_train(config)
 
 
 def start_ranks(config, argv: List[str]) -> bool:
@@ -191,6 +256,10 @@ def start_ranks(config, argv: List[str]) -> bool:
         return False
     if int(trainer.get("num_nodes", 1) or 1) > 1:
         raise NotImplementedError("trainer.num_nodes > 1: start each node's ranks with torchrun")
+    # every rank enters the parent's run directory (``${now:...}`` resolved once)
+    run_dir = ((config.get("hydra") or {}).get("run") or {}).get("dir")
+    if run_dir:
+        argv = [*argv, f"hydra.run.dir={os.path.abspath(run_dir)}"]
     ddp.spawn(main, devices, args=(argv,))
     return True
 

@@ -255,10 +255,11 @@ def small_toy(tmp_path_factory):
     return las, make_toy_dataset_from_test_file(str(d / "toy.hdf5"), las)
 
 
-def test_fit_then_predict_through_the_cli(small_toy, tmp_path):
+def test_fit_then_predict_through_the_cli(small_toy, tmp_path, monkeypatch):
     """``model=pointnet2_model``: ``fit`` (one train step, then the full-cloud
     test on the checkpoint it kept) and ``predict`` with that checkpoint,
     on the CPU."""
+    monkeypatch.chdir(tmp_path)     # fit and predict enter their run directories
     las, hdf5 = small_toy
     run_dir = tmp_path / "run"
     trainer = run.main(["task.task_name=fit", "experiment=RandLaNetDebug", "model=pointnet2_model",

@@ -37,7 +37,8 @@ def _overrides(tile, out_dir):
             "datamodule.batch_size=2", "trainer.accelerator=cpu"]
 
 
-def test_cli_predict_writes_the_output_las(small_tile, tmp_path):
+def test_cli_predict_writes_the_output_las(small_tile, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)     # predict enters its run directory
     outs = run.main(_overrides(small_tile, tmp_path))
     assert outs == [str(tmp_path / "small_tile.las")]
     src, res = read_las(small_tile).points, read_las(outs[0]).points
