@@ -4,6 +4,7 @@ finetune paths, its two nets in f32 and 16-bit compute, and its parity
 harness (one NVIDIA GPU).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 22     # phases 1, 2 and 22 alone
 
 Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA. Phases, one line each:
@@ -216,15 +217,37 @@ PyTorch built for CUDA. Phases, one line each:
    ``<LOGS_DIR>/runs/<date>/<time>/out/``, its GT accuracy is within 0.005
    of phase 4's, and the subprocess's own counts show K1, K2 and K3
    launched; the wall time is printed beside the card's name and power
-   limit.
+   limit;
+22. a whole 1 km² tile through the CLI: (a) ``python -m
+   myria3d_tpu_torch.run`` (``experiment=predict``, batch 48,
+   ``datamodule.epsg=2154 datamodule.tile_width=1000``, the toy
+   checkpoint) predicts ``bench_e2e.py``'s synthetic tile (17.18 M points
+   over 1000 m, production GridSampling statistics, the port's
+   ``write_production_tile``, cached under ``build/myria3d_tpu_torch/tiles``):
+   the wall clock, Mpts/s, predict()'s logged line, its ``phases`` dict
+   (the ``finalize_*`` phases among them), K1/K2/K3 launched, the peak
+   device memory and the host's cores; the output LAS as phase 4 checks it,
+   and the covered points' classes within the class dict; (b) the tile's
+   batches rebuilt as predict() makes them (``predict.tile_loader``): the
+   (B, N_pad, M_pad) histogram, whose count must be (a)'s, and
+   ``Model.interp_step`` on the first batch at each distinct (N_pad,
+   M_pad) (at most three) on the kernels and on their plain versions from
+   one generator seed: argmax agreement >= 0.999 over the valid full
+   points, the ms of both; (c) a dense crop (800 000 points over 100 m)
+   whose subtiles MaximumNumNodes caps: its batch must pad to N=40064 and
+   to a full bucket past 131072 (the overflow quantum), held as in (b) and
+   predicted through the CLI with (a)'s checks; (d) the crop predicted
+   again with ``predict.subtile_overlap=25``, (a)'s checks, its wall clock
+   beside the overlap-0 run's.
 
-Phases 11-21 each set the launch counts to 0 before their path and read
-them after it (phase 21 in its subprocess, whose counts start at 0;
-they stay out of the kernels line); the kernels line's K8 launches are phase 16's predict and
-train steps', K2_16's phase 18e's; phase 20's K2, K3 and K4 launches are
+Phases 11-22 each set the launch counts to 0 before their path and read
+them after it (phases 21-22 in their subprocesses, whose counts start at
+0; phase 21's stay out of the kernels line, phase 22's predicts' are added
+to K1's, K2's and K3's entries); the kernels line's K8 launches are phase
+16's predict and train steps', K2_16's phase 18e's; phase 20's K2, K3 and K4 launches are
 added to those entries, and its K1 launches (every one a full scan) are
 the ``K1_full`` entry's, with phase 20a's times. Every number of phases
-15b and 18-20 is printed beside the card's name and power limit.
+15b and 18-22 is printed beside the card's name and power limit.
 
 Every kernel line of phases 3, 6 and 9 carries ``bound_ms``: the larger of
 the bytes its call must move (inputs read once, outputs written once) over
@@ -674,6 +697,33 @@ def launch_counters():
             "inverse_map": inverse_map}
 
 
+def check_predicted_las(res, n_points: int, cfg: dict) -> float:
+    """The output LAS of a predict: the input's point count, every
+    dimension present and finite, probabilities that sum to 1 within 1e-3
+    or are null (uncovered points: dropped artefacts), more than 0.9 of the
+    points covered, and the covered points' classes within the class
+    dict. Returns the covered share."""
+    need(len(res) == n_points, f"output has {len(res)} points, input {n_points}")
+    classes = cfg["predict"]["interpolator"]["classification_dict"]
+    names = list(classes.values())
+    dims = set(res.dtype.names)
+    need({"PredictedClassification", "entropy", *names} <= dims, f"missing dims in {sorted(dims)}")
+    for name in res.dtype.names:
+        col = np.asarray(res[name])
+        need(col.dtype.kind != "f" or bool(np.isfinite(col).all()),
+             f"NaN or inf in the output's {name}")
+    sums = np.zeros(len(res), np.float64)
+    for name in names:
+        sums += np.asarray(res[name], np.float64)
+    covered = np.abs(sums - 1.0) <= 1e-3
+    need(bool((covered | (sums == 0.0)).all()), "probabilities neither sum to 1 nor are null")
+    need(covered.mean() > 0.9, f"only {covered.mean():.3f} of the points are predicted")
+    codes = np.unique(np.asarray(res["PredictedClassification"])[covered])
+    need(set(codes.tolist()) <= {int(c) for c in classes},
+         f"predicted classes {codes.tolist()} outside the class dict {sorted(classes)}")
+    return float(covered.mean())
+
+
 def phase_main_path(dev):
     """The port's predict() on the toy tile, through the kernels."""
     from myria3d_tpu_torch.pctl.io.las import read_las
@@ -696,22 +746,11 @@ def phase_main_path(dev):
         res = read_las(out).points
     need(all(v > 0 for v in launches.values()), f"kernels not launched on the main path: {launches}")
 
-    src = read_las(tile).points
-    need(len(res) == len(src), f"output has {len(res)} points, input {len(src)}")
-    names = list(cfg["predict"]["interpolator"]["classification_dict"].values())
-    dims = set(res.dtype.names)
-    need({"PredictedClassification", "entropy", *names} <= dims, f"missing dims in {sorted(dims)}")
-    probas = np.stack([np.asarray(res[n], np.float64) for n in names], axis=1)
-    need(np.isfinite(probas).all() and np.isfinite(np.asarray(res["entropy"])).all(), "NaN in output")
-    sums = probas.sum(axis=1)
-    covered = np.abs(sums - 1.0) <= 1e-3
-    # uncovered points (dropped artefacts) carry null probabilities
-    need(bool((covered | (sums == 0.0)).all()), "probabilities neither sum to 1 nor are null")
-    need(covered.mean() > 0.9, f"only {covered.mean():.3f} of the points are predicted")
+    covered = check_predicted_las(res, len(read_las(tile).points), cfg)
     acc = float((np.asarray(res["PredictedClassification"]) == np.asarray(res["Classification"])).mean())
     need(abs(acc - CPU_PLAIN_ACCURACY) <= ACCURACY_MARGIN,
          f"GT accuracy {acc:.4f} vs CPU plain {CPU_PLAIN_ACCURACY:.4f}")
-    print(f"phase 4 main path: predict() {dt:.2f} s, {len(res)} points, covered {covered.mean():.4f}, "
+    print(f"phase 4 main path: predict() {dt:.2f} s, {len(res)} points, covered {covered:.4f}, "
           f"GT accuracy {acc:.4f} (CPU plain {CPU_PLAIN_ACCURACY:.4f}), launches {launches}")
     return launches, acc
 
@@ -3090,21 +3129,82 @@ def phase_exact_knn(dev, work: str):
     return rows, total
 
 
-# phase 21: the CLI, ``python -m myria3d_tpu_torch.run``, as a user runs it.
-# The module runs as ``-m`` runs it (``runpy``, ``__main__``); the wrapper
-# then prints the launch counts of its process, which start at 0 there.
+# phases 21-22: the CLI, ``python -m myria3d_tpu_torch.run``, as a user runs
+# it. The module runs as ``-m`` runs it (``runpy``, ``__main__``), with
+# ``predict()`` wrapped so that it prints its ``phases`` dict and logs its
+# line per tile, and the Interpolator's finalize timed on the wrapper's own
+# clock (the dict's ``finalize_write_s`` is the LAS write alone, as in the
+# JAX package); the wrapper then prints the launch counts of its process,
+# which start at 0 there, and its peak device memory.
 CLI_WRAPPER = r'''
-import json, runpy, sys
+import json, logging, runpy, sys, time
+import myria3d_tpu_torch.predict as predict_module
+from myria3d_tpu_torch.models.interpolation import Interpolator
+predict = predict_module.predict
+finalize = Interpolator.reduce_predictions_and_save
+
+def predict_with_phases(config, *args, **kwargs):
+    phases = {}
+    out = predict(config, *args, phases=phases, **kwargs)
+    print("CLI phases " + json.dumps(phases), flush=True)
+    return out
+
+def timed_finalize(self, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = finalize(self, *args, **kwargs)
+    print(f"CLI finalize+write {time.perf_counter() - t0:.3f} s", flush=True)
+    return out
+
+predict_module.predict = predict_with_phases
+Interpolator.reduce_predictions_and_save = timed_finalize
+log = logging.getLogger("myria3d_tpu_torch.predict")
+log.setLevel(logging.INFO)
+log.addHandler(logging.StreamHandler(sys.stdout))
 try:
     runpy.run_module("myria3d_tpu_torch.run", run_name="__main__", alter_sys=True)
 finally:
+    import torch
     from myria3d_tpu_torch.ops.cuda_interp import knn_interp
     from myria3d_tpu_torch.ops.cuda_knn import knn_topk
     from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention
     print("CLI launches " + json.dumps({"K1": knn_topk.launches, "K2": lfa_attention.launches,
                                         "K3": knn_interp.launches}))
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+    print(f"CLI peak device memory {peak / 2**30:.3f} GiB")
 '''
 CLI_ACCURACY_MARGIN = 0.005    # the CLI's GT accuracy against phase 4's
+
+
+def run_cli(argv: list, cwd: str, env: dict, timeout: int = 600) -> dict:
+    """``python -m myria3d_tpu_torch.run <argv>`` through ``CLI_WRAPPER`` in
+    a subprocess: it must exit 0 with no FAIL line, print one ``phases``
+    dict per tile, and launch K1, K2 and K3. Returns its wall seconds,
+    output lines, launch counts, phases dicts and peak device GiB."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, *argv], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    lines = (res.stdout + res.stderr).splitlines()
+    need(res.returncode == 0, f"the CLI exited {res.returncode}: {res.stderr[-3000:]}")
+    need(not any(line.startswith("FAIL") for line in lines), "the CLI printed a FAIL line")
+
+    def tagged(tag):
+        return [line[len(tag):] for line in lines if line.startswith(tag)]
+
+    counts = [json.loads(v) for v in tagged("CLI launches ")]
+    need(len(counts) == 1 and all(v > 0 for v in counts[0].values()),
+         f"the CLI's launches: {counts}")
+    phases = [json.loads(v) for v in tagged("CLI phases ")]
+    need(len(phases) >= 1, "the CLI's predict printed no phases")
+    return {"s": dt, "lines": lines, "launches": counts[0], "phases": phases,
+            "finalize_s": [float(v.split()[0]) for v in tagged("CLI finalize+write ")],
+            "peak_gib": float(tagged("CLI peak device memory ")[0].split()[0])}
+
+
+def cli_env(cwd: str) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "LOGS_DIR"}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    return env
 
 
 def phase_cli(main_acc: float) -> None:
@@ -3119,23 +3219,11 @@ def phase_cli(main_acc: float) -> None:
     with tempfile.TemporaryDirectory(prefix="m3d_cli_") as cwd:
         with open(os.path.join(cwd, ".env"), "w") as f:
             f.write(f"LOGS_DIR={cwd}/logs_env\n")
-        env = {k: v for k, v in os.environ.items() if k != "LOGS_DIR"}
-        env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
         argv = [f"--config-path={os.path.join(ROOT, 'configs')}", "--config-name=config",
                 "task.task_name=predict", "experiment=predict",
                 f"predict.src_las={os.path.join(ASSETS, 'toy_tile.las')}",
                 f"predict.ckpt_path={ASSETS}", "predict.output_dir=out"]
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, *argv], cwd=cwd, env=env,
-                             capture_output=True, text=True, timeout=600)
-        dt = time.perf_counter() - t0
-        lines = (res.stdout + res.stderr).splitlines()
-        need(res.returncode == 0, f"the CLI exited {res.returncode}: {res.stderr[-3000:]}")
-        need(not any(line.startswith("FAIL") for line in lines), "the CLI printed a FAIL line")
-        counts = [json.loads(line[len("CLI launches "):]) for line in lines
-                  if line.startswith("CLI launches ")]
-        need(len(counts) == 1 and all(v > 0 for v in counts[0].values()),
-             f"the CLI's launches: {counts}")
+        run = run_cli(argv, cwd, cli_env(cwd))
         outs = glob.glob(os.path.join(cwd, "logs_env", "runs", "*", "*", "out", "toy_tile.las"))
         need(len(outs) == 1, f"the CLI's LAS is not under the .env's LOGS_DIR run directory: "
              f"{glob.glob(os.path.join(cwd, '**', '*.las'), recursive=True)}")
@@ -3145,9 +3233,225 @@ def phase_cli(main_acc: float) -> None:
     need(abs(acc - main_acc) <= CLI_ACCURACY_MARGIN,
          f"the CLI's GT accuracy {acc:.4f} against phase 4's {main_acc:.4f}")
     print(f"phase 21 CLI: python -m myria3d_tpu_torch.run predict (.env LOGS_DIR, "
-          f"--config-path=, experiment=predict, batch 48) {dt:.2f} s wall, the LAS in "
+          f"--config-path=, experiment=predict, batch 48) {run['s']:.2f} s wall, the LAS in "
           f"{os.path.relpath(outs[0], cwd)}, GT accuracy {acc:.4f} (phase 4 {main_acc:.4f}), "
-          f"launches {counts[0]} [{CARD}]")
+          f"launches {run['launches']} [{CARD}]")
+
+
+# phase 22: a whole 1 km² Lidar HD tile, bench_e2e.py's synthetic one
+# (17.18 M points, production GridSampling statistics), and a dense crop
+# whose subtiles reach the loader's largest buckets
+TILE_POINTS, TILE_EXTENT = 17_180_000, 1000
+CROP_POINTS, CROP_EXTENT = 800_000, 100      # ~80 points/m²: MaximumNumNodes caps its subtiles
+TILE_DIR = os.path.join(ROOT, "build", "myria3d_tpu_torch", "tiles")
+TILE_SEED = 12345                            # the predict config's seed: the generator of (b)
+HELD_BUCKETS = 3                             # (N_pad, M_pad) buckets held against the plain path
+SAMPLED_CAP = 40_064                         # MaximumNumNodes(40000) rounded up to 128
+FULL_LADDER_TOP = 131_072                    # pctl/batching.py DEFAULT_FULL_BUCKETS[-1]
+OVERFLOW_QUANTUM = 16_384                    # pctl/batching.py _OVERFLOW_QUANTUM
+
+
+def production_tile(n_points: int, extent: int) -> str:
+    """The cached tile of ``write_production_tile`` (written to a temporary
+    name first, so a run cut while writing leaves no partial tile)."""
+    from myria3d_tpu_torch.pctl.dataset.synthetic_tile import write_production_tile
+
+    path = os.path.join(TILE_DIR, f"production_{n_points}_{extent}m.las")
+    if not os.path.isfile(path):
+        os.makedirs(TILE_DIR, exist_ok=True)
+        t0 = time.perf_counter()
+        write_production_tile(path + ".tmp", n_points, extent)
+        os.replace(path + ".tmp", path)
+        print(f"phase 22 tile: {n_points} points over {extent} m written in "
+              f"{time.perf_counter() - t0:.1f} s to {os.path.relpath(path, ROOT)}")
+    return path
+
+
+def tile_overrides(tile: str, extent: int, *extra: str) -> list:
+    return ["task.task_name=predict", "experiment=predict", f"predict.src_las={tile}",
+            f"predict.ckpt_path={ASSETS}", "datamodule.epsg=2154",
+            f"datamodule.tile_width={extent}", *extra]
+
+
+def predict_tile(tile: str, extent: int, label: str, *extra: str) -> dict:
+    """The CLI predicts ``tile`` (one subprocess, experiment=predict, batch
+    48); its output LAS passes ``check_predicted_las``. Prints the wall
+    clock, predict()'s line and phases, Mpts/s, the launches, the peak
+    device memory and the host's cores."""
+    from myria3d_tpu_torch.pctl.io.las import read_las, read_las_header
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+
+    n_points = read_las_header(tile).point_count
+    with tempfile.TemporaryDirectory(prefix="m3d_tile_") as cwd:
+        argv = tile_overrides(tile, extent, f"predict.output_dir={cwd}/out",
+                              f"hydra.run.dir={cwd}/run", *extra)
+        run = run_cli(argv, cwd, cli_env(cwd), timeout=900)
+        need(len(run["phases"]) == 1, f"{len(run['phases'])} phases dicts for one tile")
+        out = os.path.join(cwd, "out", os.path.basename(tile))
+        t0 = time.perf_counter()
+        covered = check_predicted_las(read_las(out).points, n_points,
+                                      compose_config(CONFIG_DIR, "config.yaml", argv))
+        dt_check = time.perf_counter() - t0
+    phases = run["phases"][0]
+    line = [v for v in run["lines"] if v.startswith("predict phases:")]
+    need(len(line) == 1, "predict() logged no line of phases")
+    print(f"phase 22{label} CLI predict of {n_points} points ({' '.join(extra) or 'overlap 0'}): "
+          f"{run['s']:.2f} s wall, {n_points / run['s'] / 1e6:.3f} Mpts/s, "
+          f"{phases['n_batches']} batches [{CARD}]")
+    print(f"phase 22{label} {line[0]}")
+    print(f"phase 22{label} phases {json.dumps(phases)}; finalize+write "
+          f"{run['finalize_s'][0]:.3f} s on the wrapper's clock")
+    print(f"phase 22{label} launches {run['launches']}, peak device memory "
+          f"{run['peak_gib']:.3f} GiB, host cores {os.cpu_count()}; output LAS checked in "
+          f"{dt_check:.1f} s, covered {covered:.4f}")
+    return {"s": run["s"], "phases": phases, "launches": run["launches"]}
+
+
+def tile_batches(tile: str, extent: int, n_batches: int) -> list:
+    """The tile's batches as ``predict()`` makes them (``tile_loader``: the
+    predict transforms with SortPointsByX, ``_buckets``, batch 48): prints
+    the (B, N_pad, M_pad) histogram, which must count ``n_batches``, and
+    returns the first batch at each distinct (N_pad, M_pad), at most
+    ``HELD_BUCKETS``: the step's arrays, then the subtiles' indices into
+    the tile."""
+    from collections import Counter
+
+    from myria3d_tpu_torch.pctl.batching import pad_full_cloud, pad_sampled_pos
+    from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
+    from myria3d_tpu_torch.predict import tile_loader
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+
+    cfg = compose_config(CONFIG_DIR, "config.yaml", tile_overrides(tile, extent))
+    t0 = time.perf_counter()
+    points, _ = read_las_array(tile, "2154")
+    hist, picks = Counter(), {}
+    for batch in tile_loader(cfg, points):
+        full = pad_full_cloud(batch.copies)
+        sampled_pos = pad_sampled_pos(batch.copies, batch.num_points)
+        if full is None or sampled_pos is None:
+            continue          # predict() skips these too
+        shape = (batch.x.shape[0], batch.x.shape[1], full["full_pos"].shape[1])
+        hist[shape] += 1
+        if shape[1:] not in picks and len(picks) < HELD_BUCKETS:
+            picks[shape[1:]] = (batch.x, batch.pos, batch.mask, sampled_pos, full["full_pos"],
+                                full["full_mask"], batch.idx_in_original_cloud)
+    dt = time.perf_counter() - t0
+    need(sum(hist.values()) == n_batches,
+         f"the loader made {sum(hist.values())} batches, predict() {n_batches}")
+    print(f"phase 22 batches (B, N_pad, M_pad): "
+          f"{ {str(k): v for k, v in sorted(hist.items())} } ({dt:.1f} s to read and cook); "
+          f"{len(picks)} of {len({k[1:] for k in hist})} buckets held")
+    return list(picks.values())
+
+
+def hold_tile_batch(model, dev, arrays, label: str) -> tuple:
+    """``Model.interp_step`` on one of the tile's batches, on the kernels
+    and on their plain versions from the same generator seed: argmax
+    agreement >= 0.999 over the valid full points. Returns the kernels'
+    logits."""
+    import torch
+
+    *tensors, _ = arrays
+    x, pos, mask, sampled_pos, full_pos, full_mask = (torch.from_numpy(a).to(dev)
+                                                      for a in tensors)
+
+    def step():
+        gen = torch.Generator(device=dev).manual_seed(TILE_SEED)
+        out = model.interp_step(x, pos, mask, sampled_pos, full_pos, full_mask, gen)
+        torch.cuda.synchronize()
+        return out
+
+    counters = {k: v for k, v in launch_counters().items() if k in ("K1", "K2", "K3")}
+    start = {k: fn.launches for k, fn in counters.items()}
+    step()
+    t0 = time.perf_counter()
+    out_k = step()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: (fn.launches - start[k]) // 2 for k, fn in counters.items()}
+    need(all(v > 0 for v in launched.values()), f"kernels not launched: {launched}")
+    with plain_versions():
+        t0 = time.perf_counter()
+        out_p = step()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    b, n_pad, m_pad = x.shape[0], x.shape[1], full_pos.shape[1]
+    need(bool(torch.isfinite(out_k).all()) and out_k.shape == (b, m_pad, 7), "bad step output")
+    agree = float((out_k.argmax(-1) == out_p.argmax(-1))[full_mask].float().mean())
+    need(agree >= 0.999, f"argmax agreement {agree:.5f} < 0.999")
+    n_full = int(full_mask.sum())
+    print(f"phase 22{label} step B={b} N_pad={n_pad} (largest cloud {int(mask.sum(1).max())}) "
+          f"M_pad={m_pad}: "
+          f"kernels {ms:.1f} ms ({n_full / ms / 1e3:.3f} Mpts/s), plain {plain_ms:.1f} ms, "
+          f"argmax agreement {agree:.6f}, launches a step {launched} [{CARD}]")
+    return out_k
+
+
+def merge_ms(logits, idx_list: list, n_points: int) -> str:
+    """The Interpolator's merge of one batch into a (tile, C) plane whose
+    pages are touched first: the subtiles' indices in the x order that
+    SortPointsByX leaves them in (the duplicate-safe ``np.add.at``), and
+    the same rows in ascending index order (the native row scatter)."""
+    from myria3d_tpu_torch.models.interpolation import Interpolator
+
+    plane = np.ones((n_points, logits.shape[-1]), np.float32)
+    rows = [(i, np.asarray(idx, np.int64)) for i, idx in enumerate(idx_list) if idx is not None]
+    times = []
+    for ascending in (False, True):
+        t0 = time.perf_counter()
+        for i, idx in rows:
+            order = np.argsort(idx) if ascending else slice(None)
+            Interpolator._scatter_add(plane, idx[order], logits[i, :len(idx)][order])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (f"x order (np.add.at) {times[0]:.1f} ms, ascending (native row scatter, the "
+            f"argsort included) {times[1]:.1f} ms, for {sum(len(i) for _, i in rows)} rows")
+
+
+def phase_tile(dev) -> dict:
+    """Phase 22: (a) the CLI predicts bench_e2e.py's 17.18 M-point 1 km²
+    tile; (b) ``Model.interp_step`` on the first batch at each of its
+    buckets against the plain path; (c) a dense crop whose batch pads to
+    N=40064 and a full bucket past 131072, held the same way and predicted;
+    (d) the crop predicted again with ``predict.subtile_overlap=25``.
+    Returns the K1/K2/K3 launches of (a), (c) and (d)'s predicts."""
+    import torch
+
+    from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tile = production_tile(TILE_POINTS, TILE_EXTENT)
+    full = predict_tile(tile, TILE_EXTENT, "a")
+    launches = dict(full["launches"])
+    model = load_checkpoint(ASSETS, dev)
+    model.set_sorted_window(WINDOW)
+    with torch.inference_mode():
+        for i, arrays in enumerate(tile_batches(tile, TILE_EXTENT, full["phases"]["n_batches"])):
+            logits = hold_tile_batch(model, dev, arrays, "b")
+            if i == 0:
+                print(f"phase 22b merge of one batch on the host: "
+                      f"{merge_ms(logits.cpu().numpy(), arrays[-1], TILE_POINTS)}")
+
+        crop = production_tile(CROP_POINTS, CROP_EXTENT)
+        print(f"phase 22c dense crop: {CROP_POINTS} points over {CROP_EXTENT} m "
+              f"({CROP_POINTS / CROP_EXTENT ** 2:.0f} points/m²)")
+        arrays = tile_batches(crop, CROP_EXTENT, 1)
+        need(len(arrays) == 1, f"the crop met {len(arrays)} buckets")
+        largest = int(arrays[0][2].sum(1).max())
+        need(largest >= 40_000, f"no crop subtile reached MaximumNumNodes: {largest} sampled "
+             f"points at most")
+        logits = hold_tile_batch(model, dev, arrays[0], "c")
+        n_pad, m_pad = arrays[0][0].shape[1], logits.shape[1]
+        need(n_pad == SAMPLED_CAP and m_pad > FULL_LADDER_TOP
+             and (m_pad - FULL_LADDER_TOP) % OVERFLOW_QUANTUM == 0,
+             f"the crop's batch pads to N={n_pad}, M={m_pad}")
+    del model
+    crop_run = predict_tile(crop, CROP_EXTENT, "c")
+    overlap_run = predict_tile(crop, CROP_EXTENT, "d", "predict.subtile_overlap=25")
+    print(f"phase 22d subtile_overlap=25: {overlap_run['s']:.2f} s wall against overlap 0's "
+          f"{crop_run['s']:.2f} s ({overlap_run['s'] / crop_run['s']:.2f}x), "
+          f"{overlap_run['phases']['n_batches']} batches against "
+          f"{crop_run['phases']['n_batches']} [{CARD}]")
+    for run in (crop_run, overlap_run):
+        for k, v in run["launches"].items():
+            launches[k] += v
+    return launches
 
 
 def foreign_modules() -> list:
@@ -3179,6 +3483,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     global CARD
+    if sys.argv[1:] == ["--phase", "22"]:
+        # phase 22 alone, after the card and the build: no kernels line, no
+        # device line
+        try:
+            CARD = phase_device()
+            phase_build()
+            phase_tile(dev)
+        except Exception:  # noqa: BLE001
+            traceback.print_exc()
+            print("FAIL")
+            return 1
+        return 0
     try:
         CARD = phase_device()
         phase_build()
@@ -3224,6 +3540,8 @@ def main() -> int:
             for name in ("K2", "K3", "K4"):
                 launches[name] += exact_launches.get(name, 0)
         phase_cli(main_acc)
+        for name, count in phase_tile(dev).items():
+            launches[name] += count
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")

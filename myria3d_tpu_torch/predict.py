@@ -92,12 +92,42 @@ def _buckets(dm: dict, stages: list) -> tuple:
     return tuple(b for b in DEFAULT_BUCKETS if b < top) + (top,)
 
 
+def tile_loader(config: dict, tile_points: np.ndarray) -> PaddedBatchLoader:
+    """The padded batches of ``predict.src_las``'s subtiles, cooked from
+    the tile's points (``tile_points``, as :func:`read_las_array` gives
+    them) by the predict transforms."""
+    pcfg, dm = config["predict"], config["datamodule"]
+    # the sort and the kernels' window are switched on together, so an
+    # unsorted cloud never meets a window
+    transforms = port_targets(dm["transforms"])
+    stages = [instantiate(t) for t in transforms["preparations_predict_list"]]
+    if int(pcfg.get("sorted_window", 0) or 0) > 0:
+        stages.append(SortPointsByX())
+    stages += [instantiate(t) for t in transforms["normalizations_list"]]
+    dataset = InferenceDataset(
+        pcfg["src_las"], dm.get("epsg"),
+        points_pre_transform=instantiate(port_targets(dm["points_pre_transform"])),
+        pre_filter=instantiate(port_targets(dm.get("pre_filter"))),
+        transform=CustomCompose(stages),
+        tile_width=dm.get("tile_width", 1000),
+        subtile_width=dm.get("subtile_width", 50),
+        subtile_overlap=dm.get("subtile_overlap_predict", 0),
+        points=tile_points,
+    )
+    return PaddedBatchLoader(
+        dataset, batch_size=dm["batch_size"], num_workers=1,
+        prefetch_factor=dm.get("prefetch_factor", 2), buckets=_buckets(dm, stages),
+        process_index=0, process_count=1,
+    )
+
+
 def predict(config: dict, phases: Optional[dict] = None, preread=None,
             device: Any = None, devices: Optional[list] = None) -> str:
     """Predict one LAS file (``config["predict"]["src_las"]``) and return
     the output path. ``phases``, when given, receives wall-clock phase
-    timings in seconds. ``preread`` optionally hands over the tile's
-    ``(points, header)``, or a Future of it, read ahead by the caller.
+    timings in seconds, rounded to 2 decimals, and ``n_batches``.
+    ``preread`` optionally hands over the tile's ``(points, header)``, or a
+    Future of it, read ahead by the caller.
     ``device`` overrides the device rule of :func:`predict_device`;
     ``devices`` splits the batches over replicas on those devices."""
     pcfg, dm = config["predict"], config["datamodule"]
@@ -116,29 +146,9 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         tile_points, tile_header = read_las_array(src_las, dm.get("epsg"))
     t_read = time.perf_counter() - t0
 
-    # the sort and the kernels' window are switched on together, so an
-    # unsorted cloud never meets a window
+    loader = tile_loader(config, tile_points)
+    # the window goes with the loader's SortPointsByX
     sorted_window = int(pcfg.get("sorted_window", 0) or 0)
-    transforms = port_targets(dm["transforms"])
-    stages = [instantiate(t) for t in transforms["preparations_predict_list"]]
-    if sorted_window > 0:
-        stages.append(SortPointsByX())
-    stages += [instantiate(t) for t in transforms["normalizations_list"]]
-    dataset = InferenceDataset(
-        src_las, dm.get("epsg"),
-        points_pre_transform=instantiate(port_targets(dm["points_pre_transform"])),
-        pre_filter=instantiate(port_targets(dm.get("pre_filter"))),
-        transform=CustomCompose(stages),
-        tile_width=dm.get("tile_width", 1000),
-        subtile_width=dm.get("subtile_width", 50),
-        subtile_overlap=dm.get("subtile_overlap_predict", 0),
-        points=tile_points,
-    )
-    loader = PaddedBatchLoader(
-        dataset, batch_size=dm["batch_size"], num_workers=1,
-        prefetch_factor=dm.get("prefetch_factor", 2), buckets=_buckets(dm, stages),
-        process_index=0, process_count=1,
-    )
 
     model = load_checkpoint(pcfg["ckpt_path"], device)
     model.set_sorted_window(sorted_window)
@@ -223,6 +233,10 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         t_read, t_stream, n_batches, t_fetch, t_merge, t_reduce,
     )
     if phases is not None:
-        phases.update(tile_read_s=t_read, streaming_s=t_stream, fetch_blocked_s=t_fetch,
-                      merge_s=t_merge, n_batches=n_batches, finalize_write_s=t_reduce)
+        # myria3d_tpu/predict.py:183-195, its second update included: the
+        # Interpolator's write_s replaces the total finalize_write_s
+        phases.update(tile_read_s=round(t_read, 2), streaming_s=round(t_stream, 2),
+                      fetch_blocked_s=round(t_fetch, 2), merge_s=round(t_merge, 2),
+                      n_batches=n_batches, finalize_write_s=round(t_reduce, 2))
+        phases.update({"finalize_" + k: v for k, v in itp.finalize_phases.items()})
     return out_path
