@@ -22,6 +22,7 @@ import numpy as np
 from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
 from myria3d_tpu_torch.pctl.io.las import write_las
 from myria3d_tpu_torch.utils import utils
+from myria3d_tpu_torch.utils.profiling import count, span
 
 log = utils.get_logger(__name__)
 
@@ -111,6 +112,8 @@ class Interpolator:
         self.logits: List[np.ndarray] = []
         self.idx_in_full_cloud: List[np.ndarray] = []
         self.finalize_phases: Dict[str, float] = {}
+        # points merged since prepare() (or construction), by route
+        self.merge_counts: Dict[str, int] = {}
         # incremental-merge state (see prepare())
         self._nb_points: Optional[int] = None
         self._reduced: Optional[np.ndarray] = None
@@ -142,9 +145,12 @@ class Interpolator:
         self._covered = np.zeros(self._nb_points, dtype=bool)
         self._points = points
         self._header = header
+        self.merge_counts = {}
 
     @staticmethod
-    def _scatter_add(reduced: np.ndarray, idx: np.ndarray, logit: np.ndarray) -> None:
+    def _scatter_add(reduced: np.ndarray, idx: np.ndarray, logit: np.ndarray) -> str:
+        """Add ``logit``'s rows into ``reduced[idx]``; returns the route
+        taken: "native", "fancy" or "add_at"."""
         # Subtile crops index each original point at most once, in
         # ascending order — row ranges are then race-free, so the native
         # thread-parallel row scatter applies (f16 wire logits upcast
@@ -157,10 +163,19 @@ class Interpolator:
 
             logit = np.ascontiguousarray(logit)
             if native_scatter_add_rows(reduced, idx, logit):
-                return
+                return "native"
             reduced[idx] += logit.astype(np.float32, copy=False)
-        else:
-            np.add.at(reduced, idx, logit)
+            return "fancy"
+        np.add.at(reduced, idx, logit)
+        return "add_at"
+
+    def _merge(self, reduced: np.ndarray, idx: np.ndarray, logit: np.ndarray) -> None:
+        """``_scatter_add``, counted in ``merge_counts``: the points merged
+        (``merge_points``) and those the native row scatter took
+        (``merge_points_native``)."""
+        native = self._scatter_add(reduced, idx, logit) == "native"
+        count(self.merge_counts, "merge_points", len(idx))
+        count(self.merge_counts, "merge_points_native", len(idx) if native else 0)
 
     def store_predictions(self, logits, idx_in_original_cloud) -> None:
         """Keep a batch's per-point full-subtile logits (host side).
@@ -189,7 +204,7 @@ class Interpolator:
                 )
             idx_arr = np.asarray(idx[:n], np.int64)
             if self._reduced is not None:
-                self._scatter_add(self._reduced, idx_arr, logits[b, :n])
+                self._merge(self._reduced, idx_arr, logits[b, :n])
                 self._covered[idx_arr] = True
             else:
                 self.logits.append(
@@ -212,7 +227,7 @@ class Interpolator:
         num_classes = self.logits[0].shape[-1] if self.logits else len(self.reverse_mapper)
         reduced = np.zeros((nb_points, num_classes), dtype=np.float32)
         for logit, idx in zip(self.logits, self.idx_in_full_cloud):
-            self._scatter_add(reduced, idx, logit)
+            self._merge(reduced, idx, logit)
         return reduced
 
     def reduce_predictions_and_save(
@@ -222,94 +237,89 @@ class Interpolator:
         (reference ``reduce_predictions_and_save``, ``:123-186``).
 
         Fills ``self.finalize_phases`` with the phase wall-times
-        (coverage closure, softmax/entropy, LAS write) for the predict
-        phase table."""
-        import time
-
-        self.finalize_phases: Dict[str, float] = {}
-        t_cov0 = time.perf_counter()
-        if self._points is not None:
-            points, header = self._points, self._header
-        else:
-            points, header = read_las_array(raw_path, epsg)
-        nb_points = len(points)
-        logits = self.reduce_predicted_logits(nb_points)
-
-        # Uncovered points = artefacts dropped by DropPointsByClass + points
-        # of subtiles dropped as too small. The reference leaves them at
-        # null probas / null entropy / their ORIGINAL class code
-        # (interpolation.py:155-170, explicit NB comments) — that is the
-        # default "keep" policy; "nearest" opts into spatial closure from
-        # the nearest covered neighbor instead.
-        if self._covered is not None:
-            covered = self._covered
-        else:
-            covered = np.zeros(nb_points, dtype=bool)
-            for idx in self.idx_in_full_cloud:
-                covered[idx] = True
-        n_uncovered = int(nb_points - covered.sum())
-        uncov = None
-        if n_uncovered == nb_points:
-            log.warning(
-                "No point of the tile was covered by any subtile prediction;"
-                " the output carries source classes and null probabilities."
-            )
-            uncov = np.arange(nb_points)
-        elif n_uncovered:
-            log.info(
-                f"{n_uncovered}/{nb_points} points "
-                f"({100.0 * n_uncovered / nb_points:.2f}%) have no subtile "
-                "prediction (dropped artefact classes and/or dropped small "
-                f"areas); policy '{self.uncovered_policy}' applies."
-            )
-            if self.uncovered_policy == "nearest" and n_uncovered < nb_points:
-                src = _nearest_covered(points, covered)
-                uncov = np.flatnonzero(~covered)
-                logits[uncov] = logits[src]
-                uncov = None  # closed — treat as covered downstream
+        (coverage closure, softmax/entropy, LAS write; the spans
+        ``predict.finalize.coverage``, ``.softmax`` and ``.write``) for the
+        predict phase table."""
+        sums: Dict[str, float] = {}
+        with span("predict.finalize.coverage", sums):
+            if self._points is not None:
+                points, header = self._points, self._header
             else:
-                uncov = np.flatnonzero(~covered)
+                points, header = read_las_array(raw_path, epsg)
+            nb_points = len(points)
+            logits = self.reduce_predicted_logits(nb_points)
 
-        self.finalize_phases["coverage_s"] = round(
-            time.perf_counter() - t_cov0, 2
-        )
+            # Uncovered points = artefacts dropped by DropPointsByClass + points
+            # of subtiles dropped as too small. The reference leaves them at
+            # null probas / null entropy / their ORIGINAL class code
+            # (interpolation.py:155-170, explicit NB comments) — that is the
+            # default "keep" policy; "nearest" opts into spatial closure from
+            # the nearest covered neighbor instead.
+            if self._covered is not None:
+                covered = self._covered
+            else:
+                covered = np.zeros(nb_points, dtype=bool)
+                for idx in self.idx_in_full_cloud:
+                    covered[idx] = True
+            n_uncovered = int(nb_points - covered.sum())
+            uncov = None
+            if n_uncovered == nb_points:
+                log.warning(
+                    "No point of the tile was covered by any subtile prediction;"
+                    " the output carries source classes and null probabilities."
+                )
+                uncov = np.arange(nb_points)
+            elif n_uncovered:
+                log.info(
+                    f"{n_uncovered}/{nb_points} points "
+                    f"({100.0 * n_uncovered / nb_points:.2f}%) have no subtile "
+                    "prediction (dropped artefact classes and/or dropped small "
+                    f"areas); policy '{self.uncovered_policy}' applies."
+                )
+                if self.uncovered_policy == "nearest" and n_uncovered < nb_points:
+                    src = _nearest_covered(points, covered)
+                    uncov = np.flatnonzero(~covered)
+                    logits[uncov] = logits[src]
+                    uncov = None  # closed — treat as covered downstream
+                else:
+                    uncov = np.flatnonzero(~covered)
+
         # softmax + argmax-map + entropy: fused native single pass when the
         # toolchain is present, else the numpy chain (same math; the native
         # kernel's per-row H = log Z + max - sum(p*logit) mirrors the
         # numpy formulation below bit-for-bit up to libm/fp association)
-        t_soft0 = time.perf_counter()
-        from myria3d_tpu_torch.pctl.native import native_logits_finalize
+        with span("predict.finalize.softmax", sums):
+            from myria3d_tpu_torch.pctl.native import native_logits_finalize
 
-        fused = native_logits_finalize(
-            logits,
-            self.reverse_mapper.astype(np.uint8),
-            want_preds=bool(self.predicted_classification_channel),
-            want_entropy=bool(self.entropy_channel),
-        )
-        if fused is not None:
-            probas, preds, ent = fused
-        else:
-            # numerically-stable softmax
-            m = logits.max(axis=1, keepdims=True)
-            e = np.exp(logits - m)
-            z = e.sum(axis=1, keepdims=True)
-            probas = e / z
-            preds = ent = None
-            if self.predicted_classification_channel:
-                preds = self.reverse_mapper[np.argmax(probas, axis=1)]
-                preds = preds.astype(np.uint8)
-            if self.entropy_channel:
-                # H = log Z + max - sum(p * logit): one log over N instead
-                # of N x C (same value as -sum p log p, exact up to fp assoc)
-                ent = (
-                    np.log(z[:, 0])
-                    + m[:, 0]
-                    - np.einsum("nc,nc->n", probas, logits)
-                ).astype(np.float32)
-                np.maximum(ent, 0.0, out=ent)  # clip fp negatives at one-hot
-        if uncov is not None:
-            probas[uncov] = 0.0  # reference: null probabilities
-        t_soft = time.perf_counter() - t_soft0
+            fused = native_logits_finalize(
+                logits,
+                self.reverse_mapper.astype(np.uint8),
+                want_preds=bool(self.predicted_classification_channel),
+                want_entropy=bool(self.entropy_channel),
+            )
+            if fused is not None:
+                probas, preds, ent = fused
+            else:
+                # numerically-stable softmax
+                m = logits.max(axis=1, keepdims=True)
+                e = np.exp(logits - m)
+                z = e.sum(axis=1, keepdims=True)
+                probas = e / z
+                preds = ent = None
+                if self.predicted_classification_channel:
+                    preds = self.reverse_mapper[np.argmax(probas, axis=1)]
+                    preds = preds.astype(np.uint8)
+                if self.entropy_channel:
+                    # H = log Z + max - sum(p * logit): one log over N instead
+                    # of N x C (same value as -sum p log p, exact up to fp assoc)
+                    ent = (
+                        np.log(z[:, 0])
+                        + m[:, 0]
+                        - np.einsum("nc,nc->n", probas, logits)
+                    ).astype(np.float32)
+                    np.maximum(ent, 0.0, out=ent)  # clip fp negatives at one-hot
+            if uncov is not None:
+                probas[uncov] = 0.0  # reference: null probabilities
 
         extra_columns: Dict[str, np.ndarray] = {}
         class_names = list(self.classification_dict.values())
@@ -328,27 +338,26 @@ class Interpolator:
                 ent[uncov] = 0.0  # reference: null entropy
             extra_columns[self.entropy_channel] = ent
 
-        self.finalize_phases["softmax_s"] = round(t_soft, 2)
-        t_write0 = time.perf_counter()
-        os.makedirs(output_dir, exist_ok=True)
-        out_path = os.path.join(output_dir, os.path.basename(raw_path))
-        # atomic publish: an existing output file is always complete, so
-        # predict.resume can trust it (a preemption mid-write leaves only
-        # the temp file, overwritten on the redo). The temp name keeps the
-        # original suffix — write_las picks LAZ compression by extension.
-        # The new dims ride as extra_columns so no intermediate widened
-        # record array is ever built (one less full-tile strided ferry).
-        tmp_path = os.path.join(
-            output_dir, ".tmp." + os.path.basename(raw_path)
-        )
-        write_las(
-            tmp_path, points, header=header, extra_dims="all",
-            extra_columns=extra_columns,
-        )
-        os.replace(tmp_path, out_path)
-        self.finalize_phases["write_s"] = round(
-            time.perf_counter() - t_write0, 2
-        )
+        with span("predict.finalize.write", sums):
+            os.makedirs(output_dir, exist_ok=True)
+            out_path = os.path.join(output_dir, os.path.basename(raw_path))
+            # atomic publish: an existing output file is always complete, so
+            # predict.resume can trust it (a preemption mid-write leaves only
+            # the temp file, overwritten on the redo). The temp name keeps the
+            # original suffix — write_las picks LAZ compression by extension.
+            # The new dims ride as extra_columns so no intermediate widened
+            # record array is ever built (one less full-tile strided ferry).
+            tmp_path = os.path.join(
+                output_dir, ".tmp." + os.path.basename(raw_path)
+            )
+            write_las(
+                tmp_path, points, header=header, extra_dims="all",
+                extra_columns=extra_columns,
+            )
+            os.replace(tmp_path, out_path)
+        self.finalize_phases = {
+            name.rsplit(".", 1)[1] + "_s": round(t, 2) for name, t in sums.items()
+        }
         log.info(f"Predictions written to {out_path}")
 
         # reset accumulators for the next tile

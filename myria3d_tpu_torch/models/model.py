@@ -16,7 +16,10 @@ step count and the count of batches in the open accumulation group.
   the data-parallel step.
 - ``train_step`` (``model.py:325-352``): ``grad_step``, then an optimizer
   update every ``accumulate_grad_batches`` batches on the mean of their
-  gradients (optax ``MultiSteps``).
+  gradients (optax ``MultiSteps``). Under a recording ``torch.profiler`` the
+  step is the span ``model.train_step``, and in it ``model.forward`` (net
+  and criterion, once a chunk), ``model.backward`` and ``model.optimizer``
+  (``step`` and ``zero_grad``).
 - ``eval_step`` (``model.py:354-363``): eval-mode forward and loss.
 - ``interp_step`` (``model.py:366-398``): the predict and test step,
   forward on the sampled points then the k-NN interpolation of the logits
@@ -42,6 +45,7 @@ from myria3d_tpu_torch.models.modules.nn import as_dtype, dtype_name, set_comput
 from myria3d_tpu_torch.models.optimizers import adam, set_learning_rate_scale
 from myria3d_tpu_torch.ops.cuda_knn import stage_window
 from myria3d_tpu_torch.ops.interpolate import knn_interpolate
+from myria3d_tpu_torch.utils.profiling import span
 
 TRAIN_STATE = "train_state.pt"
 
@@ -230,13 +234,15 @@ class Model(nn.Module):
                 torch._foreach_copy_(stats, start)
             no_sync = par is not None and not (syncs and i == k - 1)
             with net.no_sync() if no_sync else contextlib.nullcontext():
-                out = net(x[rows], pos[rows], mask[rows],
-                          chunk_generator(generator, i) if k > 1 else generator)
-                if par is None:
-                    loss = shown = self.criterion(out, y[rows])
-                else:
-                    loss, shown = par.chunk_loss(self.criterion, out, y[rows])
-                (loss / (k * self.accumulate_grad_batches)).backward()
+                with span("model.forward"):
+                    out = net(x[rows], pos[rows], mask[rows],
+                              chunk_generator(generator, i) if k > 1 else generator)
+                    if par is None:
+                        loss = shown = self.criterion(out, y[rows])
+                    else:
+                        loss, shown = par.chunk_loss(self.criterion, out, y[rows])
+                with span("model.backward"):
+                    (loss / (k * self.accumulate_grad_batches)).backward()
             if k > 1:
                 if i:
                     torch._foreach_add_(total, stats)
@@ -256,15 +262,17 @@ class Model(nn.Module):
         """One training batch (``grad_step``): ``(loss, logits)``, both
         detached. The optimizer updates when the batch completes an
         accumulation group."""
-        if self.optimizer is None:
-            self.init_train_state()
-        loss, logits = self.grad_step(x, pos, y, mask, generator)
-        self.step += 1
-        self.accum += 1
-        if self.accum == self.accumulate_grad_batches:
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            self.accum = 0
+        with span("model.train_step"):
+            if self.optimizer is None:
+                self.init_train_state()
+            loss, logits = self.grad_step(x, pos, y, mask, generator)
+            self.step += 1
+            self.accum += 1
+            if self.accum == self.accumulate_grad_batches:
+                with span("model.optimizer"):
+                    self.optimizer.step()
+                    self.optimizer.zero_grad(set_to_none=True)
+                self.accum = 0
         return loss, logits
 
     @torch.no_grad()

@@ -36,6 +36,7 @@ class InferenceDataset(TileSampleStream):
         subtile_overlap: Number = 0,
         workers: int = 3,
         points=None,
+        timings=None,
     ):
         super().__init__(
             las_file,
@@ -48,6 +49,7 @@ class InferenceDataset(TileSampleStream):
             transform=transform,
             workers=workers,
             points=points,
+            timings=timings,
         )
 
     # kept for callers that iterate explicitly (reference API)

@@ -28,6 +28,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 
 from myria3d_tpu_torch.pctl.dataset.utils import split_cloud_into_samples
+from myria3d_tpu_torch.utils.profiling import span
 
 
 class TileSampleStream:
@@ -50,6 +51,7 @@ class TileSampleStream:
         transform: Optional[Callable] = None,
         workers: int = 0,
         points: Optional[np.ndarray] = None,
+        timings: Optional[dict] = None,
     ):
         self.las_path = las_path
         self.epsg = epsg
@@ -61,25 +63,27 @@ class TileSampleStream:
         self.transform = transform
         self.workers = int(workers)
         self._points = points
+        self.timings = timings   # receives each subtile's cook seconds ("pctl.cook")
 
     # ------------------------------------------------------------------
 
     def _cook(self, item: Tuple[np.ndarray, np.ndarray]) -> Optional[dict]:
         """Subtile → sample dict, or None when filtered out."""
         idx, pts = item
-        data = self.points_pre_transform(pts)
-        if data is None:
-            return None
-        data["idx_in_original_cloud"] = idx
-        if self.pre_filter is not None and self.pre_filter(data):
-            return None
-        if self.transform is not None:
-            data = self.transform(data)
+        with span("pctl.cook", self.timings):
+            data = self.points_pre_transform(pts)
             if data is None:
                 return None
+            data["idx_in_original_cloud"] = idx
             if self.pre_filter is not None and self.pre_filter(data):
                 return None
-        return data
+            if self.transform is not None:
+                data = self.transform(data)
+                if data is None:
+                    return None
+                if self.pre_filter is not None and self.pre_filter(data):
+                    return None
+            return data
 
     def _subtiles(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         return split_cloud_into_samples(

@@ -31,6 +31,7 @@ from myria3d_tpu_torch.pctl.batching import (
     PointCloudBatch,
     collate_padded,
 )
+from myria3d_tpu_torch.utils.profiling import span
 
 _log = logging.getLogger(__name__)
 
@@ -71,6 +72,7 @@ class PaddedBatchLoader:
         process_index: Optional[int] = None,
         process_count: Optional[int] = None,
         num_features: Optional[int] = None,
+        timings: Optional[dict] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -84,6 +86,7 @@ class PaddedBatchLoader:
         self.process_index = process_index
         self.process_count = process_count
         self._num_features = num_features  # cached for filler batches
+        self.timings = timings  # receives each batch's collate seconds ("pctl.cook")
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -145,10 +148,7 @@ class PaddedBatchLoader:
                         [pool.submit(self.dataset.__getitem__, int(i)) for i in nxt]
                     )
                 samples = [f.result() for f in futs]
-                batch = collate_padded(
-                    samples, self.batch_size, self.buckets,
-                    num_features=self._num_features,
-                )
+                batch = self._collate(samples, num_features=self._num_features)
                 if batch is not None:
                     self._num_features = int(batch.x.shape[2])
                 else:
@@ -164,6 +164,10 @@ class PaddedBatchLoader:
                         self.batch_size, self.buckets[0], self._num_features
                     )
                 yield batch
+
+    def _collate(self, samples: list, **kwargs) -> Optional[PointCloudBatch]:
+        with span("pctl.cook", self.timings):
+            return collate_padded(samples, self.batch_size, self.buckets, **kwargs)
 
     def _sample_iter(self) -> Iterator[Optional[dict]]:
         if hasattr(self.dataset, "__getitem__") and hasattr(self.dataset, "__len__"):
@@ -210,12 +214,12 @@ class PaddedBatchLoader:
                 continue
             batch.append(sample)
             if len(batch) == self.batch_size:
-                collated = collate_padded(batch, self.batch_size, self.buckets)
+                collated = self._collate(batch)
                 if collated is not None:
                     yield collated
                 batch = []
         if batch and not self.drop_last:
-            collated = collate_padded(batch, self.batch_size, self.buckets)
+            collated = self._collate(batch)
             if collated is not None:
                 yield collated
 

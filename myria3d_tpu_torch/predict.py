@@ -34,7 +34,6 @@ without it K3 keeps the sorted window (``models/model.py:383-389``).
 from __future__ import annotations
 
 import logging
-import time
 from collections import deque
 from typing import Any, Optional
 
@@ -52,6 +51,7 @@ from myria3d_tpu_torch.pctl.transforms.transforms import SortPointsByX
 from myria3d_tpu_torch.train import port_targets
 from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
 from myria3d_tpu_torch.utils.config import instantiate
+from myria3d_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -92,10 +92,13 @@ def _buckets(dm: dict, stages: list) -> tuple:
     return tuple(b for b in DEFAULT_BUCKETS if b < top) + (top,)
 
 
-def tile_loader(config: dict, tile_points: np.ndarray) -> PaddedBatchLoader:
+def tile_loader(config: dict, tile_points: np.ndarray,
+                timings: Optional[dict] = None) -> PaddedBatchLoader:
     """The padded batches of ``predict.src_las``'s subtiles, cooked from
     the tile's points (``tile_points``, as :func:`read_las_array` gives
-    them) by the predict transforms."""
+    them) by the predict transforms. ``timings`` receives the loader
+    threads' cook seconds (the span ``pctl.cook``: each subtile's cook and
+    each batch's collate)."""
     pcfg, dm = config["predict"], config["datamodule"]
     # the sort and the kernels' window are switched on together, so an
     # unsorted cloud never meets a window
@@ -112,12 +115,12 @@ def tile_loader(config: dict, tile_points: np.ndarray) -> PaddedBatchLoader:
         tile_width=dm.get("tile_width", 1000),
         subtile_width=dm.get("subtile_width", 50),
         subtile_overlap=dm.get("subtile_overlap_predict", 0),
-        points=tile_points,
+        points=tile_points, timings=timings,
     )
     return PaddedBatchLoader(
         dataset, batch_size=dm["batch_size"], num_workers=1,
         prefetch_factor=dm.get("prefetch_factor", 2), buckets=_buckets(dm, stages),
-        process_index=0, process_count=1,
+        process_index=0, process_count=1, timings=timings,
     )
 
 
@@ -125,7 +128,17 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
             device: Any = None, devices: Optional[list] = None) -> str:
     """Predict one LAS file (``config["predict"]["src_las"]``) and return
     the output path. ``phases``, when given, receives wall-clock phase
-    timings in seconds, rounded to 2 decimals, and ``n_batches``.
+    timings in seconds, rounded to 2 decimals, and ``n_batches``: the JAX
+    package's keys, then the streaming loop's wait on the cooked-batch
+    queue (``loader_wait_s``) and its host enqueue (``enqueue_s``), the
+    loader threads' busy seconds (``cook_busy_s``), and the points merged,
+    in all and by the native row scatter (``merge_points``,
+    ``merge_points_native``). Each phase is a span
+    (``utils.profiling.span``): under a recording ``torch.profiler`` the
+    trace shows ``predict.setup``, ``predict.read``, ``predict.stream`` and
+    in it ``predict.loader_wait``, ``predict.enqueue``,
+    ``predict.fetch_wait`` and ``predict.merge``, then
+    ``predict.finalize.*``.
     ``preread`` optionally hands over the tile's ``(points, header)``, or a
     Future of it, read ahead by the caller.
     ``device`` overrides the device rule of :func:`predict_device`;
@@ -137,106 +150,113 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     device = predict_device(config, devices[0] if isinstance(devices, (list, tuple)) else device)
     src_las = pcfg["src_las"]
 
-    t0 = time.perf_counter()
-    if preread is not None:
-        tile_points, tile_header = (
-            preread.result() if hasattr(preread, "result") else preread
-        )
-    else:
-        tile_points, tile_header = read_las_array(src_las, dm.get("epsg"))
-    t_read = time.perf_counter() - t0
+    sums: dict = {}
+    with span("predict.setup"):
+        with span("predict.read", sums):
+            if preread is not None:
+                tile_points, tile_header = (
+                    preread.result() if hasattr(preread, "result") else preread
+                )
+            else:
+                tile_points, tile_header = read_las_array(src_las, dm.get("epsg"))
 
-    loader = tile_loader(config, tile_points)
-    # the window goes with the loader's SortPointsByX
-    sorted_window = int(pcfg.get("sorted_window", 0) or 0)
+        loader = tile_loader(config, tile_points, timings=sums)
+        # the window goes with the loader's SortPointsByX
+        sorted_window = int(pcfg.get("sorted_window", 0) or 0)
 
-    model = load_checkpoint(pcfg["ckpt_path"], device)
-    model.set_sorted_window(sorted_window)
-    # predict.exact_knn, after the window as in myria3d_tpu/predict.py:80-94:
-    # the net's searches scan every key, and so does the interpolation's on
-    # the two-op path (exact_interpolation); K3 keeps the sorted window
-    if pcfg.get("exact_knn"):
-        model.set_exact_knn(True)
-    # predict.compute_dtype: the forward's compute dtype (params and logits
-    # stay f32); set before the replicas are made, so they carry it
-    if pcfg.get("compute_dtype"):
-        model.set_compute_dtype(pcfg["compute_dtype"])
-    generator = torch.Generator(device=device).manual_seed(int(config.get("seed", 12345)))
-    par = auto_parallel(model, dm["batch_size"], devices) if devices is not None else None
-    if par is not None:
-        log.info(f"Predicting data-parallel over {len(par.devices)} replicas")
+        model = load_checkpoint(pcfg["ckpt_path"], device)
+        model.set_sorted_window(sorted_window)
+        # predict.exact_knn, after the window as in myria3d_tpu/predict.py:80-94:
+        # the net's searches scan every key, and so does the interpolation's on
+        # the two-op path (exact_interpolation); K3 keeps the sorted window
+        if pcfg.get("exact_knn"):
+            model.set_exact_knn(True)
+        # predict.compute_dtype: the forward's compute dtype (params and logits
+        # stay f32); set before the replicas are made, so they carry it
+        if pcfg.get("compute_dtype"):
+            model.set_compute_dtype(pcfg["compute_dtype"])
+        generator = torch.Generator(device=device).manual_seed(int(config.get("seed", 12345)))
+        par = auto_parallel(model, dm["batch_size"], devices) if devices is not None else None
+        if par is not None:
+            log.info(f"Predicting data-parallel over {len(par.devices)} replicas")
 
-    itp = instantiate(port_targets(pcfg["interpolator"]))
-    if not isinstance(itp, Interpolator):
-        raise TypeError(f"predict.interpolator built {type(itp).__name__}")
-    itp.prepare(len(tile_points), points=tile_points, header=tile_header)
+        itp = instantiate(port_targets(pcfg["interpolator"]))
+        if not isinstance(itp, Interpolator):
+            raise TypeError(f"predict.interpolator built {type(itp).__name__}")
+        itp.prepare(len(tile_points), points=tile_points, header=tile_header)
 
     # depth-2 pending queue: batch i's logits are fetched only after batch
     # i+1's step is queued, so the device computes while the host prepares
     # the next batch and merges the previous one; the D2H copy lands in a
     # pinned buffer without blocking the queue
     pending: deque = deque()
-    t_fetch = t_merge = 0.0
     n_batches = 0
 
     def drain() -> None:
-        nonlocal t_fetch, t_merge
         host, done, idx = pending.popleft()
-        ta = time.perf_counter()
         if done is not None:
-            done.synchronize()
-        tb = time.perf_counter()
-        itp.store_predictions(host.numpy(), idx)
-        t_fetch += tb - ta
-        t_merge += time.perf_counter() - tb
+            with span("predict.fetch_wait", sums):
+                done.synchronize()
+        with span("predict.merge", sums):
+            itp.store_predictions(host.numpy(), idx)
 
     def to_dev(a: np.ndarray, fill=0) -> torch.Tensor:
         if par is not None:
             a = par.pad_rows(a, fill)
         return torch.from_numpy(a).to(device, non_blocking=True)
 
-    t_stream0 = time.perf_counter()
-    for batch in BackgroundIterator(loader, max_prefetch=2):
-        full = pad_full_cloud(batch.copies)
-        sampled_pos = pad_sampled_pos(batch.copies, batch.num_points)
-        if full is None or sampled_pos is None:
-            log.warning("Batch without full-cloud copies; skipping.")
-            continue
-        logits = (par or model).interp_step(
-            to_dev(batch.x), to_dev(batch.pos), to_dev(batch.mask, False),
-            to_dev(sampled_pos), to_dev(full["full_pos"]),
-            to_dev(full["full_mask"], False), generator,
-            # predict.exact_interpolation: the f32 two-op path instead of K3
-            fused=not pcfg.get("exact_interpolation"),
-        )[: batch.x.shape[0]]   # the real rows
-        if device.type == "cuda":
-            host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
-            host.copy_(logits, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host, done = logits, None
-        pending.append((host, done, batch.idx_in_original_cloud))
-        n_batches += 1
-        if len(pending) > 1:
+    with span("predict.stream", sums):
+        batches = BackgroundIterator(loader, max_prefetch=2)
+        while True:
+            with span("predict.loader_wait", sums):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with span("predict.enqueue", sums):
+                full = pad_full_cloud(batch.copies)
+                sampled_pos = pad_sampled_pos(batch.copies, batch.num_points)
+                if full is None or sampled_pos is None:
+                    log.warning("Batch without full-cloud copies; skipping.")
+                    continue
+                logits = (par or model).interp_step(
+                    to_dev(batch.x), to_dev(batch.pos), to_dev(batch.mask, False),
+                    to_dev(sampled_pos), to_dev(full["full_pos"]),
+                    to_dev(full["full_mask"], False), generator,
+                    # predict.exact_interpolation: the f32 two-op path instead of K3
+                    fused=not pcfg.get("exact_interpolation"),
+                )[: batch.x.shape[0]]   # the real rows
+                if device.type == "cuda":
+                    host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+                    host.copy_(logits, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    host, done = logits, None
+            pending.append((host, done, batch.idx_in_original_cloud))
+            n_batches += 1
+            if len(pending) > 1:
+                drain()
+        while pending:
             drain()
-    while pending:
-        drain()
-    t_stream = time.perf_counter() - t_stream0
 
-    t0 = time.perf_counter()
     out_path = itp.reduce_predictions_and_save(src_las, pcfg["output_dir"], dm.get("epsg"))
-    t_reduce = time.perf_counter() - t0
+    read, stream, wait, enqueue, fetch, merge, cook = (round(sums.get(name, 0.0), 2) for name in (
+        "predict.read", "predict.stream", "predict.loader_wait", "predict.enqueue",
+        "predict.fetch_wait", "predict.merge", "pctl.cook"))
     log.info(
         "predict phases: tile read %.1fs; streaming %.1fs over %d batches "
-        "(%.1fs blocked on the logits fetch, %.1fs merging); finalize+write %.1fs",
-        t_read, t_stream, n_batches, t_fetch, t_merge, t_reduce,
+        "(%.1fs waiting for the loader, %.1fs enqueueing, %.1fs blocked on the logits "
+        "fetch, %.1fs merging); finalize+write %.1fs",
+        read, stream, n_batches, wait, enqueue, fetch, merge, sum(itp.finalize_phases.values()),
     )
     if phases is not None:
-        # myria3d_tpu/predict.py:183-195, its second update included: the
-        # Interpolator's write_s replaces the total finalize_write_s
-        phases.update(tile_read_s=round(t_read, 2), streaming_s=round(t_stream, 2),
-                      fetch_blocked_s=round(t_fetch, 2), merge_s=round(t_merge, 2),
-                      n_batches=n_batches, finalize_write_s=round(t_reduce, 2))
+        # myria3d_tpu/predict.py:183-195: the JAX package's keys (the
+        # Interpolator's finalize_* phases among them), then the port's spans
+        # and merge counters
+        phases.update(tile_read_s=read, streaming_s=stream, fetch_blocked_s=fetch,
+                      merge_s=merge, n_batches=n_batches)
         phases.update({"finalize_" + k: v for k, v in itp.finalize_phases.items()})
+        phases.update(loader_wait_s=wait, enqueue_s=enqueue, cook_busy_s=cook,
+                      merge_points=itp.merge_counts.get("merge_points", 0),
+                      merge_points_native=itp.merge_counts.get("merge_points_native", 0))
     return out_path

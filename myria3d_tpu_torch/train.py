@@ -60,7 +60,7 @@ from myria3d_tpu_torch.pctl.batching import pad_full_cloud, pad_sampled_pos
 from myria3d_tpu_torch.pctl.loader import BackgroundIterator
 from myria3d_tpu_torch.utils.checkpoint import load_checkpoint
 from myria3d_tpu_torch.utils.config import instantiate
-from myria3d_tpu_torch.utils.profiling import StageTimer, annotate, trace
+from myria3d_tpu_torch.utils.profiling import StageTimer, trace
 from myria3d_tpu_torch.utils.utils import log_hyperparameters
 
 log = logging.getLogger(__name__)
@@ -72,6 +72,7 @@ PORTED_TARGETS = {
     "myria3d_tpu.pctl.datamodule.hdf5.HDF5LidarDataModule": "myria3d_tpu_torch.data.HDF5LidarDataModule",
 }
 _JAX_TARGET = re.compile(r"\bmyria3d_tpu\.[A-Za-z0-9_.]+")
+_END = object()   # the end of a train loader (a batch may be None)
 
 
 def _port_target(name: str) -> str:
@@ -356,20 +357,28 @@ class Trainer:
                        profile_dir=None):
         """One train + val epoch; returns the early-stopping decision, or
         None when interrupted before it was taken. ``profile_dir`` traces
-        the train loop, each step the region "train_step", and logs the
-        host's time in the steps (``profile/train_step_s`` and ``_mean_s``,
-        the time to enqueue them where the device runs behind)."""
+        the train loop, each step the region "train_step" (the model's
+        ``model.forward``, ``model.backward`` and ``model.optimizer`` in
+        it) and each wait for the loader's next batch the region
+        "data_wait", and logs the host's time in both (``profile/
+        train_step_s``, the time to enqueue the steps where the device runs
+        behind, ``profile/data_wait_s``, and their ``_mean_s``)."""
         losses: List[torch.Tensor] = []
         timer = StageTimer()
         iterator: Iterable = overfit if overfit is not None else BackgroundIterator(
             _limited(datamodule.train_dataloader(seed=self.seed + epoch),
                      self.cfg.limit_train_batches), max_prefetch=2)
+        batches = iter(iterator)
         try:
             with trace(profile_dir):
-                for batch in iterator:
+                while True:
+                    with timer.stage("data_wait"):
+                        batch = next(batches, _END)
+                    if batch is _END:
+                        break
                     if batch is None:
                         continue
-                    with annotate("train_step"), timer.stage("train_step"):
+                    with timer.stage("train_step"):
                         a = _arrays(batch.device_arrays(), self.device)
                         gen = _generator(self.device, self.seed, model.step)
                         step = self.par.train_step if self.par is not None else model.train_step

@@ -64,6 +64,35 @@ def test_predict_phases_and_resume(small_tile, tmp_path):
     assert run.launch_predict(cfg) == [out] and os.path.getmtime(out) == mtime
 
 
+def test_predict_reports_its_spans_and_merge_counters(small_tile, tmp_path, monkeypatch):
+    """The streaming loop's spans (the loader wait, the enqueue, the fetch
+    wait, the merge) cover ``streaming_s`` to within 10 %; the loader
+    threads' cook is timed; ``merge_points`` counts every subtile's points
+    the merge took: every covered point, and a point on a border between
+    two subtiles twice."""
+    from myria3d_tpu_torch.models.interpolation import Interpolator
+
+    cfg = run.compose_config(run.CONFIG_DIR, "config.yaml", _overrides(small_tile, tmp_path))
+    stored, merged = Interpolator.store_predictions, []
+
+    def spy(self, logits, idx):
+        merged.append(sum(len(i) for i in idx if i is not None))
+        return stored(self, logits, idx)
+
+    monkeypatch.setattr(Interpolator, "store_predictions", spy)
+    phases = {}
+    out = predict_mod.predict(cfg, phases=phases)
+    loop = sum(phases[k] for k in ("loader_wait_s", "enqueue_s", "fetch_blocked_s", "merge_s"))
+    assert phases["streaming_s"] > 0
+    assert abs(loop - phases["streaming_s"]) <= 0.1 * phases["streaming_s"], phases
+    assert phases["cook_busy_s"] > 0
+    res = read_las(out).points
+    sums = np.stack([np.asarray(res[c], np.float64) for c in CLASSES], axis=1).sum(1)
+    covered = int((np.abs(sums - 1.0) < 1e-3).sum())
+    assert phases["merge_points"] == sum(merged) and covered <= sum(merged) <= 1.01 * covered
+    assert 0 <= phases["merge_points_native"] <= phases["merge_points"]
+
+
 @pytest.mark.parametrize("setting,fused", [(True, False), (False, True), (None, True)])
 def test_exact_interpolation_reaches_the_interpolation(small_tile, tmp_path, monkeypatch,
                                                        setting, fused):

@@ -63,9 +63,10 @@ def test_stage_timer_matches_jax(monkeypatch):
 @pytest.mark.parametrize("profiler", ["torch", "jax", "simple"])
 def test_fit_traces_epoch_0_to_logs_dir(tmp_path, monkeypatch, profiler):
     """``trainer.profiler`` "torch" (or the JAX package's "jax") writes one
-    trace of epoch 0's train loop, its steps the "train_step" regions, and
-    logs the host's time in those steps once (``StageTimer``); another
-    value writes and logs nothing of it."""
+    trace of epoch 0's train loop, its steps the "train_step" regions (the
+    model's spans in each) and its waits for the loader the "data_wait"
+    regions, and logs the host's time in both once (``StageTimer``);
+    another value writes and logs nothing of it."""
     monkeypatch.setenv("LOGS_DIR", str(tmp_path))
     trainer = Trainer(TrainerConfig(max_epochs=2, accelerator="cpu", profiler=profiler), seed=0)
     rows = []
@@ -78,8 +79,15 @@ def test_fit_traces_epoch_0_to_logs_dir(tmp_path, monkeypatch, profiler):
         assert files == [] and timed == []
         return
     assert len(timed) == 1 and timed[0].keys() == {"profile/train_step_s",
-                                                   "profile/train_step_mean_s"}
-    assert timed[0]["profile/train_step_s"] > 0
+                                                   "profile/train_step_mean_s",
+                                                   "profile/data_wait_s",
+                                                   "profile/data_wait_mean_s"}
+    assert timed[0]["profile/train_step_s"] > 0 and timed[0]["profile/data_wait_s"] > 0
+    # three waits: epoch 0's two batches, then the loader's end
+    assert timed[0]["profile/data_wait_mean_s"] == pytest.approx(
+        timed[0]["profile/data_wait_s"] / 3)
     assert len(files) == 1
-    steps = [ev for ev in _events(files[0]) if ev.get("name") == "train_step"]
-    assert len(steps) == 2          # epoch 0's two batches
+    names = [ev.get("name") for ev in _events(files[0])]
+    assert names.count("train_step") == 2          # epoch 0's two batches
+    assert names.count("model.train_step") == 2 and names.count("model.optimizer") == 2
+    assert names.count("data_wait") == 3

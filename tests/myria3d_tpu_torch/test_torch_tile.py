@@ -57,6 +57,9 @@ PROBA_ATOL = 2e-3
 AGREEMENT = 0.999
 PHASE_KEYS = {"tile_read_s", "streaming_s", "fetch_blocked_s", "merge_s", "n_batches",
               "finalize_write_s", "finalize_coverage_s", "finalize_softmax_s"}
+# the port's spans and merge counters, beside the JAX package's keys
+PORT_PHASE_KEYS = {"loader_wait_s", "enqueue_s", "cook_busy_s", "merge_points",
+                   "merge_points_native"}
 
 
 @pytest.fixture(scope="module")
@@ -157,9 +160,10 @@ def test_predict_matches_the_jax_package(predictions, overlap):
 
 def test_predict_phases_as_the_jax_package_reports_them(predictions):
     """The keys of ``myria3d_tpu/predict.py:183-195`` (the Interpolator's
-    ``finalize_*`` phases among them), every time rounded to 2 decimals."""
+    ``finalize_*`` phases among them) and exactly the port's own, every
+    time rounded to 2 decimals."""
     (_, want), (_, got), _ = predictions(0)
     assert set(want) == PHASE_KEYS
-    assert set(got) == set(want)
+    assert set(got) == set(want) | PORT_PHASE_KEYS
     for key, value in got.items():
         assert value == round(value, 2), (key, value)
