@@ -9,7 +9,9 @@ derives probabilities / predicted class codes / entropy and writes them into
 new LAS dimensions with the source header (SRS/scales/offsets) preserved
 (reference PDAL dim-ferry + writer-from-reader-metadata, ``:70-91,176-184``).
 
-Copied from ``myria3d_tpu/models/interpolation.py``; imports point at the port.
+Copied from ``myria3d_tpu/models/interpolation.py``; imports point at the port,
+and the overlap merge (``_merge``) is one native call a batch for any index
+order, bit-equal to the original's ``np.add.at``.
 """
 
 from __future__ import annotations
@@ -141,41 +143,51 @@ class Interpolator:
         re-read (reference re-reads via PDAL, ``interpolation.py:139``).
         """
         self._nb_points = int(nb_points)
-        self._reduced = None  # allocated on first batch (C known then)
-        self._covered = np.zeros(self._nb_points, dtype=bool)
+        # allocated on the first batch (C known then)
+        self._reduced = None
+        self._covered = None
         self._points = points
         self._header = header
         self.merge_counts = {}
 
     @staticmethod
     def _scatter_add(reduced: np.ndarray, idx: np.ndarray, logit: np.ndarray) -> str:
-        """Add ``logit``'s rows into ``reduced[idx]``; returns the route
-        taken: "native", "fancy" or "add_at"."""
-        # Subtile crops index each original point at most once, in
-        # ascending order — row ranges are then race-free, so the native
-        # thread-parallel row scatter applies (f16 wire logits upcast
-        # in-flight, deleting the full-batch astype pass); the vectorized
-        # fancy += is the no-toolchain fallback (2.1x np.add.at at the
-        # 17 M-point tile scale, measured). Unsorted/duplicated indices
-        # fall back to the duplicate-safe ufunc scatter.
+        """Add ``logit``'s rows into ``reduced[idx]`` without the native
+        library; returns the route taken: "fancy" or "add_at"."""
+        # the vectorized fancy += is right only for unique indices (2.1x
+        # np.add.at at the 17 M-point tile scale, measured): strictly
+        # ascending ones prove it; any other order takes the ufunc scatter
         if idx.size < 2 or np.all(np.diff(idx) > 0):
-            from myria3d_tpu_torch.pctl.native import native_scatter_add_rows
-
-            logit = np.ascontiguousarray(logit)
-            if native_scatter_add_rows(reduced, idx, logit):
-                return "native"
             reduced[idx] += logit.astype(np.float32, copy=False)
             return "fancy"
         np.add.at(reduced, idx, logit)
         return "add_at"
 
-    def _merge(self, reduced: np.ndarray, idx: np.ndarray, logit: np.ndarray) -> None:
-        """``_scatter_add``, counted in ``merge_counts``: the points merged
-        (``merge_points``) and those the native row scatter took
-        (``merge_points_native``)."""
-        native = self._scatter_add(reduced, idx, logit) == "native"
-        count(self.merge_counts, "merge_points", len(idx))
-        count(self.merge_counts, "merge_points_native", len(idx) if native else 0)
+    def _merge(self, reduced: np.ndarray, idxs: List[np.ndarray], logits: List[np.ndarray],
+               covered: Optional[np.ndarray] = None, zero: bool = False) -> None:
+        """Scatter-add a batch's row lists, ``reduced[idxs[i]] += logits[i]``
+        in list order, and mark ``covered[idxs[i]]``; ``zero`` zeroes both
+        first (they come from ``np.empty``). The native scatter takes any
+        index order, repeats included, bit-equal to ``np.add.at``; without
+        the toolchain each list takes ``_scatter_add``. Counted in
+        ``merge_counts``: the points merged (``merge_points``) and those the
+        native scatter took (``merge_points_native``)."""
+        from myria3d_tpu_torch.pctl.native import native_scatter_add_rows
+
+        logits = [np.ascontiguousarray(logit) for logit in logits]
+        native = native_scatter_add_rows(reduced, idxs, logits, covered=covered, zero=zero)
+        if not native:
+            if zero:
+                reduced.fill(0.0)
+                if covered is not None:
+                    covered.fill(False)
+            for idx, logit in zip(idxs, logits):
+                self._scatter_add(reduced, idx, logit)
+                if covered is not None:
+                    covered[idx] = True
+        n = sum(len(idx) for idx in idxs)
+        count(self.merge_counts, "merge_points", n)
+        count(self.merge_counts, "merge_points_native", n if native else 0)
 
     def store_predictions(self, logits, idx_in_original_cloud) -> None:
         """Keep a batch's per-point full-subtile logits (host side).
@@ -187,10 +199,12 @@ class Interpolator:
         # the device ships f16 logits to halve the transfer; the native
         # scatter upcasts in-flight, so only the stash path converts here
         logits = np.asarray(logits)
-        if self._nb_points is not None and self._reduced is None:
-            self._reduced = np.zeros(
-                (self._nb_points, logits.shape[-1]), dtype=np.float32
-            )
+        zero = self._nb_points is not None and self._reduced is None
+        if zero:
+            # zeroed by the merge's own threads, each its rows in order
+            self._reduced = np.empty((self._nb_points, logits.shape[-1]), dtype=np.float32)
+            self._covered = np.empty(self._nb_points, dtype=bool)
+        idxs, rows = [], []
         for b, idx in enumerate(idx_in_original_cloud):
             if idx is None:
                 continue
@@ -202,15 +216,13 @@ class Interpolator:
                     f"Subtile logits truncated: {len(idx) - n} of {len(idx)} "
                     "points lose their predictions (padded bucket too small)."
                 )
-            idx_arr = np.asarray(idx[:n], np.int64)
-            if self._reduced is not None:
-                self._merge(self._reduced, idx_arr, logits[b, :n])
-                self._covered[idx_arr] = True
-            else:
-                self.logits.append(
-                    logits[b, :n].astype(np.float32, copy=False)
-                )
-                self.idx_in_full_cloud.append(idx_arr)
+            idxs.append(np.asarray(idx[:n], np.int64))
+            rows.append(logits[b, :n])
+        if self._reduced is not None:
+            self._merge(self._reduced, idxs, rows, covered=self._covered, zero=zero)
+        else:
+            self.logits += [logit.astype(np.float32, copy=False) for logit in rows]
+            self.idx_in_full_cloud += idxs
 
     def reduce_predicted_logits(self, nb_points: int) -> np.ndarray:
         """Merge overlapping subtile predictions by summing logits per
@@ -226,8 +238,7 @@ class Interpolator:
             return np.zeros((nb_points, len(self.reverse_mapper)), np.float32)
         num_classes = self.logits[0].shape[-1] if self.logits else len(self.reverse_mapper)
         reduced = np.zeros((nb_points, num_classes), dtype=np.float32)
-        for logit, idx in zip(self.logits, self.idx_in_full_cloud):
-            self._merge(reduced, idx, logit)
+        self._merge(reduced, self.idx_in_full_cloud, self.logits)
         return reduced
 
     def reduce_predictions_and_save(

@@ -6,7 +6,9 @@ working (the transforms pick native automatically when present).
 
 Copied from ``myria3d_tpu/pctl/native/__init__.py``; the ``.cpp`` sources
 are copies, the code unchanged (one comment of ``laszip_native.cpp`` names
-its test file without a host path). The libraries are built into
+its test file without a host path) but for the overlap merge: the port's
+``scatter_add_rows`` takes a whole batch of row lists in any index order,
+repeats included (``native_scatter_add_rows``). The libraries are built into
 ``build/myria3d_tpu_torch/`` at the repository root instead of beside the
 sources: ``-march=native`` code is right only for the machine that built
 it, so the library name hashes the source, the flags and the host, and a
@@ -23,7 +25,7 @@ import platform
 import subprocess
 import tempfile
 import warnings
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -134,8 +136,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
     fp = ctypes.POINTER(ctypes.c_float)
     lib.scatter_add_rows.restype = None
     lib.scatter_add_rows.argtypes = [
-        fp, i64p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_int32,
+        fp, u8p, ctypes.c_int64, ctypes.c_int32, vpp, vpp, i64p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
     lib.logits_finalize.restype = None
     lib.logits_finalize.argtypes = [
@@ -528,31 +530,51 @@ def native_las_pack_records(
 
 
 def native_scatter_add_rows(
-    plane: np.ndarray,      # (N, C) f32, C-contiguous
-    idx: np.ndarray,        # (R,) int64, unique within this call
-    src: np.ndarray,        # (R, C) f32 or f16, C-contiguous
+    plane: np.ndarray,                  # (N, C) f32, C-contiguous
+    idx: Sequence[np.ndarray],          # each (R_i,) int64, any order, repeats allowed
+    src: Sequence[np.ndarray],          # each (R_i, C) f32 or f16, C-contiguous
+    covered: Optional[np.ndarray] = None,  # (N,) bool
+    zero: bool = False,
     n_threads: int = 0,
 ) -> bool:
-    """plane[idx] += src, thread-parallel (f16 src upcast in-flight).
-    Returns False when the native library is unavailable."""
+    """For each list i in order, each row r in order: ``plane[idx[i][r]] +=
+    src[i][r]`` (f16 upcast in-flight) and ``covered[idx[i][r]] = True``;
+    the plane is bit-equal to ``np.add.at`` over the same calls, whatever
+    ``n_threads`` (0: from the rows and the machine). Each thread owns a
+    range of the plane's rows. ``zero`` zeroes ``plane`` and ``covered``
+    first, each thread its own rows, so ``plane`` may come from ``np.empty``.
+    Releases the interpreter lock. Returns False when the native library is
+    unavailable, or the sources are not all f16 or all f32."""
     lib = get_lib()
     if lib is None:
         return False
-    if src.dtype == np.float16:
-        src_type = 10
-    elif src.dtype == np.float32:
-        src_type = 8
-    else:
+    types = {np.dtype(np.float32): 8, np.dtype(np.float16): 10}
+    src_type = types.get(src[0].dtype) if len(src) else 8
+    if src_type is None or any(s.dtype != src[0].dtype for s in src):
         return False
-    assert plane.flags.c_contiguous and src.flags.c_contiguous
-    assert plane.shape[1] == src.shape[1] and idx.dtype == np.int64
+    n, c = plane.shape
+    if not (plane.dtype == np.float32 and plane.flags.c_contiguous):
+        raise ValueError("plane must be a C-contiguous float32 (N, C) array")
+    if covered is not None and not (covered.dtype == np.bool_ and covered.shape == (n,)
+                                    and covered.flags.c_contiguous):
+        raise ValueError(f"covered must be a contiguous ({n},) bool array")
+    if len(idx) != len(src):
+        raise ValueError(f"{len(idx)} index arrays for {len(src)} sources")
+    for i, s in zip(idx, src):
+        if not (i.dtype == np.int64 and i.ndim == 1 and i.flags.c_contiguous):
+            raise ValueError("each index array must be contiguous 1-D int64")
+        if not (s.shape == (len(i), c) and s.flags.c_contiguous):
+            raise ValueError(f"a source of shape {s.shape} for {len(i)} indices into C={c}")
+        if len(i) and (i.min() < 0 or i.max() >= n):
+            raise ValueError(f"an index outside the plane's {n} rows")
+    idx_ptrs = (ctypes.c_void_p * max(len(idx), 1))(*[i.ctypes.data for i in idx])
+    src_ptrs = (ctypes.c_void_p * max(len(src), 1))(*[s.ctypes.data for s in src])
+    rows = np.asarray([len(i) for i in idx], np.int64)
     lib.scatter_add_rows(
-        plane.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(len(idx)),
-        ctypes.c_void_p(src.__array_interface__["data"][0]),
-        ctypes.c_int32(src_type), ctypes.c_int32(src.shape[1]),
-        ctypes.c_int32(n_threads),
+        _fptr(plane), _u8ptr(covered.view(np.uint8)) if covered is not None else None,
+        ctypes.c_int64(n), ctypes.c_int32(int(zero)), idx_ptrs, src_ptrs,
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), ctypes.c_int32(len(idx)),
+        ctypes.c_int32(src_type), ctypes.c_int32(c), ctypes.c_int32(n_threads),
     )
     return True
 

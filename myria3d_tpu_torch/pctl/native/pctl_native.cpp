@@ -612,40 +612,69 @@ void las_unpack_records(const uint8_t* records, int64_t n, int32_t rec_len,
 
 namespace {
 
-// plane[idx[r]] += src[r] row-wise. Row indices within one call are unique
-// (each subtile crop indexes an original point at most once), so splitting
-// the ROW RANGE across threads is race-free. f16 source upcasts in-flight
-// (the device ships f16 logits; this deletes the full-batch astype pass).
+// The overlap merge, duplicate-safe: for each list b in order, each row r
+// in order, plane[idx[b][r]] += src[b][r] (f16 sources upcast in-flight),
+// and covered[idx[b][r]] = 1. A thread owns the destination rows [lo, hi)
+// and adds only the rows whose index falls there, in the caller's order, so
+// every plane row sees the same additions in the same order as np.add.at
+// over the same calls: the plane is bit-equal whatever the thread count.
+// With `zero`, the owner first zeroes its rows (and coverage bytes) in
+// order: a fresh plane takes its page faults in order and in parallel.
 template <typename SRC>
-void scatter_add_rows_range(float* plane, const int64_t* idx, int64_t lo,
-                            int64_t hi, const SRC* src, int32_t c) {
-  for (int64_t r = lo; r < hi; ++r) {
-    float* dst = plane + idx[r] * (int64_t)c;
-    const SRC* s = src + r * (int64_t)c;
-    for (int32_t j = 0; j < c; ++j) dst[j] += (float)s[j];
+void scatter_add_owned(float* plane, uint8_t* covered, int64_t lo, int64_t hi,
+                       bool zero, const int64_t* const* idx,
+                       const SRC* const* src, const int64_t* n_rows,
+                       int32_t n_lists, int32_t c) {
+  if (lo >= hi) return;
+  if (zero) {
+    std::memset(plane + lo * (int64_t)c, 0, sizeof(float) * (hi - lo) * c);
+    if (covered) std::memset(covered + lo, 0, hi - lo);
+  }
+  const uint64_t span = (uint64_t)(hi - lo);
+  for (int32_t b = 0; b < n_lists; ++b) {
+    const int64_t* ib = idx[b];
+    const SRC* sb = src[b];
+    for (int64_t r = 0; r < n_rows[b]; ++r) {
+      const int64_t d = ib[r];
+      if ((uint64_t)(d - lo) >= span) continue;  // another thread's row
+      float* dst = plane + d * (int64_t)c;
+      const SRC* s = sb + r * (int64_t)c;
+      for (int32_t j = 0; j < c; ++j) dst[j] += (float)s[j];
+      if (covered) covered[d] = 1;
+    }
   }
 }
 
+// At most this many threads a call (the merge shares the host with the
+// loader's cook threads), and one a 64k rows of work (the rows added, plus
+// the plane's rows when it is zeroed).
+constexpr int64_t kMergeMaxThreads = 8;
+
 template <typename SRC>
-void scatter_add_rows_impl(float* plane, const int64_t* idx, int64_t n_rows,
-                           const SRC* src, int32_t c, int32_t n_threads) {
-  int64_t nt = n_threads > 0
-                   ? n_threads
-                   : (int64_t)std::thread::hardware_concurrency();
-  if (nt < 1) nt = 1;
-  nt = std::min<int64_t>(nt, (n_rows + (1 << 16) - 1) >> 16);  // >=64k rows
+void scatter_add_rows_impl(float* plane, uint8_t* covered, int64_t n_plane,
+                           bool zero, const int64_t* const* idx,
+                           const SRC* const* src, const int64_t* n_rows,
+                           int32_t n_lists, int32_t c, int32_t n_threads) {
+  int64_t nt = n_threads;
+  if (nt <= 0) {
+    int64_t work = zero ? n_plane : 0;
+    for (int32_t b = 0; b < n_lists; ++b) work += n_rows[b];
+    nt = std::min<int64_t>((int64_t)std::thread::hardware_concurrency(),
+                           kMergeMaxThreads);
+    nt = std::min<int64_t>(nt, (work + (1 << 16) - 1) >> 16);
+  }
   if (nt <= 1) {
-    scatter_add_rows_range<SRC>(plane, idx, 0, n_rows, src, c);
+    scatter_add_owned<SRC>(plane, covered, 0, n_plane, zero, idx, src, n_rows,
+                           n_lists, c);
     return;
   }
   std::vector<std::thread> workers;
-  const int64_t per = (n_rows + nt - 1) / nt;
+  const int64_t per = (n_plane + nt - 1) / nt;
   for (int64_t t = 0; t < nt; ++t) {
-    const int64_t lo = t * per;
-    const int64_t hi = std::min<int64_t>(lo + per, n_rows);
-    if (lo >= hi) break;
-    workers.emplace_back(scatter_add_rows_range<SRC>, plane, idx, lo, hi,
-                         src, c);
+    const int64_t lo = std::min<int64_t>(t * per, n_plane);
+    const int64_t hi = std::min<int64_t>(lo + per, n_plane);
+    workers.emplace_back(scatter_add_owned<SRC>, plane, covered, lo, hi, zero,
+                         idx, src, n_rows, n_lists, c);
   }
   for (auto& w : workers) w.join();
 }
@@ -686,18 +715,25 @@ void logits_finalize_range(const float* logits, int64_t lo, int64_t hi,
 
 extern "C" {
 
-// Overlap merge: plane[idx[r], :] += src[r, :] (unique rows per call).
-// src_type: 8 = f32, 10 = IEEE half (the wire format of the D2H logits).
-void scatter_add_rows(float* plane, const int64_t* idx, int64_t n_rows,
-                      const void* src, int32_t src_type, int32_t c,
+// Overlap merge of n_lists row lists into the (n_plane, c) f32 plane, in
+// list order (see scatter_add_owned): any index order, repeats included.
+// `covered` (n_plane bytes) may be null; `zero` zeroes plane and coverage
+// first. src_type: 8 = f32, 10 = IEEE half (the wire format of the D2H
+// logits). n_threads <= 0 picks the count from the rows and the machine.
+void scatter_add_rows(float* plane, uint8_t* covered, int64_t n_plane,
+                      int32_t zero, const int64_t* const* idx,
+                      const void* const* src, const int64_t* n_rows,
+                      int32_t n_lists, int32_t src_type, int32_t c,
                       int32_t n_threads) {
-  if (n_rows <= 0 || c <= 0) return;
+  if (n_plane <= 0 || c <= 0) return;
   if (src_type == 8) {
-    scatter_add_rows_impl<float>(plane, idx, n_rows, (const float*)src, c,
+    scatter_add_rows_impl<float>(plane, covered, n_plane, zero != 0, idx,
+                                 (const float* const*)src, n_rows, n_lists, c,
                                  n_threads);
   } else if (src_type == 10) {
-    scatter_add_rows_impl<_Float16>(plane, idx, n_rows, (const _Float16*)src,
-                                    c, n_threads);
+    scatter_add_rows_impl<_Float16>(plane, covered, n_plane, zero != 0, idx,
+                                    (const _Float16* const*)src, n_rows,
+                                    n_lists, c, n_threads);
   }
 }
 
