@@ -135,30 +135,26 @@ def _axis_window_membership(
     return ks_safe, valid, c
 
 
-def split_cloud_into_samples(
-    las_path: str,
+def subtile_indices(
+    points: np.ndarray,
     tile_width: Number,
     subtile_width: Number,
-    epsg: Optional[str],
     subtile_overlap: Number = 0,
-    points: Optional[np.ndarray] = None,
-) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """Yield (idx_in_original_cloud, sample_points) square subtiles.
+) -> List[np.ndarray]:
+    """Each non-empty square subtile's indices into ``points``, ascending,
+    in x-major center order (views into one array, no copy).
 
     Semantics of reference ``utils.py:126-158``: centers from
     ``get_mosaic_of_centers`` relative to the cloud's XY min; a subtile is all
     points within Chebyshev radius ``subtile_width // 2`` of a center; empty
-    subtiles are skipped, in x-major center order.
+    subtiles are skipped.
 
     Unlike the reference's per-center cKDTree query (one full scan per
-    center), membership is computed in a single vectorized pass: each point
-    lists the few windows it falls in, and one lexsort groups points by
-    window — O(N·C log(N·C)) with C = windows per point (1 with no overlap,
-    4 at overlap = width/2) instead of O(N·centers).
+    center), membership is computed in a single pass: each point lists the
+    few windows it falls in (1 with no overlap, 4 at overlap = width/2).
+    The native counting sort reads X/Y from the records as they are (f32 or
+    f64 fields); without it, one lexsort groups the (point, window) pairs.
     """
-    if points is None:
-        points, _ = read_las_array_as_float32(las_path, epsg)
-
     if subtile_overlap < 0:
         raise ValueError("datamodule.subtile_overlap must be positive.")
     radius = subtile_width // 2
@@ -170,41 +166,19 @@ def split_cloud_into_samples(
     )
     n_k = len(centers_1d)
 
-    # native counting-sort binning (one O(N) pass, no lexsort) — the
-    # fields variant reads X/Y straight from the packed f32 records,
-    # skipping the (n, 2) f64 staging (three full ~275 MB passes at the
-    # 17 M production tile; bit-compatible, f32→f64 is exact)
-    from myria3d_tpu_torch.pctl.native import (
-        native_bin_windows,
-        native_bin_windows_fields,
-    )
+    from myria3d_tpu_torch.pctl.native import native_bin_windows_fields
 
     binned = native_bin_windows_fields(
         points, centers_1d, float(radius), float(stride)
     )
-    if binned is None:
-        xy = np.stack([points["X"], points["Y"]], axis=1).astype(np.float64)
-        xy_rel = xy - xy.min(axis=0)
-        binned = native_bin_windows(
-            xy_rel, centers_1d, float(radius), float(stride)
-        )
     if binned is not None:
         offsets, indices = binned
-        # Per-window structured gathers, NOT one whole-tile grouped
-        # gather: at production scale (17 M points) the single
-        # ascending-index pass materializes a ~750 MB copy whose
-        # allocation + writeback measured 2-3x SLOWER than 400 small
-        # gathers with cache-resident destinations (3.65 vs 6.9-12.2 s,
-        # 1-core; docs/perf_notes.md round 5). The small-tile win the
-        # grouped form showed on the 60 k toy profile does not survive
-        # the cache cliff.
-        for w in range(n_k * n_k):
-            s, e = offsets[w], offsets[w + 1]
-            if e > s:
-                sample_idx = indices[s:e]
-                yield sample_idx, points[sample_idx]
-        return
+        return [indices[offsets[w]:offsets[w + 1]]
+                for w in range(n_k * n_k) if offsets[w + 1] > offsets[w]]
 
+    xy = np.stack([points["X"], points["Y"]], axis=1).astype(np.float64)
+    xy_rel = xy - xy.min(axis=0)
+    del xy
     # chunk the combo expansion so peak memory stays ~O(block * C^2)
     n = xy_rel.shape[0]
     block = 4_000_000
@@ -232,7 +206,7 @@ def split_cloud_into_samples(
     pts_flat = np.concatenate(pts_parts)
     del win_parts, pts_parts
     if win_flat.size == 0:
-        return
+        return []
     # group by window, points ascending within each window
     order = np.lexsort((pts_flat, win_flat))
     win_sorted = win_flat[order]
@@ -240,9 +214,24 @@ def split_cloud_into_samples(
     boundaries = np.flatnonzero(np.diff(win_sorted)) + 1
     starts = np.concatenate([[0], boundaries])
     ends = np.concatenate([boundaries, [len(win_sorted)]])
-    for s, e in zip(starts, ends):
-        sample_idx = pts_sorted[s:e]
-        yield sample_idx, points[sample_idx]
+    return [pts_sorted[s:e] for s, e in zip(starts, ends)]
+
+
+def split_cloud_into_samples(
+    las_path: str,
+    tile_width: Number,
+    subtile_width: Number,
+    epsg: Optional[str],
+    subtile_overlap: Number = 0,
+    points: Optional[np.ndarray] = None,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (idx_in_original_cloud, sample_points) square subtiles
+    (:func:`subtile_indices`), reading the tile as float32 records unless
+    ``points`` is given."""
+    if points is None:
+        points, _ = read_las_array_as_float32(las_path, epsg)
+    for sample_idx in subtile_indices(points, tile_width, subtile_width, subtile_overlap):
+        yield sample_idx, np.take(points, sample_idx)
 
 
 def pre_filter_below_n_points(data, min_num_nodes: int = 1) -> bool:

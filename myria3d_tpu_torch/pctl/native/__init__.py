@@ -6,9 +6,13 @@ working (the transforms pick native automatically when present).
 
 Copied from ``myria3d_tpu/pctl/native/__init__.py``; the ``.cpp`` sources
 are copies, the code unchanged (one comment of ``laszip_native.cpp`` names
-its test file without a host path) but for the overlap merge: the port's
-``scatter_add_rows`` takes a whole batch of row lists in any index order,
-repeats included (``native_scatter_add_rows``). The libraries are built into
+its test file without a host path) but for the overlap merge and the subtile
+front end: the port's ``scatter_add_rows`` takes a whole batch of row lists
+in any index order, repeats included (``native_scatter_add_rows``); its
+window binning reads f32 or f64 X/Y from the records in place on several
+threads (``native_bin_windows_fields``; the staged (n, 2) f64 route is
+gone); and ``lidar_hd_rows`` builds a subtile's Lidar HD features from the
+tile's records (``native_lidar_hd_rows``). The libraries are built into
 ``build/myria3d_tpu_torch/`` at the repository root instead of beside the
 sources: ``-march=native`` code is right only for the machine that built
 it, so the library name hashes the source, the flags and the host, and a
@@ -94,28 +98,21 @@ def get_lib() -> Optional[ctypes.CDLL]:
     ]
     dp = ctypes.POINTER(ctypes.c_double)
     i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.bin_windows_count.restype = ctypes.c_int64
-    lib.bin_windows_count.argtypes = [
-        dp, ctypes.c_int64, dp, ctypes.c_int32,
-        ctypes.c_double, ctypes.c_double, i64p,
-    ]
-    lib.bin_windows_fill.restype = None
-    lib.bin_windows_fill.argtypes = [
-        dp, ctypes.c_int64, dp, ctypes.c_int32,
-        ctypes.c_double, ctypes.c_double, i64p, i64p, i64p,
-    ]
     _u8p = ctypes.POINTER(ctypes.c_uint8)
-    lib.bin_windows_count_f32s.restype = ctypes.c_int64
-    lib.bin_windows_count_f32s.argtypes = [
-        _u8p, _u8p, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
-        ctypes.c_int64, dp, ctypes.c_int32,
-        ctypes.c_double, ctypes.c_double, i64p,
+    _bin_args = [
+        _u8p, _u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_int64, dp, ctypes.c_int32, ctypes.c_double, ctypes.c_double,
+        ctypes.c_int32,
     ]
-    lib.bin_windows_fill_f32s.restype = None
-    lib.bin_windows_fill_f32s.argtypes = [
-        _u8p, _u8p, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
-        ctypes.c_int64, dp, ctypes.c_int32,
-        ctypes.c_double, ctypes.c_double, i64p, i64p, i64p,
+    lib.bin_windows_count.restype = ctypes.c_int64
+    lib.bin_windows_count.argtypes = _bin_args + [i64p, i64p, dp]
+    lib.bin_windows_fill.restype = None
+    lib.bin_windows_fill.argtypes = _bin_args + [i64p, i64p, dp, i64p]
+    lib.lidar_hd_rows.restype = ctypes.c_int32
+    lib.lidar_hd_rows.argtypes = [
+        _u8p, ctypes.c_int64, i64p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float), i64p,
     ]
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -196,59 +193,33 @@ def native_grid_sample(
     )
 
 
-def native_bin_windows(
-    xy: np.ndarray, centers: np.ndarray, radius: float, stride: float
-) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """Counting-sort point→mosaic-window binning (C++).
-
-    Returns (offsets (n_k²+1,) int64 prefix sums over x-major flat window
-    ids, indices int64 grouped by window, ascending within each) or None
-    when unavailable. Membership is the inclusive Chebyshev test
-    ``|coord - center| <= radius`` per axis — bit-compatible with the numpy
-    path in ``pctl/dataset/utils.py``.
-    """
-    lib = get_lib()
-    if lib is None:
-        return None
-    if int(2 * radius / stride) + 2 > 8:  # C++ per-axis candidate buffer
-        return None
-    dp = ctypes.POINTER(ctypes.c_double)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    xy_c = np.ascontiguousarray(xy, np.float64)
-    cen = np.ascontiguousarray(centers, np.float64)
-    n = xy_c.shape[0]
-    n_k = len(cen)
-    offsets = np.empty(n_k * n_k + 1, np.int64)
-    total = lib.bin_windows_count(
-        xy_c.ctypes.data_as(dp), ctypes.c_int64(n), cen.ctypes.data_as(dp),
-        ctypes.c_int32(n_k), ctypes.c_double(radius), ctypes.c_double(stride),
-        offsets.ctypes.data_as(i64p),
-    )
-    indices = np.empty(max(int(total), 1), np.int64)
-    cursors = np.empty(max(n_k * n_k, 1), np.int64)
-    lib.bin_windows_fill(
-        xy_c.ctypes.data_as(dp), ctypes.c_int64(n), cen.ctypes.data_as(dp),
-        ctypes.c_int32(n_k), ctypes.c_double(radius), ctypes.c_double(stride),
-        offsets.ctypes.data_as(i64p), cursors.ctypes.data_as(i64p),
-        indices.ctypes.data_as(i64p),
-    )
-    return offsets, indices[: int(total)]
+# At most this many threads bin a tile, and one a 256k points.
+_BIN_MAX_THREADS = 8
+_COORD_TYPES = {np.dtype("<f4"): 8, np.dtype("<f8"): 9}
 
 
 def native_bin_windows_fields(
     points: np.ndarray, centers: np.ndarray, radius: float, stride: float
 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """`native_bin_windows` reading X/Y straight from the packed f32
-    record columns (no (n, 2) f64 staging — three full ~275 MB passes at
-    the 17 M-point production tile). Bit-compatible with the staged path:
-    f32→f64 is exact, so every relative coordinate matches. Returns None
-    when unavailable or when the record layout isn't strided f32 X/Y."""
+    """Counting-sort point→mosaic-window binning (C++), reading X/Y straight
+    from the records (f32 or f64 fields, any record size and alignment: no
+    (n, 2) f64 staging).
+
+    Returns (offsets (n_k²+1,) int64 prefix sums over x-major flat window
+    ids, indices int64 grouped by window, ascending within each) or None
+    when unavailable or when X/Y are not native-order f32/f64. Membership
+    is the inclusive Chebyshev test ``|coord - center| <= radius`` per axis
+    on ``coord - min(coord)`` in f64 — bit-compatible with the numpy path
+    in ``pctl/dataset/utils.py``, whatever the thread count.
+    """
     lib = get_lib()
     if lib is None:
         return None
     fields = points.dtype.fields or {}
-    if ("X" not in fields or "Y" not in fields
-            or fields["X"][0] != np.float32 or fields["Y"][0] != np.float32):
+    if "X" not in fields or "Y" not in fields or points.ndim != 1:
+        return None
+    tx, ty = _COORD_TYPES.get(fields["X"][0]), _COORD_TYPES.get(fields["Y"][0])
+    if tx is None or ty is None:
         return None
     if int(2 * radius / stride) + 2 > 8:  # C++ per-axis candidate buffer
         return None
@@ -258,33 +229,76 @@ def native_bin_windows_fields(
     dp = ctypes.POINTER(ctypes.c_double)
     i64p = ctypes.POINTER(ctypes.c_int64)
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    rec = points.dtype.itemsize
     base = points.ctypes.data
-    px = ctypes.cast(base + fields["X"][1], u8p)
-    py = ctypes.cast(base + fields["Y"][1], u8p)
-    minx = float(np.float64(points["X"].min()))
-    miny = float(np.float64(points["Y"].min()))
     cen = np.ascontiguousarray(centers, np.float64)
     n_k = len(cen)
+    threads = max(1, min(_BIN_MAX_THREADS, os.cpu_count() or 1, n >> 18))
+    args = [
+        ctypes.cast(base + fields["X"][1], u8p), ctypes.cast(base + fields["Y"][1], u8p),
+        ctypes.c_int32(tx), ctypes.c_int32(ty), ctypes.c_int64(points.strides[0]),
+        ctypes.c_int64(n), cen.ctypes.data_as(dp), ctypes.c_int32(n_k),
+        ctypes.c_double(radius), ctypes.c_double(stride), ctypes.c_int32(threads),
+    ]
+    counts = np.empty((threads, max(n_k * n_k, 1)), np.int64)
     offsets = np.empty(n_k * n_k + 1, np.int64)
-    total = lib.bin_windows_count_f32s(
-        px, py, ctypes.c_int64(rec),
-        ctypes.c_double(minx), ctypes.c_double(miny),
-        ctypes.c_int64(n), cen.ctypes.data_as(dp), ctypes.c_int32(n_k),
-        ctypes.c_double(radius), ctypes.c_double(stride),
-        offsets.ctypes.data_as(i64p),
-    )
+    minima = np.empty(2, np.float64)   # of the f64 values: an f32 minimum converts exactly
+    total = lib.bin_windows_count(*args, counts.ctypes.data_as(i64p),
+                                  offsets.ctypes.data_as(i64p), minima.ctypes.data_as(dp))
     indices = np.empty(max(int(total), 1), np.int64)
-    cursors = np.empty(max(n_k * n_k, 1), np.int64)
-    lib.bin_windows_fill_f32s(
-        px, py, ctypes.c_int64(rec),
-        ctypes.c_double(minx), ctypes.c_double(miny),
-        ctypes.c_int64(n), cen.ctypes.data_as(dp), ctypes.c_int32(n_k),
-        ctypes.c_double(radius), ctypes.c_double(stride),
-        offsets.ctypes.data_as(i64p), cursors.ctypes.data_as(i64p),
-        indices.ctypes.data_as(i64p),
-    )
+    lib.bin_windows_fill(*args, counts.ctypes.data_as(i64p), offsets.ctypes.data_as(i64p),
+                         minima.ctypes.data_as(dp), indices.ctypes.data_as(i64p))
     return offsets, indices[: int(total)]
+
+
+# The fields lidar_hd_rows reads, in its order; a missing color reads 0.
+_FEATURE_FIELDS = ("X", "Y", "Z", "Intensity", "ReturnNumber", "NumberOfReturns",
+                   "Red", "Green", "Blue", "Infrared", "Classification")
+_COLOR_FIELDS = ("Red", "Green", "Blue", "Infrared")
+
+
+def native_lidar_hd_rows(
+    points: np.ndarray, idx: np.ndarray
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, int]]:
+    """The Lidar HD features of the records ``points[idx]`` (C++), read in
+    place from the 1-D structured array ``points``: (pos (n, 3) f32, x (n, 9)
+    f32, y (n,) int64, a bit mask of the colors, Red first, holding a value
+    above 65280), bit-equal to
+    ``pctl/points_pre_transform/lidar_hd.py::lidar_hd_pre_transform(points[idx])``.
+    Releases the interpreter lock. None when the library is unavailable,
+    a field other than a color is missing, or a field is not a native-order
+    integer of up to 32 bits, f32 or f64."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    fields = points.dtype.fields or {}
+    if points.ndim != 1:
+        return None
+    offs = np.zeros(len(_FEATURE_FIELDS), np.int32)
+    types = np.full(len(_FEATURE_FIELDS), -1, np.int32)
+    for j, name in enumerate(_FEATURE_FIELDS):
+        if name not in fields:
+            if name in _COLOR_FIELDS:
+                continue
+            return None
+        ft, off = fields[name][:2]
+        code = NATIVE_TYPE_ENUM.get(ft.str.lstrip("<=|")) if ft.isnative else None
+        if code is None or code in (6, 7):
+            return None
+        offs[j], types[j] = off, code
+    idx = np.ascontiguousarray(idx, np.int64)
+    n = len(idx)
+    if n and (idx.min() < 0 or idx.max() >= len(points)):
+        raise IndexError(f"a row index outside the tile's {len(points)} points")
+    pos = np.empty((n, 3), np.float32)
+    x = np.empty((n, 9), np.float32)
+    y = np.empty(n, np.int64)
+    too_high = lib.lidar_hd_rows(
+        ctypes.cast(points.ctypes.data, ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(points.strides[0]), idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(n), _iptr(offs), _iptr(types), _fptr(pos), _fptr(x),
+        y.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    return pos, x, y, int(too_high)
 
 
 # ---------------------------------------------------------------------------

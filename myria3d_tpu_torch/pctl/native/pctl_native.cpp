@@ -11,6 +11,10 @@
 //                 pctl/transforms/transforms.py::GridSampling)
 //   crop_square   2-D Chebyshev ball query (square crop) used for subtile
 //                 extraction (reference pctl/dataset/utils.py:148-153)
+//   bin_windows_* the tile's points binned to the subtile mosaic, read from
+//                 the records in place (pctl/dataset/utils.py::subtile_indices)
+//   lidar_hd_rows a subtile's Lidar HD features from the tile's records
+//                 (pctl/points_pre_transform/lidar_hd.py)
 //
 // Exposed with a plain C ABI for ctypes (no pybind11 in the image).
 // Build: make -C myria3d_tpu/pctl/native  (or automatic on first import).
@@ -186,9 +190,19 @@ int64_t crop_square(const float* pos, int64_t n, float cx, float cy,
 // memberships. Window k along one axis spans
 // [centers[k]-radius, centers[k]+radius] inclusive (the reference's
 // Chebyshev ball query); a point can fall in several overlapping windows.
-// Two passes: bin_windows_count fills the per-window prefix-sum offsets
-// (length n_k*n_k + 1) and returns the total pair count; bin_windows_fill
-// scatters ascending point indices per window.
+//
+// X/Y are read straight from the tile's records (base pointer + record
+// stride, f32 or f64 fields at any alignment) and the tile minimum is
+// subtracted inline, in f64: f32→f64 is exact, so every relative coordinate
+// equals the one computed on a staged (n, 2) f64 copy.
+//
+// Two calls over one split of the points into n_threads contiguous ranges:
+// bin_windows_count finds the minima (numpy's: NaN if any value is NaN),
+// fills each range's per-window counts and the prefix-sum offsets (length
+// n_k*n_k + 1) and returns the total pair count;
+// bin_windows_fill scatters each range's point indices from its own cursor
+// (the window's offset plus the earlier ranges' counts in it), so every
+// window lists its points in ascending order whatever the thread count.
 // ---------------------------------------------------------------------------
 
 static inline void axis_candidates(double c, const double* centers,
@@ -207,103 +221,145 @@ static inline void axis_candidates(double c, const double* centers,
   *count = m;
 }
 
-int64_t bin_windows_count(const double* xy, int64_t n, const double* centers,
-                          int32_t n_k, double radius, double stride,
-                          int64_t* offsets /* n_k*n_k + 1 */) {
-  const double first = centers[0];
-  const int32_t cmax = (int32_t)(2.0 * radius / stride) + 2;
-  const int64_t n_win = (int64_t)n_k * n_k;
-  for (int64_t w = 0; w <= n_win; ++w) offsets[w] = 0;
-  int32_t kx[8], ky[8], nx, ny;
-  for (int64_t i = 0; i < n; ++i) {
-    axis_candidates(xy[2 * i], centers, n_k, radius, stride, first, cmax, kx,
-                    &nx);
-    axis_candidates(xy[2 * i + 1], centers, n_k, radius, stride, first, cmax,
-                    ky, &ny);
-    for (int32_t a = 0; a < nx; ++a)
-      for (int32_t b = 0; b < ny; ++b)
-        ++offsets[(int64_t)kx[a] * n_k + ky[b] + 1];
+}  // extern "C" (templates below need C++ linkage)
+
+namespace {
+
+// A record field as f64: type 8 = f32, 9 = f64 (the unpack table's enum).
+inline double load_coord(const uint8_t* p, int32_t type) {
+  if (type == 9) {
+    double v;
+    std::memcpy(&v, p, sizeof(v));
+    return v;
   }
-  for (int64_t w = 0; w < n_win; ++w) offsets[w + 1] += offsets[w];
+  float v;
+  std::memcpy(&v, p, sizeof(v));
+  return (double)v;
+}
+
+struct WindowGrid {
+  const uint8_t* px;
+  const uint8_t* py;
+  int32_t tx, ty;
+  int64_t rec_len;
+  double minx, miny;
+  const double* centers;
+  int32_t n_k;
+  double radius, stride;
+
+  // visit(i, flat x-major window id) for every window holding point i, for
+  // i in [lo, hi) in order
+  template <typename Visit>
+  void memberships(int64_t lo, int64_t hi, Visit visit) const {
+    const double first = centers[0];
+    const int32_t cmax = (int32_t)(2.0 * radius / stride) + 2;
+    int32_t kx[8], ky[8], nx, ny;
+    for (int64_t i = lo; i < hi; ++i) {
+      const double cx = load_coord(px + i * rec_len, tx) - minx;
+      const double cy = load_coord(py + i * rec_len, ty) - miny;
+      axis_candidates(cx, centers, n_k, radius, stride, first, cmax, kx, &nx);
+      axis_candidates(cy, centers, n_k, radius, stride, first, cmax, ky, &ny);
+      for (int32_t a = 0; a < nx; ++a)
+        for (int32_t b = 0; b < ny; ++b) visit(i, (int64_t)kx[a] * n_k + ky[b]);
+    }
+  }
+};
+
+// numpy's min of a field over the records [lo, hi): NaN if any is NaN.
+double field_min(const uint8_t* p, int32_t type, int64_t rec_len, int64_t lo,
+                 int64_t hi) {
+  double m = INFINITY;
+  bool nan = false;
+  for (int64_t i = lo; i < hi; ++i) {
+    const double v = load_coord(p + i * rec_len, type);
+    if (v != v) nan = true;
+    else if (v < m) m = v;
+  }
+  return nan ? NAN : m;
+}
+
+// fn(t, lo, hi) on n_threads contiguous ranges of [0, n), one thread each.
+template <typename Fn>
+void on_ranges(int64_t n, int32_t n_threads, Fn fn) {
+  if (n_threads <= 1) {
+    fn(0, 0, n);
+    return;
+  }
+  const int64_t per = (n + n_threads - 1) / n_threads;
+  std::vector<std::thread> workers;
+  for (int32_t t = 0; t < n_threads; ++t) {
+    const int64_t lo = std::min<int64_t>(t * per, n);
+    workers.emplace_back(fn, t, lo, std::min<int64_t>(lo + per, n));
+  }
+  for (auto& w : workers) w.join();
+}
+
+}  // namespace
+
+extern "C" {
+
+// counts: (n_threads, n_k*n_k) scratch and minima: (2,) X/Y minima, both
+// written here and read again by bin_windows_fill.
+int64_t bin_windows_count(const uint8_t* px, const uint8_t* py, int32_t tx,
+                          int32_t ty, int64_t rec_len, int64_t n,
+                          const double* centers, int32_t n_k, double radius,
+                          double stride, int32_t n_threads, int64_t* counts,
+                          int64_t* offsets /* n_k*n_k + 1 */,
+                          double* minima) {
+  std::vector<double> part(2 * (size_t)std::max(n_threads, 1), INFINITY);
+  on_ranges(n, n_threads, [&](int32_t t, int64_t lo, int64_t hi) {
+    part[2 * t] = field_min(px, tx, rec_len, lo, hi);
+    part[2 * t + 1] = field_min(py, ty, rec_len, lo, hi);
+  });
+  for (int d = 0; d < 2; ++d) {
+    minima[d] = INFINITY;
+    for (size_t t = 0; t < part.size() / 2; ++t) {
+      const double v = part[2 * t + d];
+      if (v != v || v < minima[d]) minima[d] = v;
+      if (v != v) break;
+    }
+  }
+  const WindowGrid g{px, py, tx, ty, rec_len, minima[0], minima[1], centers,
+                     n_k, radius, stride};
+  const int64_t n_win = (int64_t)n_k * n_k;
+  std::fill(counts, counts + (int64_t)std::max(n_threads, 1) * n_win, 0);
+  on_ranges(n, n_threads, [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t* c = counts + t * n_win;
+    g.memberships(lo, hi, [c](int64_t, int64_t w) { ++c[w]; });
+  });
+  offsets[0] = 0;
+  for (int64_t w = 0; w < n_win; ++w) {
+    int64_t s = 0;
+    for (int32_t t = 0; t < std::max(n_threads, 1); ++t) s += counts[t * n_win + w];
+    offsets[w + 1] = offsets[w] + s;
+  }
   return offsets[n_win];
 }
 
-void bin_windows_fill(const double* xy, int64_t n, const double* centers,
-                      int32_t n_k, double radius, double stride,
-                      const int64_t* offsets, int64_t* cursors /* scratch */,
+void bin_windows_fill(const uint8_t* px, const uint8_t* py, int32_t tx,
+                      int32_t ty, int64_t rec_len, int64_t n,
+                      const double* centers, int32_t n_k, double radius,
+                      double stride, int32_t n_threads, const int64_t* counts,
+                      const int64_t* offsets, const double* minima,
                       int64_t* out_indices) {
-  const double first = centers[0];
-  const int32_t cmax = (int32_t)(2.0 * radius / stride) + 2;
+  const WindowGrid g{px, py, tx, ty, rec_len, minima[0], minima[1], centers,
+                     n_k, radius, stride};
   const int64_t n_win = (int64_t)n_k * n_k;
-  for (int64_t w = 0; w < n_win; ++w) cursors[w] = offsets[w];
-  int32_t kx[8], ky[8], nx, ny;
-  for (int64_t i = 0; i < n; ++i) {
-    axis_candidates(xy[2 * i], centers, n_k, radius, stride, first, cmax, kx,
-                    &nx);
-    axis_candidates(xy[2 * i + 1], centers, n_k, radius, stride, first, cmax,
-                    ky, &ny);
-    for (int32_t a = 0; a < nx; ++a)
-      for (int32_t b = 0; b < ny; ++b)
-        out_indices[cursors[(int64_t)kx[a] * n_k + ky[b]]++] = i;
+  const int32_t nt = std::max(n_threads, 1);
+  std::vector<int64_t> cursors((size_t)(nt * n_win));
+  for (int64_t w = 0; w < n_win; ++w) {
+    int64_t c = offsets[w];
+    for (int32_t t = 0; t < nt; ++t) {
+      cursors[t * n_win + w] = c;
+      c += counts[t * n_win + w];
+    }
   }
-}
-
-// Strided-f32 variants: read X/Y straight out of the packed f32 record
-// columns (base pointer + record stride) and subtract the tile minimum
-// inline. Skips the caller's (n, 2) f64 staging entirely — three full
-// passes over ~275 MB at the 17 M-point production tile. Bit-compatible
-// with the f64 path: f32→f64 conversion is exact and the minima are the
-// f64 conversions of the f32 minima, so every relative coordinate equals
-// the staged computation's.
-
-int64_t bin_windows_count_f32s(const uint8_t* px, const uint8_t* py,
-                               int64_t stride_bytes, double minx, double miny,
-                               int64_t n, const double* centers, int32_t n_k,
-                               double radius, double stride,
-                               int64_t* offsets /* n_k*n_k + 1 */) {
-  const double first = centers[0];
-  const int32_t cmax = (int32_t)(2.0 * radius / stride) + 2;
-  const int64_t n_win = (int64_t)n_k * n_k;
-  for (int64_t w = 0; w <= n_win; ++w) offsets[w] = 0;
-  int32_t kx[8], ky[8], nx, ny;
-  for (int64_t i = 0; i < n; ++i) {
-    const double cx =
-        (double)(*(const float*)(px + i * stride_bytes)) - minx;
-    const double cy =
-        (double)(*(const float*)(py + i * stride_bytes)) - miny;
-    axis_candidates(cx, centers, n_k, radius, stride, first, cmax, kx, &nx);
-    axis_candidates(cy, centers, n_k, radius, stride, first, cmax, ky, &ny);
-    for (int32_t a = 0; a < nx; ++a)
-      for (int32_t b = 0; b < ny; ++b)
-        ++offsets[(int64_t)kx[a] * n_k + ky[b] + 1];
-  }
-  for (int64_t w = 0; w < n_win; ++w) offsets[w + 1] += offsets[w];
-  return offsets[n_win];
-}
-
-void bin_windows_fill_f32s(const uint8_t* px, const uint8_t* py,
-                           int64_t stride_bytes, double minx, double miny,
-                           int64_t n, const double* centers, int32_t n_k,
-                           double radius, double stride,
-                           const int64_t* offsets,
-                           int64_t* cursors /* scratch */,
-                           int64_t* out_indices) {
-  const double first = centers[0];
-  const int32_t cmax = (int32_t)(2.0 * radius / stride) + 2;
-  const int64_t n_win = (int64_t)n_k * n_k;
-  for (int64_t w = 0; w < n_win; ++w) cursors[w] = offsets[w];
-  int32_t kx[8], ky[8], nx, ny;
-  for (int64_t i = 0; i < n; ++i) {
-    const double cx =
-        (double)(*(const float*)(px + i * stride_bytes)) - minx;
-    const double cy =
-        (double)(*(const float*)(py + i * stride_bytes)) - miny;
-    axis_candidates(cx, centers, n_k, radius, stride, first, cmax, kx, &nx);
-    axis_candidates(cy, centers, n_k, radius, stride, first, cmax, ky, &ny);
-    for (int32_t a = 0; a < nx; ++a)
-      for (int32_t b = 0; b < ny; ++b)
-        out_indices[cursors[(int64_t)kx[a] * n_k + ky[b]]++] = i;
-  }
+  on_ranges(n, n_threads, [&](int32_t t, int64_t lo, int64_t hi) {
+    int64_t* cur = cursors.data() + t * n_win;
+    g.memberships(lo, hi, [cur, out_indices](int64_t i, int64_t w) {
+      out_indices[cur[w]++] = i;
+    });
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -762,6 +818,107 @@ void logits_finalize(const float* logits, int64_t n, int32_t c,
                          preds, entropy, probas);
   }
   for (auto& w : workers) w.join();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The Lidar HD features of one subtile, straight from the tile's records.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <typename T>
+inline T load(const uint8_t* p) {
+  T v;
+  std::memcpy(&v, p, sizeof(T));
+  return v;
+}
+
+// A record field as f64, numpy's astype(float64): exact for every type
+// taken here (the unpack table's enum: 0-5 the integers of up to 32 bits,
+// 8 f32, 9 f64). So (float) of it is numpy's astype(float32), one rounding
+// of the exact value, whatever promotion numpy took on the way.
+inline double field(const uint8_t* p, int32_t type) {
+  switch (type) {
+    case 0: return load<uint8_t>(p);
+    case 1: return load<int8_t>(p);
+    case 2: return load<uint16_t>(p);
+    case 3: return load<int16_t>(p);
+    case 4: return load<uint32_t>(p);
+    case 5: return load<int32_t>(p);
+    case 8: return load<float>(p);
+    default: return load<double>(p);
+  }
+}
+
+// field / 7.0 as numpy divides it: an f32 field by a Python float stays
+// f32, every other type divides in f64; then the feature stack's f32.
+inline float return_norm(const uint8_t* p, int32_t type) {
+  if (type == 8) return load<float>(p) / 7.0f;
+  return (float)(field(p, type) / 7.0);
+}
+
+constexpr int kFeatureFields = 11;
+// The rows are scattered over the tile: a record this many rows ahead is
+// prefetched (both its cache lines), so the loads overlap the arithmetic.
+constexpr int64_t kPrefetchRows = 32;
+
+}  // namespace
+
+extern "C" {
+
+// pctl/points_pre_transform/lidar_hd.py::lidar_hd_pre_transform on the
+// records idx[0..n) of the tile (rec_len bytes apart from base, any
+// alignment), without gathering them first. Fields (byte offset, type) in
+// the order X Y Z Intensity ReturnNumber NumberOfReturns Red Green Blue
+// Infrared Classification; type -1 is a missing color, which reads 0.
+// Writes pos (n, 3) f32, x (n, 9) f32 (Intensity, ReturnNumber/7,
+// NumberOfReturns/7, Red, Green, Blue, Infrared, rgb_avg, ndvi) and y (n,)
+// i64, each value by numpy's op sequence there, in its precision:
+// colors f32 / 65280 in f32 and 0 where ReturnNumber > 1, rgb_avg
+// ((r + g) + b) / 3 in f32 (the mean's order), ndvi (ir - r) / ((ir + r) +
+// f32(1e-6)) in f32. No product appears, so nothing can be contracted.
+// Returns a bit mask of the colors (bit 0 Red .. bit 3 Infrared) holding a
+// value above 65280 or a NaN (numpy's `max() <= 65280` assertion).
+int32_t lidar_hd_rows(const uint8_t* base, int64_t rec_len,
+                      const int64_t* idx, int64_t n, const int32_t* offs,
+                      const int32_t* types, float* pos, float* x,
+                      int64_t* y) {
+  const float eps = (float)1e-6;  // np.float32(1e-6): the f64 literal rounded
+  int32_t too_high = 0;
+  int32_t o[kFeatureFields], t[kFeatureFields];
+  std::memcpy(o, offs, sizeof(o));
+  std::memcpy(t, types, sizeof(t));
+  for (int64_t i = 0; i < n; ++i) {
+    if (i + kPrefetchRows < n) {
+      const uint8_t* ahead = base + idx[i + kPrefetchRows] * rec_len;
+      __builtin_prefetch(ahead);
+      __builtin_prefetch(ahead + rec_len - 1);
+    }
+    const uint8_t* r = base + idx[i] * rec_len;
+    for (int d = 0; d < 3; ++d) pos[i * 3 + d] = (float)field(r + o[d], t[d]);
+    float* xi = x + i * 9;
+    xi[0] = (float)field(r + o[3], t[3]);
+    xi[1] = return_norm(r + o[4], t[4]);
+    xi[2] = return_norm(r + o[5], t[5]);
+    const bool occluded = field(r + o[4], t[4]) > 1.0;
+    float col[4];
+    for (int j = 0; j < 4; ++j) {
+      if (t[6 + j] < 0) {
+        col[j] = 0.0f;
+        continue;
+      }
+      const float c = (float)field(r + o[6 + j], t[6 + j]);
+      if (!(c <= 65280.0f)) too_high |= 1 << j;
+      col[j] = occluded ? 0.0f : c / 65280.0f;
+    }
+    for (int j = 0; j < 4; ++j) xi[3 + j] = col[j];
+    xi[7] = ((col[0] + col[1]) + col[2]) / 3.0f;
+    xi[8] = (col[3] - col[0]) / ((col[3] + col[0]) + eps);
+    y[i] = (int64_t)field(r + o[10], t[10]);
+  }
+  return too_high;
 }
 
 }  // extern "C"

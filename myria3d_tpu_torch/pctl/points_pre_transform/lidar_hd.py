@@ -6,32 +6,18 @@ stack) on plain numpy dicts — the TPU pipeline's sample is
 ``{"pos": (N,3) f32, "x": (N,F) f32, "y": (N,) i64, "x_features_names": [...]}``.
 
 Copied from ``myria3d_tpu/pctl/points_pre_transform/lidar_hd.py``; imports point at the port.
+The copy's all-float32 column path is gone: ``lidar_hd_pre_transform_rows``,
+the native rows-taking form, builds those records' features bit-equal.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
 COLORS_NORMALIZATION_MAX_VALUE = 255.0 * 256.0
 RETURN_NUMBER_NORMALIZATION_MAX_VALUE = 7.0
-
-
-def _columns_f32(points: np.ndarray):
-    """(n, F) contiguous f32 matrix + name→column map when the record dtype
-    is all-f32 packed (the ``read_las_array_as_float32`` contract), else
-    None. One transposing copy replaces ~12 strided field extractions from
-    the AoS records — the extraction pattern that dominated the per-subtile
-    cook on 1-core hosts (docs/perf_notes.md round 5)."""
-    dt = points.dtype
-    names = dt.names or ()
-    if not names or any(dt.fields[nm][0] != np.float32 for nm in names):
-        return None, None
-    if dt.itemsize != 4 * len(names):
-        return None, None
-    mat = np.ascontiguousarray(
-        points.view(np.float32).reshape(points.shape[0], len(names)).T
-    )
-    return mat, {nm: i for i, nm in enumerate(names)}
 
 
 def lidar_hd_pre_transform(points: np.ndarray) -> dict:
@@ -43,9 +29,6 @@ def lidar_hd_pre_transform(points: np.ndarray) -> dict:
     Intensity, ReturnNumber, NumberOfReturns, Red, Green, Blue, Infrared,
     rgb_avg, ndvi → d_in = 9.
     """
-    mat, col = _columns_f32(points)
-    if mat is not None:
-        return _pre_transform_columns(mat, col)
     pos = np.stack(
         [points["X"], points["Y"], points["Z"]], axis=1
     ).astype(np.float32)
@@ -102,52 +85,22 @@ _X_NAMES = [
 ]
 
 
-def _pre_transform_columns(mat: np.ndarray, col: dict) -> dict:
-    """Same math as the named-array path, on contiguous (F, n) columns:
-    every op streams a cache-resident 1-D array, and ``x`` is assembled by
-    row-writes into one preallocated (9, n) block (transposed at the end,
-    matching ``np.stack``'s layout)."""
-    n = mat.shape[1]
-    pos = np.empty((n, 3), np.float32)
-    pos[:, 0] = mat[col["X"]]
-    pos[:, 1] = mat[col["Y"]]
-    pos[:, 2] = mat[col["Z"]]
+def lidar_hd_pre_transform_rows(points: np.ndarray, idx: np.ndarray) -> Optional[dict]:
+    """``lidar_hd_pre_transform(points[idx])``, bit for bit, built by one
+    native call from the rows ``idx`` of the tile's records in place (no
+    gather; the interpreter lock is released), or None where the native
+    library cannot take the records (no toolchain, a field type it does not
+    read)."""
+    from myria3d_tpu_torch.pctl.native import native_lidar_hd_rows
 
-    rn = mat[col["ReturnNumber"]]
-    occluded = rn > 1
-
-    xb = np.empty((9, n), np.float32)
-    xb[0] = mat[col["Intensity"]]
-    np.divide(rn, np.float32(RETURN_NUMBER_NORMALIZATION_MAX_VALUE), out=xb[1])
-    np.divide(mat[col["NumberOfReturns"]],
-              np.float32(RETURN_NUMBER_NORMALIZATION_MAX_VALUE), out=xb[2])
-    # true divisions, not reciprocal multiplies: 65280 and 7 are not powers
-    # of two, and the named-array path divides — keep the features
-    # bit-identical between the two paths (HDF5 stores them)
+    built = native_lidar_hd_rows(points, idx)
+    if built is None:
+        return None
+    pos, x, y, too_high = built
     for j, color in enumerate(("Red", "Green", "Blue", "Infrared")):
-        if color in col:
-            channel = mat[col[color]]
-            assert channel.size == 0 or channel.max() <= COLORS_NORMALIZATION_MAX_VALUE, (
-                f"{color} max too high!"
-            )
-            np.divide(channel, np.float32(COLORS_NORMALIZATION_MAX_VALUE),
-                      out=xb[3 + j])
-            xb[3 + j][occluded] = 0.0
-        else:
-            xb[3 + j] = 0.0
-    # rgb_avg: (r+g)+b then /3 — the exact op sequence of
-    # np.stack([...]).mean(axis=1) on f32 (umr_sum then true_divide)
-    np.add(xb[3], xb[4], out=xb[7])
-    np.add(xb[7], xb[5], out=xb[7])
-    np.divide(xb[7], np.float32(3.0), out=xb[7])
-    np.subtract(xb[6], xb[3], out=xb[8])
-    denom = xb[6] + xb[3]
-    denom += np.float32(1e-6)
-    np.divide(xb[8], denom, out=xb[8])
+        assert not too_high >> j & 1, f"{color} max too high!"
+    return {"pos": pos, "x": x, "y": y, "x_features_names": list(_X_NAMES)}
 
-    return {
-        "pos": pos,
-        "x": np.ascontiguousarray(xb.T),
-        "y": mat[col["Classification"]].astype(np.int64),
-        "x_features_names": list(_X_NAMES),
-    }
+
+# the rows-taking form, which ``TileSampleStream`` builds its subtiles with
+lidar_hd_pre_transform.from_rows = lidar_hd_pre_transform_rows

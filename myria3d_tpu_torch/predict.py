@@ -98,7 +98,8 @@ def tile_loader(config: dict, tile_points: np.ndarray,
     the tile's points (``tile_points``, as :func:`read_las_array` gives
     them) by the predict transforms. ``timings`` receives the loader
     threads' cook seconds (the span ``pctl.cook``: each subtile's cook and
-    each batch's collate)."""
+    each batch's collate), the tile's binning (``pctl.bin``) and the
+    subtile points cooked (``cook_points``, ``cook_points_native``)."""
     pcfg, dm = config["predict"], config["datamodule"]
     # the sort and the kernels' window are switched on together, so an
     # unsorted cloud never meets a window
@@ -131,9 +132,11 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     timings in seconds, rounded to 2 decimals, and ``n_batches``: the JAX
     package's keys, then the streaming loop's wait on the cooked-batch
     queue (``loader_wait_s``) and its host enqueue (``enqueue_s``), the
-    loader threads' busy seconds (``cook_busy_s``), and the points merged,
-    in all and by the native row scatter (``merge_points``,
-    ``merge_points_native``). Each phase is a span
+    loader threads' busy seconds (``cook_busy_s``), the tile's binning
+    before the first subtile (``bin_s``), the subtile points cooked, in all
+    and by the native rows-and-features call (``cook_points``,
+    ``cook_points_native``), and the points merged, in all and by the native
+    row scatter (``merge_points``, ``merge_points_native``). Each phase is a span
     (``utils.profiling.span``): under a recording ``torch.profiler`` the
     trace shows ``predict.setup``, ``predict.read``, ``predict.stream`` and
     in it ``predict.loader_wait``, ``predict.enqueue``,
@@ -240,9 +243,10 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
             drain()
 
     out_path = itp.reduce_predictions_and_save(src_las, pcfg["output_dir"], dm.get("epsg"))
-    read, stream, wait, enqueue, fetch, merge, cook = (round(sums.get(name, 0.0), 2) for name in (
-        "predict.read", "predict.stream", "predict.loader_wait", "predict.enqueue",
-        "predict.fetch_wait", "predict.merge", "pctl.cook"))
+    read, stream, wait, enqueue, fetch, merge, cook, binning = (
+        round(sums.get(name, 0.0), 2) for name in (
+            "predict.read", "predict.stream", "predict.loader_wait", "predict.enqueue",
+            "predict.fetch_wait", "predict.merge", "pctl.cook", "pctl.bin"))
     log.info(
         "predict phases: tile read %.1fs; streaming %.1fs over %d batches "
         "(%.1fs waiting for the loader, %.1fs enqueueing, %.1fs blocked on the logits "
@@ -256,7 +260,9 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         phases.update(tile_read_s=read, streaming_s=stream, fetch_blocked_s=fetch,
                       merge_s=merge, n_batches=n_batches)
         phases.update({"finalize_" + k: v for k, v in itp.finalize_phases.items()})
-        phases.update(loader_wait_s=wait, enqueue_s=enqueue, cook_busy_s=cook,
+        phases.update(loader_wait_s=wait, enqueue_s=enqueue, cook_busy_s=cook, bin_s=binning,
+                      cook_points=sums.get("cook_points", 0),
+                      cook_points_native=sums.get("cook_points_native", 0),
                       merge_points=itp.merge_counts.get("merge_points", 0),
                       merge_points_native=itp.merge_counts.get("merge_points_native", 0))
     return out_path
