@@ -3388,27 +3388,23 @@ def hold_tile_batch(model, dev, arrays, label: str) -> tuple:
 def merge_ms(logits, idx_list: list, n_points: int) -> str:
     """The Interpolator's merge of one batch into a (tile, C) plane whose
     pages are touched first, the subtiles' indices in the x order that
-    SortPointsByX leaves them in: a subtile at a time through the route
-    without the toolchain (``np.add.at``), then the whole batch through the
-    native scatter; the two planes bit-equal."""
-    from myria3d_tpu_torch.models.interpolation import Interpolator
+    SortPointsByX leaves them in: a subtile at a time through ``np.add.at``,
+    then the whole batch through the one native call that
+    ``Interpolator.store_predictions`` makes; the two planes bit-equal."""
+    from myria3d_tpu_torch.pctl.native import native_scatter_add_rows
 
     planes = [np.ones((n_points, logits.shape[-1]), np.float32) for _ in range(2)]
     rows = [(i, np.asarray(idx, np.int64)) for i, idx in enumerate(idx_list) if idx is not None]
-    itp = Interpolator()
-    times = []
-    for plane, native in zip(planes, (False, True)):
-        t0 = time.perf_counter()
-        if native:
-            itp._merge(plane, [idx for _, idx in rows], [logits[i, :len(idx)] for i, idx in rows])
-        else:
-            for i, idx in rows:
-                Interpolator._scatter_add(plane, idx, logits[i, :len(idx)])
-        times.append((time.perf_counter() - t0) * 1e3)
-    need(itp.merge_counts["merge_points_native"] == sum(len(i) for _, i in rows),
-         "the batch missed the native scatter")
+    t0 = time.perf_counter()
+    for i, idx in rows:
+        np.add.at(planes[0], idx, logits[i, :len(idx)])
+    add_at_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native_scatter_add_rows(planes[1], [idx for _, idx in rows],
+                            [np.ascontiguousarray(logits[i, :len(idx)]) for i, idx in rows])
+    native_ms = (time.perf_counter() - t0) * 1e3
     need(np.array_equal(*planes), "the native scatter's plane differs from np.add.at's")
-    return (f"x order np.add.at {times[0]:.1f} ms, native batch scatter {times[1]:.1f} ms "
+    return (f"x order np.add.at {add_at_ms:.1f} ms, native batch scatter {native_ms:.1f} ms "
             f"(bit-equal), for {sum(len(i) for _, i in rows)} rows")
 
 

@@ -1,4 +1,4 @@
-"""Datamodule feeding fixed-shape padded batches to the train/eval/predict loops.
+"""Datamodule feeding fixed-shape padded batches to the train/eval loops.
 
 Re-design of reference ``myria3d/pctl/datamodule/hdf5.py:24-189`` without
 Lightning. Transform lists compose per phase into validity-guarded
@@ -9,7 +9,9 @@ bucketed point counts.
 
 Copied from ``myria3d_tpu/pctl/datamodule/hdf5.py``; imports point at the
 port. Every loader is sharded over the ranks of the process group, as in
-the JAX package over its processes (``pctl/loader.py``).
+the JAX package over its processes (``pctl/loader.py``). The datamodule
+builds no predict loader: a tile's batches have one builder,
+``predict.tile_loader``.
 """
 
 from __future__ import annotations
@@ -17,9 +19,8 @@ from __future__ import annotations
 from numbers import Number
 from typing import Callable, Dict, List, Optional
 
-from myria3d_tpu_torch.pctl.batching import DEFAULT_BUCKETS
+from myria3d_tpu_torch.pctl.batching import DEFAULT_BUCKETS, bucket_ladder
 from myria3d_tpu_torch.pctl.dataset.hdf5 import HDF5Dataset
-from myria3d_tpu_torch.pctl.dataset.iterable import InferenceDataset
 from myria3d_tpu_torch.pctl.dataset.utils import (
     get_las_paths_by_split_dict,
     pre_filter_below_n_points,
@@ -108,10 +109,6 @@ class HDF5LidarDataModule:
     def eval_transform(self) -> CustomCompose:
         return self._pipeline("eval")
 
-    @property
-    def predict_transform(self) -> CustomCompose:
-        return self._pipeline("predict")
-
     # Legacy attribute views (kept for callers/tests poking the raw lists)
     @property
     def preparation_train_transform(self) -> TRANSFORMS_LIST:
@@ -139,10 +136,7 @@ class HDF5LidarDataModule:
 
     def _build_buckets(self, bucketing: bool, padded_num_points: Optional[int]):
         cap = padded_num_points or self._infer_point_cap() or DEFAULT_BUCKETS[-1]
-        top = _round_up_128(cap)
-        if not bucketing:
-            return (top,)
-        return tuple(b for b in DEFAULT_BUCKETS if b < top) + (top,)
+        return bucket_ladder(cap, bucketing)
 
     def _infer_point_cap(self) -> Optional[int]:
         """Use the MaximumNumNodes/FixedPoints transform cap as the pad cap."""
@@ -189,7 +183,7 @@ class HDF5LidarDataModule:
         return self._dataset
 
     # ------------------------------------------------------------------
-    # Loaders — one factory, four phases
+    # Loaders — one factory, three phases
     # ------------------------------------------------------------------
 
     def _loader(
@@ -219,26 +213,6 @@ class HDF5LidarDataModule:
     def test_dataloader(self) -> PaddedBatchLoader:
         return self._loader(self.dataset.testdata, num_workers=1)
 
-    def predict_dataloader(self) -> PaddedBatchLoader:
-        return self._loader(self.predict_dataset, num_workers=1)
-
-    def _set_predict_data(self, las_file_to_predict: str, points=None) -> None:
-        """``points`` optionally hands the already-read tile array over so
-        the inference stream skips its own full-tile read (the predict
-        pipeline reads the tile exactly once for the stream, the overlap
-        merge, and the output ferry)."""
-        self.predict_dataset = InferenceDataset(
-            las_file_to_predict,
-            self.epsg,
-            points_pre_transform=self.points_pre_transform,
-            pre_filter=self.pre_filter,
-            transform=self.predict_transform,
-            tile_width=self.tile_width,
-            subtile_width=self.subtile_width,
-            subtile_overlap=self.subtile_overlap_predict,
-            points=points,
-        )
-
     def _visualize_graph(self, data: dict, color: Optional[str] = None) -> None:
         """Debug 3-D scatter of one sample (reference ``_visualize_graph``,
         ``pctl/datamodule/hdf5.py:191-228``). Needs matplotlib (optional)."""
@@ -255,7 +229,3 @@ class HDF5LidarDataModule:
         c = data["y"] if color == "y" and "y" in data else None
         ax.scatter(pos[:, 0], pos[:, 1], pos[:, 2], s=1, c=c)
         plt.show()
-
-
-def _round_up_128(n: int) -> int:
-    return ((int(n) + 127) // 128) * 128

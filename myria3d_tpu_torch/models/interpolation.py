@@ -9,9 +9,11 @@ derives probabilities / predicted class codes / entropy and writes them into
 new LAS dimensions with the source header (SRS/scales/offsets) preserved
 (reference PDAL dim-ferry + writer-from-reader-metadata, ``:70-91,176-184``).
 
-Copied from ``myria3d_tpu/models/interpolation.py``; imports point at the port,
-and the overlap merge (``_merge``) is one native call a batch for any index
-order, bit-equal to the original's ``np.add.at``.
+Copied from ``myria3d_tpu/models/interpolation.py``; imports point at the port.
+A tile starts with ``prepare``; each batch's overlap merge
+(``store_predictions``) is one native call for any index order, bit-equal to the original's ``np.add.at``,
+and the softmax, class and entropy are one native pass
+(``pctl.native.native_logits_finalize``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
 from myria3d_tpu_torch.pctl.io.las import write_las
+from myria3d_tpu_torch.pctl.native import native_logits_finalize, native_scatter_add_rows
 from myria3d_tpu_torch.utils import utils
 from myria3d_tpu_torch.utils.profiling import count, span
 
@@ -111,12 +114,10 @@ class Interpolator:
         self.predicted_classification_channel = predicted_classification_channel
         self.entropy_channel = entropy_channel
 
-        self.logits: List[np.ndarray] = []
-        self.idx_in_full_cloud: List[np.ndarray] = []
         self.finalize_phases: Dict[str, float] = {}
-        # points merged since prepare() (or construction), by route
+        # points merged since prepare() ("merge_points")
         self.merge_counts: Dict[str, int] = {}
-        # incremental-merge state (see prepare())
+        # the tile's merge state (see prepare())
         self._nb_points: Optional[int] = None
         self._reduced: Optional[np.ndarray] = None
         self._covered: Optional[np.ndarray] = None
@@ -129,14 +130,11 @@ class Interpolator:
         points: Optional[np.ndarray] = None,
         header=None,
     ) -> None:
-        """Switch to incremental overlap merging for the coming tile.
+        """Start a tile of ``nb_points`` points: the only way in.
 
-        When the tile's point count is known up front (the predict pipeline
-        reads the tile once anyway), each batch's logits are scatter-added
-        into the final (nb_points, C) plane as they arrive — the merge
-        overlaps the device streaming loop instead of running as a
-        serial tail after it, and peak memory drops from two copies of the
-        tile's logits (per-subtile stash + reduced plane) to one.
+        Each batch's logits are scatter-added into the tile's (nb_points, C)
+        plane as they arrive, so the merge overlaps the device streaming
+        loop instead of running as a serial tail after it.
 
         ``points``/``header`` optionally hand over the already-read source
         arrays so ``reduce_predictions_and_save`` skips its own full-tile
@@ -150,56 +148,26 @@ class Interpolator:
         self._header = header
         self.merge_counts = {}
 
-    @staticmethod
-    def _scatter_add(reduced: np.ndarray, idx: np.ndarray, logit: np.ndarray) -> str:
-        """Add ``logit``'s rows into ``reduced[idx]`` without the native
-        library; returns the route taken: "fancy" or "add_at"."""
-        # the vectorized fancy += is right only for unique indices (2.1x
-        # np.add.at at the 17 M-point tile scale, measured): strictly
-        # ascending ones prove it; any other order takes the ufunc scatter
-        if idx.size < 2 or np.all(np.diff(idx) > 0):
-            reduced[idx] += logit.astype(np.float32, copy=False)
-            return "fancy"
-        np.add.at(reduced, idx, logit)
-        return "add_at"
-
-    def _merge(self, reduced: np.ndarray, idxs: List[np.ndarray], logits: List[np.ndarray],
-               covered: Optional[np.ndarray] = None, zero: bool = False) -> None:
-        """Scatter-add a batch's row lists, ``reduced[idxs[i]] += logits[i]``
-        in list order, and mark ``covered[idxs[i]]``; ``zero`` zeroes both
-        first (they come from ``np.empty``). The native scatter takes any
-        index order, repeats included, bit-equal to ``np.add.at``; without
-        the toolchain each list takes ``_scatter_add``. Counted in
-        ``merge_counts``: the points merged (``merge_points``) and those the
-        native scatter took (``merge_points_native``)."""
-        from myria3d_tpu_torch.pctl.native import native_scatter_add_rows
-
-        logits = [np.ascontiguousarray(logit) for logit in logits]
-        native = native_scatter_add_rows(reduced, idxs, logits, covered=covered, zero=zero)
-        if not native:
-            if zero:
-                reduced.fill(0.0)
-                if covered is not None:
-                    covered.fill(False)
-            for idx, logit in zip(idxs, logits):
-                self._scatter_add(reduced, idx, logit)
-                if covered is not None:
-                    covered[idx] = True
-        n = sum(len(idx) for idx in idxs)
-        count(self.merge_counts, "merge_points", n)
-        count(self.merge_counts, "merge_points_native", n if native else 0)
+    def _require_prepared(self) -> None:
+        if self._nb_points is None:
+            raise RuntimeError("Interpolator: call prepare(nb_points) before each tile")
 
     def store_predictions(self, logits, idx_in_original_cloud) -> None:
-        """Keep a batch's per-point full-subtile logits (host side).
+        """Merge a batch's per-point full-subtile logits into the tile's
+        plane, ``reduced[idx] += logits[b, :len(idx)]`` subtile by subtile,
+        and mark ``covered[idx]``, by one native call for the batch: any
+        index order, repeats included, bit-equal to ``np.add.at``. Counts
+        the points merged in ``merge_counts["merge_points"]``.
 
         Args:
             logits: (B, M, C) padded full-cloud logits from ``interp_step``.
             idx_in_original_cloud: list of B int arrays (ragged true lengths).
         """
+        self._require_prepared()
         # the device ships f16 logits to halve the transfer; the native
-        # scatter upcasts in-flight, so only the stash path converts here
+        # scatter upcasts them in flight
         logits = np.asarray(logits)
-        zero = self._nb_points is not None and self._reduced is None
+        zero = self._reduced is None
         if zero:
             # zeroed by the merge's own threads, each its rows in order
             self._reduced = np.empty((self._nb_points, logits.shape[-1]), dtype=np.float32)
@@ -217,29 +185,22 @@ class Interpolator:
                     "points lose their predictions (padded bucket too small)."
                 )
             idxs.append(np.asarray(idx[:n], np.int64))
-            rows.append(logits[b, :n])
-        if self._reduced is not None:
-            self._merge(self._reduced, idxs, rows, covered=self._covered, zero=zero)
-        else:
-            self.logits += [logit.astype(np.float32, copy=False) for logit in rows]
-            self.idx_in_full_cloud += idxs
+            rows.append(np.ascontiguousarray(logits[b, :n]))
+        native_scatter_add_rows(self._reduced, idxs, rows, covered=self._covered, zero=zero)
+        count(self.merge_counts, "merge_points", sum(len(idx) for idx in idxs))
 
     def reduce_predicted_logits(self, nb_points: int) -> np.ndarray:
-        """Merge overlapping subtile predictions by summing logits per
-        original point (reference ``reduce_predicted_logits``, ``:98-121``)."""
-        if self._nb_points is not None:
-            assert nb_points == self._nb_points, (
-                f"prepare() was given {self._nb_points} points but the tile "
-                f"has {nb_points}"
-            )
-            if self._reduced is not None:
-                return self._reduced
-            # prepared but no batch ever arrived
+        """The merged logits: overlapping subtile predictions summed per
+        original point (reference ``reduce_predicted_logits``, ``:98-121``);
+        a zero plane when no batch reached the tile."""
+        self._require_prepared()
+        assert nb_points == self._nb_points, (
+            f"prepare() was given {self._nb_points} points but the tile "
+            f"has {nb_points}"
+        )
+        if self._reduced is None:
             return np.zeros((nb_points, len(self.reverse_mapper)), np.float32)
-        num_classes = self.logits[0].shape[-1] if self.logits else len(self.reverse_mapper)
-        reduced = np.zeros((nb_points, num_classes), dtype=np.float32)
-        self._merge(reduced, self.idx_in_full_cloud, self.logits)
-        return reduced
+        return self._reduced
 
     def reduce_predictions_and_save(
         self, raw_path: str, output_dir: str, epsg: Optional[str] = None
@@ -251,6 +212,7 @@ class Interpolator:
         (coverage closure, softmax/entropy, LAS write; the spans
         ``predict.finalize.coverage``, ``.softmax`` and ``.write``) for the
         predict phase table."""
+        self._require_prepared()
         sums: Dict[str, float] = {}
         with span("predict.finalize.coverage", sums):
             if self._points is not None:
@@ -266,12 +228,7 @@ class Interpolator:
             # (interpolation.py:155-170, explicit NB comments) — that is the
             # default "keep" policy; "nearest" opts into spatial closure from
             # the nearest covered neighbor instead.
-            if self._covered is not None:
-                covered = self._covered
-            else:
-                covered = np.zeros(nb_points, dtype=bool)
-                for idx in self.idx_in_full_cloud:
-                    covered[idx] = True
+            covered = self._covered if self._covered is not None else np.zeros(nb_points, bool)
             n_uncovered = int(nb_points - covered.sum())
             uncov = None
             if n_uncovered == nb_points:
@@ -295,40 +252,14 @@ class Interpolator:
                 else:
                     uncov = np.flatnonzero(~covered)
 
-        # softmax + argmax-map + entropy: fused native single pass when the
-        # toolchain is present, else the numpy chain (same math; the native
-        # kernel's per-row H = log Z + max - sum(p*logit) mirrors the
-        # numpy formulation below bit-for-bit up to libm/fp association)
+        # softmax + argmax-map + entropy in one native pass
         with span("predict.finalize.softmax", sums):
-            from myria3d_tpu_torch.pctl.native import native_logits_finalize
-
-            fused = native_logits_finalize(
+            probas, preds, ent = native_logits_finalize(
                 logits,
                 self.reverse_mapper.astype(np.uint8),
                 want_preds=bool(self.predicted_classification_channel),
                 want_entropy=bool(self.entropy_channel),
             )
-            if fused is not None:
-                probas, preds, ent = fused
-            else:
-                # numerically-stable softmax
-                m = logits.max(axis=1, keepdims=True)
-                e = np.exp(logits - m)
-                z = e.sum(axis=1, keepdims=True)
-                probas = e / z
-                preds = ent = None
-                if self.predicted_classification_channel:
-                    preds = self.reverse_mapper[np.argmax(probas, axis=1)]
-                    preds = preds.astype(np.uint8)
-                if self.entropy_channel:
-                    # H = log Z + max - sum(p * logit): one log over N instead
-                    # of N x C (same value as -sum p log p, exact up to fp assoc)
-                    ent = (
-                        np.log(z[:, 0])
-                        + m[:, 0]
-                        - np.einsum("nc,nc->n", probas, logits)
-                    ).astype(np.float32)
-                    np.maximum(ent, 0.0, out=ent)  # clip fp negatives at one-hot
             if uncov is not None:
                 probas[uncov] = 0.0  # reference: null probabilities
 
@@ -371,9 +302,7 @@ class Interpolator:
         }
         log.info(f"Predictions written to {out_path}")
 
-        # reset accumulators for the next tile
-        self.logits = []
-        self.idx_in_full_cloud = []
+        # the next tile starts with its own prepare()
         self._nb_points = None
         self._reduced = None
         self._covered = None

@@ -43,6 +43,16 @@ DEFAULT_FULL_BUCKETS = (
 _OVERFLOW_QUANTUM = 16384
 
 
+def bucket_ladder(cap: int, bucketing: bool = True) -> tuple:
+    """The padded point-count ladder under a point cap: the cap rounded up
+    to 128 tops ``DEFAULT_BUCKETS``' smaller entries, or stands alone
+    without ``bucketing``."""
+    top = -(-int(cap) // 128) * 128
+    if not bucketing:
+        return (top,)
+    return tuple(b for b in DEFAULT_BUCKETS if b < top) + (top,)
+
+
 def bucket_size(n: int, buckets: Sequence[int]) -> int:
     """Smallest ladder size >= n; grows past the top entry in coarse
     quanta instead of truncating (silent truncation dropped points'

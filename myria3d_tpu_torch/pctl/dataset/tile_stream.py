@@ -2,13 +2,13 @@
 
 The reference runs this loop twice with two different bodies — once in
 ``create_hdf5`` (``myria3d/pctl/dataset/hdf5.py:242-288``) and once in
-``InferenceDataset.get_iterator`` (``myria3d/pctl/dataset/iterable.py:44-76``).
+its inference dataset's iterator (``myria3d/pctl/dataset/iterable.py:44-76``).
 Here a single ``TileSampleStream`` owns the whole chain
 
     raw points → square subtiles → feature engineering
     (points_pre_transform) → pre_filter → [transform → pre_filter]
 
-and both the offline HDF5 cache builder and the streaming inference dataset
+and both the offline HDF5 cache builder and predict's ``tile_loader``
 iterate it. The per-subtile work (dominated by GridSampling in the
 transform) can be mapped over a thread pool while preserving subtile order —
 numpy/voxel code releases the GIL for its heavy parts, so inference prep
@@ -18,7 +18,9 @@ from the tile's records (the Lidar HD features in one native call that
 releases the GIL, where the records allow it).
 
 Copied from ``myria3d_tpu/pctl/dataset/tile_stream.py``; imports point at the
-port, and the subtiles are built in the pool.
+port, and the subtiles are built in the pool. The JAX package's
+pass-through subclass of it (``pctl/dataset/iterable.py``) has no copy:
+predict's ``tile_loader`` builds this stream directly.
 """
 
 from __future__ import annotations

@@ -153,7 +153,8 @@ def subtile_indices(
     center), membership is computed in a single pass: each point lists the
     few windows it falls in (1 with no overlap, 4 at overlap = width/2).
     The native counting sort reads X/Y from the records as they are (f32 or
-    f64 fields); without it, one lexsort groups the (point, window) pairs.
+    f64 fields); for other X/Y types, one lexsort groups the (point, window)
+    pairs.
     """
     if subtile_overlap < 0:
         raise ValueError("datamodule.subtile_overlap must be positive.")

@@ -430,17 +430,11 @@ def _read_laz_points(path: str, header: LasHeader, dt: np.dtype) -> np.ndarray:
     (pointwise) and 2 (pointwise chunked) with item version 2 — the classic
     LAS 1.2/1.3 point formats 0–3 (+extra bytes)."""
     out = _read_laz_record_bytes(path, header, dt)
-    if out is None:
-        raise RuntimeError(
-            f"{path}: LAZ input needs the native codec, which failed to build"
-        )
     return np.frombuffer(out.tobytes(), dtype=dt)
 
 
-def _read_laz_record_bytes(
-    path: str, header: LasHeader, dt: np.dtype
-) -> Optional[np.ndarray]:
-    """LAZ point block -> flat uint8 record bytes (``None`` = codec absent)."""
+def _read_laz_record_bytes(path: str, header: LasHeader, dt: np.dtype) -> np.ndarray:
+    """LAZ point block -> flat uint8 record bytes."""
     from myria3d_tpu_torch.pctl.native import laz_decompress_points
 
     laszip = _parse_laszip_vlr(header.vlrs)
@@ -549,8 +543,6 @@ def _read_unpacked_native(
     n = header.point_count
     if getattr(header, "_is_laz", False):
         rec_bytes = _read_laz_record_bytes(path, header, dt)
-        if rec_bytes is None:
-            return None
     else:
         mm = np.memmap(path, np.uint8, mode="r")
         start = header._point_offset  # type: ignore[attr-defined]
@@ -567,8 +559,9 @@ def read_las_float32(path: str) -> LasData:
     (reference ``pdal_read_las_array_as_float32``); going through the
     generic f64 named array first would copy the whole tile twice. This
     builds the f32 array straight from the packed records — via the fused
-    thread-parallel C++ record walk (``pctl_native.las_records_to_f32``)
-    when available, else numpy per-field strided copies (same semantics).
+    thread-parallel C++ record walk (``pctl_native.las_unpack_records``)
+    where its field table expresses every column, else numpy per-field
+    strided copies (same semantics).
     """
     header = read_las_header(path)
     dt = _packed_dtype(header)
@@ -803,7 +796,7 @@ def write_las(
 
         fields_tbl, _keep = table
         raw = native_las_pack_records(fields_tbl, n, dt)
-    if raw is None:  # generic numpy path (no toolchain / exotic dtypes)
+    if raw is None:  # generic numpy path (dtypes the pack table cannot express)
         raw = np.zeros(n, dtype=dt)
         sx, sy, sz = header.scales
         ox, oy, oz = header.offsets
@@ -902,10 +895,6 @@ def write_las(
         laz_blob = laz_compress_points(
             raw, n, point_offset, laz_chunk_size, items, layered=layered
         )
-        if laz_blob is None:
-            raise RuntimeError(
-                "LAZ output needs the native codec, which failed to build"
-            )
 
     buf = bytearray(header_size)
     struct.pack_into("<4s", buf, 0, b"LASF")

@@ -1,8 +1,20 @@
 """pctl.native — ctypes loader for the C++ host kernels.
 
-Builds ``pctl_native.cpp`` with g++ on first use; every entry degrades to
-``None`` when no toolchain is available so the pure-numpy fallbacks keep
-working (the transforms pick native automatically when present).
+Builds ``pctl_native.cpp`` (and ``laszip_native.cpp``) with g++ on first
+use. The library is required, as the port's CUDA library is: ``get_lib`` and
+``get_laz_lib`` raise ``RuntimeError`` with g++'s error when they cannot
+build. A wrapper returns None only for an input its C++ cannot take, and the
+caller then takes its numpy route:
+
+- ``native_bin_windows_fields``: X/Y that are not native-order f32/f64, or a
+  window candidate buffer over 8 → the lexsort binning
+  (``pctl/dataset/utils.py::subtile_indices``);
+- ``native_lidar_hd_rows``: a missing or unreadable field → the gather and
+  the numpy features (``pctl/dataset/tile_stream.py``);
+- ``native_grid_sample``: an input the C++ refuses → numpy ``GridSampling``
+  (``pctl/transforms/transforms.py``);
+- the LAS record unpack and pack: field types their tables cannot express →
+  numpy (``pctl/io/las.py``).
 
 Copied from ``myria3d_tpu/pctl/native/__init__.py``; the ``.cpp`` sources
 are copies, the code unchanged (one comment of ``laszip_native.cpp`` names
@@ -28,7 +40,6 @@ import os
 import platform
 import subprocess
 import tempfile
-import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,25 +75,26 @@ def _build_so(src: str, flags: list, timeout: int) -> str:
     return so
 
 
+def _load(src: str, flags: list, timeout: int) -> ctypes.CDLL:
+    """``src`` built for this host and loaded; ``RuntimeError`` with g++'s
+    error when it cannot build."""
+    try:
+        so = _build_so(src, flags, timeout)
+    except (OSError, subprocess.SubprocessError) as e:
+        stderr = getattr(e, "stderr", None) or b""
+        raise RuntimeError(f"g++ could not build {os.path.basename(src)} ({e}):\n"
+                           f"{stderr.decode(errors='replace')}") from e
+    return ctypes.CDLL(so)
+
+
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> Optional[str]:
-    try:
-        return _build_so(_SRC, _FLAGS, 120)
-    except (OSError, subprocess.SubprocessError) as e:
-        warnings.warn(f"pctl_native build failed ({e}); using numpy fallbacks")
-        return None
-
-
-def get_lib() -> Optional[ctypes.CDLL]:
+def get_lib() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    so = _build()
-    if so is None:
-        return None
-    lib = ctypes.CDLL(so)
+    lib = _load(_SRC, _FLAGS, 120)
     lib.grid_sample.restype = ctypes.c_int64
     lib.grid_sample.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
@@ -90,11 +102,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.c_float, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-    ]
-    lib.crop_square.restype = ctypes.c_int64
-    lib.crop_square.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_int32),
     ]
     dp = ctypes.POINTER(ctypes.c_double)
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -158,10 +165,9 @@ def native_grid_sample(
     y: Optional[np.ndarray],
     size: float,
 ) -> Optional[Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray], np.ndarray]]:
-    """(pos_mean, x_mean, y_majority, inverse) or None when unavailable."""
+    """(pos_mean, x_mean, y_majority, inverse), or None when the C++
+    refuses the input."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = pos.shape[0]
     pos_c = np.ascontiguousarray(pos, np.float32)
     fdim = 0 if x is None else int(x.shape[1])
@@ -207,14 +213,12 @@ def native_bin_windows_fields(
 
     Returns (offsets (n_k²+1,) int64 prefix sums over x-major flat window
     ids, indices int64 grouped by window, ascending within each) or None
-    when unavailable or when X/Y are not native-order f32/f64. Membership
+    when X/Y are not native-order f32/f64. Membership
     is the inclusive Chebyshev test ``|coord - center| <= radius`` per axis
     on ``coord - min(coord)`` in f64 — bit-compatible with the numpy path
     in ``pctl/dataset/utils.py``, whatever the thread count.
     """
     lib = get_lib()
-    if lib is None:
-        return None
     fields = points.dtype.fields or {}
     if "X" not in fields or "Y" not in fields or points.ndim != 1:
         return None
@@ -264,12 +268,10 @@ def native_lidar_hd_rows(
     f32, y (n,) int64, a bit mask of the colors, Red first, holding a value
     above 65280), bit-equal to
     ``pctl/points_pre_transform/lidar_hd.py::lidar_hd_pre_transform(points[idx])``.
-    Releases the interpreter lock. None when the library is unavailable,
-    a field other than a color is missing, or a field is not a native-order
-    integer of up to 32 bits, f32 or f64."""
+    Releases the interpreter lock. None when a field other than a color is
+    missing, or a field is not a native-order integer of up to 32 bits, f32
+    or f64."""
     lib = get_lib()
-    if lib is None:
-        return None
     fields = points.dtype.fields or {}
     if points.ndim != 1:
         return None
@@ -309,16 +311,11 @@ _LAZ_SRC = os.path.join(_DIR, "laszip_native.cpp")
 _laz_lib: Optional[ctypes.CDLL] = None
 
 
-def get_laz_lib() -> Optional[ctypes.CDLL]:
+def get_laz_lib() -> ctypes.CDLL:
     global _laz_lib
     if _laz_lib is not None:
         return _laz_lib
-    try:
-        laz_so = _build_so(_LAZ_SRC, ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"], 180)
-    except (OSError, subprocess.SubprocessError) as e:
-        warnings.warn(f"laszip_native build failed ({e}); LAZ unavailable")
-        return None
-    lib = ctypes.CDLL(laz_so)
+    lib = _load(_LAZ_SRC, ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"], 180)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
     lib.laz_decompress.restype = ctypes.c_int64
@@ -350,18 +347,15 @@ def laz_decompress_points(
     chunk_size: int,
     items: "list[tuple[int, int]]",
     layered: bool = False,
-) -> Optional[np.ndarray]:
+) -> np.ndarray:
     """Decode a chunked LAZ point block → raw point-record bytes.
 
     ``items`` is the laszip VLR item list as (type, size) pairs;
     ``layered=True`` selects the compressor-3 (LAS 1.4 point formats 6+)
     layered decoder. Returns a uint8 array of shape
-    (num_points * point_size,), or None when the native codec is
-    unavailable. Raises ValueError on malformed streams.
+    (num_points * point_size,). Raises ValueError on malformed streams.
     """
     lib = get_laz_lib()
-    if lib is None:
-        return None
     buf = np.frombuffer(file_bytes, np.uint8)
     types = np.asarray([t for t, _ in items], np.int32)
     sizes = np.asarray([s for _, s in items], np.int32)
@@ -395,13 +389,11 @@ def laz_compress_points(
     chunk_size: int,
     items: "list[tuple[int, int]]",
     layered: bool = False,
-) -> Optional[bytes]:
+) -> bytes:
     """Encode raw point records into a chunked LAZ point block (chunk-table
     pointer + chunks + compressed chunk table); ``layered=True`` emits the
     compressor-3 layered container for LAS 1.4 point formats 6+."""
     lib = get_laz_lib()
-    if lib is None:
-        return None
     raw = np.ascontiguousarray(raw_records.view(np.uint8).reshape(-1))
     types = np.asarray([t for t, _ in items], np.int32)
     sizes = np.asarray([s for _, s in items], np.int32)
@@ -440,15 +432,12 @@ def native_las_unpack_records(
     # scale==0.0 -> no affine, else out = (double)v * scale + offset
     out_dtype: np.dtype,        # structured row layout the table targets
     n_threads: int = 0,
-) -> Optional[np.ndarray]:
+) -> np.ndarray:
     """Fused packed-record -> typed-column conversion (thread-parallel).
 
-    Returns an (n,) structured array of ``out_dtype``, or None when the
-    native library is unavailable.
+    Returns an (n,) structured array of ``out_dtype``.
     """
     lib = get_lib()
-    if lib is None:
-        return None
     n_fields = len(fields)
     src_off = np.asarray([f[0] for f in fields], np.int32)
     src_type = np.asarray([f[1] for f in fields], np.int32)
@@ -492,14 +481,11 @@ def native_las_pack_records(
     n: int,
     rec_dtype: np.dtype,
     n_threads: int = 0,
-) -> Optional[np.ndarray]:
+) -> np.ndarray:
     """Fused typed-column -> packed-record conversion (write-side mirror of
     ``native_las_unpack_records``). Returns an (n,) structured array of
-    ``rec_dtype`` (unlisted bytes zero), or None when the native library is
-    unavailable."""
+    ``rec_dtype`` (unlisted bytes zero)."""
     lib = get_lib()
-    if lib is None:
-        return None
     n_fields = len(fields)
     rec_len = rec_dtype.itemsize
     ptrs = (ctypes.c_void_p * n_fields)()
@@ -550,22 +536,21 @@ def native_scatter_add_rows(
     covered: Optional[np.ndarray] = None,  # (N,) bool
     zero: bool = False,
     n_threads: int = 0,
-) -> bool:
+) -> None:
     """For each list i in order, each row r in order: ``plane[idx[i][r]] +=
     src[i][r]`` (f16 upcast in-flight) and ``covered[idx[i][r]] = True``;
     the plane is bit-equal to ``np.add.at`` over the same calls, whatever
     ``n_threads`` (0: from the rows and the machine). Each thread owns a
     range of the plane's rows. ``zero`` zeroes ``plane`` and ``covered``
     first, each thread its own rows, so ``plane`` may come from ``np.empty``.
-    Releases the interpreter lock. Returns False when the native library is
-    unavailable, or the sources are not all f16 or all f32."""
+    Releases the interpreter lock. Raises ``ValueError`` when the sources
+    are not all f16 or all f32."""
     lib = get_lib()
-    if lib is None:
-        return False
     types = {np.dtype(np.float32): 8, np.dtype(np.float16): 10}
     src_type = types.get(src[0].dtype) if len(src) else 8
     if src_type is None or any(s.dtype != src[0].dtype for s in src):
-        return False
+        raise ValueError(f"sources must be all f16 or all f32, got "
+                         f"{sorted({str(s.dtype) for s in src})}")
     n, c = plane.shape
     if not (plane.dtype == np.float32 and plane.flags.c_contiguous):
         raise ValueError("plane must be a C-contiguous float32 (N, C) array")
@@ -590,7 +575,6 @@ def native_scatter_add_rows(
         rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), ctypes.c_int32(len(idx)),
         ctypes.c_int32(src_type), ctypes.c_int32(c), ctypes.c_int32(n_threads),
     )
-    return True
 
 
 def native_logits_finalize(
@@ -603,10 +587,8 @@ def native_logits_finalize(
     """Fused softmax + argmax-map + entropy over merged logits.
 
     Returns (probas (N, C) f32, preds (N,) u8 | None, entropy (N,) f32 |
-    None), or None when the native library is unavailable."""
+    None)."""
     lib = get_lib()
-    if lib is None:
-        return None
     assert logits.flags.c_contiguous and logits.dtype == np.float32
     n, c = logits.shape
     class_map = np.ascontiguousarray(class_map, dtype=np.uint8)
@@ -623,20 +605,3 @@ def native_logits_finalize(
         probas.ctypes.data_as(fp), ctypes.c_int32(n_threads),
     )
     return probas, preds, entropy
-
-
-def native_crop_square(
-    pos: np.ndarray, cx: float, cy: float, half_width: float
-) -> Optional[np.ndarray]:
-    """Indices of points inside the square, or None when unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    pos_c = np.ascontiguousarray(pos, np.float32)
-    out = np.empty(pos.shape[0], np.int32)
-    m = lib.crop_square(
-        _fptr(pos_c), ctypes.c_int64(pos.shape[0]),
-        ctypes.c_float(cx), ctypes.c_float(cy), ctypes.c_float(half_width),
-        _iptr(out),
-    )
-    return out[:m].copy()

@@ -9,8 +9,6 @@
 //                 ties -> smallest code, voxels in lexicographic coord
 //                 order — bit-compatible with the numpy fallback in
 //                 pctl/transforms/transforms.py::GridSampling)
-//   crop_square   2-D Chebyshev ball query (square crop) used for subtile
-//                 extraction (reference pctl/dataset/utils.py:148-153)
 //   bin_windows_* the tile's points binned to the subtile mosaic, read from
 //                 the records in place (pctl/dataset/utils.py::subtile_indices)
 //   lidar_hd_rows a subtile's Lidar HD features from the tile's records
@@ -166,23 +164,6 @@ int64_t grid_sample(const float* pos, const float* x, const int32_t* y,
     run_start = run_end;
   }
   return n_vox;
-}
-
-// Square (Chebyshev) crop: writes indices of points with
-// max(|x-cx|, |y-cy|) <= half_width. Returns the count.
-int64_t crop_square(const float* pos, int64_t n, float cx, float cy,
-                    float half_width, int32_t* out_idx) {
-  int64_t m = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    const float dx = pos[i * 3 + 0] - cx;
-    const float dy = pos[i * 3 + 1] - cy;
-    const float adx = dx < 0 ? -dx : dx;
-    const float ady = dy < 0 ? -dy : dy;
-    if (adx <= half_width && ady <= half_width) {
-      out_idx[m++] = static_cast<int32_t>(i);
-    }
-  }
-  return m;
 }
 
 // ---------------------------------------------------------------------------

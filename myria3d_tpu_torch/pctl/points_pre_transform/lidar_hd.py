@@ -89,7 +89,7 @@ def lidar_hd_pre_transform_rows(points: np.ndarray, idx: np.ndarray) -> Optional
     """``lidar_hd_pre_transform(points[idx])``, bit for bit, built by one
     native call from the rows ``idx`` of the tile's records in place (no
     gather; the interpreter lock is released), or None where the native
-    library cannot take the records (no toolchain, a field type it does not
+    call cannot take the records (a missing field, a field type it does not
     read)."""
     from myria3d_tpu_torch.pctl.native import native_lidar_hd_rows
 

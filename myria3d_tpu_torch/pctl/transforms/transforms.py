@@ -327,10 +327,8 @@ class GridSampling(Transform):
             and isinstance(item, np.ndarray) and item.shape
             and item.shape[0] == n
         ]
-        try:
-            from myria3d_tpu_torch.pctl.native import native_grid_sample
-        except Exception:
-            return None
+        from myria3d_tpu_torch.pctl.native import native_grid_sample
+
         res = native_grid_sample(pos, x, y if has_y else None, self.size)
         if res is None:
             return None

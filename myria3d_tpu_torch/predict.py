@@ -42,8 +42,13 @@ import torch
 
 from myria3d_tpu_torch.models.interpolation import Interpolator
 from myria3d_tpu_torch.parallel import auto_parallel
-from myria3d_tpu_torch.pctl.batching import DEFAULT_BUCKETS, pad_full_cloud, pad_sampled_pos
-from myria3d_tpu_torch.pctl.dataset.iterable import InferenceDataset
+from myria3d_tpu_torch.pctl.batching import (
+    DEFAULT_BUCKETS,
+    bucket_ladder,
+    pad_full_cloud,
+    pad_sampled_pos,
+)
+from myria3d_tpu_torch.pctl.dataset.tile_stream import TileSampleStream
 from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
 from myria3d_tpu_torch.pctl.loader import BackgroundIterator, PaddedBatchLoader
 from myria3d_tpu_torch.pctl.transforms.compose import CustomCompose
@@ -79,17 +84,14 @@ def predict_device(config: dict, device: Any = None) -> torch.device:
 
 
 def _buckets(dm: dict, stages: list) -> tuple:
-    """Padded point-count ladder (``HDF5LidarDataModule._build_buckets``):
-    the MaximumNumNodes cap rounded up to 128 tops the default ladder."""
+    """Padded point-count ladder under ``padded_num_points``, else the
+    predict stages' MaximumNumNodes/FixedPoints cap."""
     cap = dm.get("padded_num_points")
     if not cap:
         cap = next((int(t.num) for t in stages
                     if type(t).__name__ in ("MaximumNumNodes", "FixedPoints")),
                    DEFAULT_BUCKETS[-1])
-    top = -(-int(cap) // 128) * 128
-    if not dm.get("bucketing", True):
-        return (top,)
-    return tuple(b for b in DEFAULT_BUCKETS if b < top) + (top,)
+    return bucket_ladder(cap, dm.get("bucketing", True))
 
 
 def tile_loader(config: dict, tile_points: np.ndarray,
@@ -108,19 +110,20 @@ def tile_loader(config: dict, tile_points: np.ndarray,
     if int(pcfg.get("sorted_window", 0) or 0) > 0:
         stages.append(SortPointsByX())
     stages += [instantiate(t) for t in transforms["normalizations_list"]]
-    dataset = InferenceDataset(
+    dataset = TileSampleStream(
         pcfg["src_las"], dm.get("epsg"),
-        points_pre_transform=instantiate(port_targets(dm["points_pre_transform"])),
-        pre_filter=instantiate(port_targets(dm.get("pre_filter"))),
-        transform=CustomCompose(stages),
         tile_width=dm.get("tile_width", 1000),
         subtile_width=dm.get("subtile_width", 50),
         subtile_overlap=dm.get("subtile_overlap_predict", 0),
+        points_pre_transform=instantiate(port_targets(dm["points_pre_transform"])),
+        pre_filter=instantiate(port_targets(dm.get("pre_filter"))),
+        transform=CustomCompose(stages),
+        # this pool cooks the subtiles, and paces the tile (PERF.md §5)
+        workers=3,
         points=tile_points, timings=timings,
     )
     return PaddedBatchLoader(
-        dataset, batch_size=dm["batch_size"], num_workers=1,
-        prefetch_factor=dm.get("prefetch_factor", 2), buckets=_buckets(dm, stages),
+        dataset, batch_size=dm["batch_size"], buckets=_buckets(dm, stages),
         process_index=0, process_count=1, timings=timings,
     )
 
@@ -135,8 +138,9 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     loader threads' busy seconds (``cook_busy_s``), the tile's binning
     before the first subtile (``bin_s``), the subtile points cooked, in all
     and by the native rows-and-features call (``cook_points``,
-    ``cook_points_native``), and the points merged, in all and by the native
-    row scatter (``merge_points``, ``merge_points_native``). Each phase is a span
+    ``cook_points_native``), and the points merged (``merge_points``, and
+    ``merge_points_native``, its equal: every merge is the native row
+    scatter). Each phase is a span
     (``utils.profiling.span``): under a recording ``torch.profiler`` the
     trace shows ``predict.setup``, ``predict.read``, ``predict.stream`` and
     in it ``predict.loader_wait``, ``predict.enqueue``,
@@ -254,6 +258,7 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         read, stream, n_batches, wait, enqueue, fetch, merge, sum(itp.finalize_phases.values()),
     )
     if phases is not None:
+        merged = itp.merge_counts.get("merge_points", 0)
         # myria3d_tpu/predict.py:183-195: the JAX package's keys (the
         # Interpolator's finalize_* phases among them), then the port's spans
         # and merge counters
@@ -263,6 +268,5 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         phases.update(loader_wait_s=wait, enqueue_s=enqueue, cook_busy_s=cook, bin_s=binning,
                       cook_points=sums.get("cook_points", 0),
                       cook_points_native=sums.get("cook_points_native", 0),
-                      merge_points=itp.merge_counts.get("merge_points", 0),
-                      merge_points_native=itp.merge_counts.get("merge_points_native", 0))
+                      merge_points=merged, merge_points_native=merged)
     return out_path

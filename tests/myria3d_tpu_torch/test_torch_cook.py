@@ -44,11 +44,6 @@ CKPT = os.path.join(REPO, "trained_model_assets", "randlanet_toy_V0.5.0_torch")
 N_POINTS, EXTENT, SUBTILE = 20_000, 100.0, 50.0
 
 
-def _native_or_skip():
-    if native_mod.get_lib() is None:
-        pytest.skip("no C++ toolchain for pctl_native")
-
-
 @pytest.fixture(scope="module")
 def tile(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("tile") / "production_tile.las")
@@ -89,7 +84,6 @@ def _grid_records(n, layout, seed=0):
 @pytest.mark.parametrize("layout", ["f64", "f32"])
 def test_field_binning_equals_the_staged_scan(tile, layout, overlap):
     """The tile's records, f64 (unaligned 52-byte records) or f32."""
-    _native_or_skip()
     points = _layout(tile, layout)
     assert points.dtype["X"] == np.dtype("<f8" if layout == "f64" else "<f4")
     centers, offsets, indices = _reference_windows(points, EXTENT, overlap)
@@ -104,7 +98,6 @@ def test_field_binning_equals_the_staged_scan(tile, layout, overlap):
 def test_threaded_binning_keeps_each_window_ascending(layout, overlap):
     """2^20 + 12 345 records on a 0.5 m grid (borders hit), binned by
     several threads: the same offsets and indices as the staged scan."""
-    _native_or_skip()
     points = _grid_records((1 << 20) + 12_345, layout)
     centers, offsets, indices = _reference_windows(points, 200.0, overlap)
     got = native_mod.native_bin_windows_fields(points, centers, SUBTILE // 2, SUBTILE - overlap)
@@ -116,11 +109,11 @@ def test_threaded_binning_keeps_each_window_ascending(layout, overlap):
 @pytest.mark.parametrize("layout", ["f64", "f32"])
 def test_subtile_indices_equal_the_numpy_route(tile, layout, overlap, monkeypatch):
     """``subtile_indices`` on the native counting sort and on the numpy
-    lexsort (no library) give the same subtiles, in the same order."""
-    _native_or_skip()
+    lexsort (the route for X/Y the native call refuses: its wrapper
+    returning None) give the same subtiles, in the same order."""
     points = _layout(tile, layout)
     native = subtile_indices(points, EXTENT, SUBTILE, overlap)
-    monkeypatch.setattr(native_mod, "get_lib", lambda: None)
+    monkeypatch.setattr(native_mod, "native_bin_windows_fields", lambda *a: None)
     plain = subtile_indices(points, EXTENT, SUBTILE, overlap)
     assert len(native) == len(plain) == {0: 4, 25: 9}[overlap]
     for a, b in zip(native, plain):
@@ -154,7 +147,6 @@ def test_native_rows_are_bit_equal_to_the_gathered_transform(tile, tmp_path, rec
     """Every subtile of the tile, a permuted subset with repeats, and a
     single row: ``lidar_hd_pre_transform_rows(points, idx)`` is
     ``lidar_hd_pre_transform(points[idx])`` bit for bit."""
-    _native_or_skip()
     if records == "all_f32":
         points = read_las_array_as_float32(tile, None)[0]
     elif records == "format7_no_infrared":
@@ -181,7 +173,6 @@ def test_native_rows_are_bit_equal_to_the_gathered_transform(tile, tmp_path, rec
 
 
 def test_a_color_above_65280_raises_the_transforms_error(tile):
-    _native_or_skip()
     points = read_las_array(tile, None)[0]
     idx = subtile_indices(points, EXTENT, SUBTILE, 0)[1]
     points["Blue"][idx[7]] = 65281
@@ -193,7 +184,6 @@ def test_a_color_above_65280_raises_the_transforms_error(tile):
 
 def test_records_the_call_cannot_read_fall_back(tile):
     """A 64-bit integer field, a missing Intensity, a big-endian X: None."""
-    _native_or_skip()
     points = read_las_array(tile, None)[0]
     idx = np.arange(10)
     wide = points.astype([(n, "<i8" if n == "Classification" else points.dtype[n])
@@ -244,16 +234,18 @@ def _samples(tile, overlap, workers):
 def test_samples_and_counters_match_the_numpy_route(tile, overlap, workers, monkeypatch):
     """The predict transforms' ``TileSampleStream`` samples, every key
     (``idx_in_original_cloud`` and ``copies`` among them), byte-equal
-    with the library and without it (``get_lib`` None: the lexsort
-    binning, the gather and the numpy features). ``cook_points`` counts
-    every subtile point; ``cook_points_native`` all of them with the
-    library, none without."""
-    _native_or_skip()
+    on the native cook and on the numpy route that inputs the native calls
+    refuse take (their wrappers returning None: the lexsort binning, the
+    gather, the numpy features and numpy GridSampling). ``cook_points``
+    counts every subtile point; ``cook_points_native`` all of them on the
+    native cook, none on the numpy route."""
     native, counted, points = _samples(tile, overlap, workers)
     total = sum(len(i) for i in subtile_indices(points, EXTENT, SUBTILE, overlap))
     assert counted["cook_points"] == counted["cook_points_native"] == total
     assert counted["pctl.bin"] > 0 and counted["pctl.cook"] > 0
-    monkeypatch.setattr(native_mod, "get_lib", lambda: None)
+    monkeypatch.setattr(native_mod, "native_bin_windows_fields", lambda *a: None)
+    monkeypatch.setattr(native_mod, "native_lidar_hd_rows", lambda *a: None)
+    monkeypatch.setattr(native_mod, "native_grid_sample", lambda *a: None)
     plain, counted, _ = _samples(tile, overlap, workers)
     assert counted["cook_points"] == total and counted["cook_points_native"] == 0
     assert len(native) == len(plain) == {0: 4, 25: 9}[overlap]
@@ -266,7 +258,6 @@ def test_predict_writes_the_same_file_on_both_cook_routes(tile, tmp_path, monkey
     cook (the binning's and the features' native calls refused; the merge
     and the writer native on both): the same batches, the same phases'
     counts and the same output LAS, byte for byte."""
-    _native_or_skip()
     outs, batches = {}, {}
     for route in ("native", "numpy"):
         if route == "numpy":

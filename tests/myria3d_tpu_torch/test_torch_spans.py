@@ -1,7 +1,7 @@
 """The port's spans and counters (``utils/profiling.py``): a span sums its
 wall time and, only under a profiler recording its thread, shows on the
 profiler's timeline; sums and counts from many threads add up exactly; the
-merge counts its points by route; and a profiled ``train_step`` is the
+merge counts its points; and a profiled ``train_step`` is the
 root span ``model.train_step`` with ``model.forward``, ``model.backward``
 and ``model.optimizer`` in it."""
 
@@ -105,50 +105,23 @@ def test_sums_and_counts_from_many_threads_add_up_exactly(monkeypatch):
     assert sums == {"pctl.cook": float(n_threads * n_spans), "merge_points": n_threads * n_spans}
 
 
-def _native_row_scatter() -> bool:
-    from myria3d_tpu_torch.pctl.native import native_scatter_add_rows
-
-    return native_scatter_add_rows(np.zeros((4, 2), np.float32), [np.arange(2)],
-                                   [np.ones((2, 2), np.float16)])
-
-
-@pytest.mark.parametrize("order,native", [("ascending", True), ("ascending", False),
-                                          ("unsorted", True), ("unsorted", False),
+@pytest.mark.parametrize("order,native", [("ascending", True), ("unsorted", True),
                                           ("duplicated", True)])
-def test_the_merge_counts_its_points_by_route(order, native, monkeypatch):
-    """Every index order takes the native scatter, a batch a call; without
-    the toolchain ascending indices take the vectorised += and any other
-    order ``np.add.at``, a subtile a call. ``merge_points`` counts every
-    point merged, ``merge_points_native`` the native route's, and the plane
-    is the sum whatever the route."""
-    from myria3d_tpu_torch.pctl import native as native_mod
-
-    if not native:
-        monkeypatch.setattr(native_mod, "native_scatter_add_rows", lambda *a, **k: False)
-    want_route = ("native" if native and _native_row_scatter()
-                  else "fancy" if order == "ascending" else "add_at")
+def test_the_merge_counts_its_points_by_route(order, native):
+    """Every index order takes the native scatter, a batch a call (the one
+    route, which ``native`` names). ``merge_points`` counts every point
+    merged, and the plane is the sum."""
     rng = np.random.default_rng(0)
     n_points, rows = 500, [120, 80, 60]
     idx = [np.sort(rng.choice(n_points, n, replace=order == "duplicated")) for n in rows]
     if order != "ascending":
         idx = [rng.permutation(i) for i in idx]
     logits = rng.normal(size=(len(rows), max(rows), 3)).astype(np.float16)
-    routes = []
-    scatter = Interpolator._scatter_add
-
-    def spy(*args):
-        routes.append(scatter(*args))
-        return routes[-1]
-
-    monkeypatch.setattr(Interpolator, "_scatter_add", staticmethod(spy))
     itp = Interpolator(classification_dict={1: "a", 2: "b", 3: "c"})
     itp.prepare(n_points)
     itp.store_predictions(logits, idx)
     itp.store_predictions(logits, idx)
-    assert routes == ([] if want_route == "native" else [want_route] * 6)
-    assert itp.merge_counts == {
-        "merge_points": 2 * sum(rows),
-        "merge_points_native": 2 * sum(rows) if want_route == "native" else 0}
+    assert itp.merge_counts == {"merge_points": 2 * sum(rows)}
     want = np.zeros((n_points, 3), np.float32)
     for b, i in enumerate(idx):
         np.add.at(want, i, 2 * logits[b, :len(i)].astype(np.float32))
