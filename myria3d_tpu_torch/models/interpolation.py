@@ -12,8 +12,9 @@ new LAS dimensions with the source header (SRS/scales/offsets) preserved
 Copied from ``myria3d_tpu/models/interpolation.py``; imports point at the port.
 A tile starts with ``prepare``; each batch's overlap merge
 (``store_predictions``) is one native call for any index order, bit-equal to the original's ``np.add.at``,
-and the softmax, class and entropy are one native pass
-(``pctl.native.native_logits_finalize``).
+and the softmax, class and entropy go with the record pack into one native
+pass whose threads write the output file
+(``pctl.io.las.write_las_predictions``), byte for byte the original's file.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 
 from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
-from myria3d_tpu_torch.pctl.io.las import write_las
-from myria3d_tpu_torch.pctl.native import native_logits_finalize, native_scatter_add_rows
+from myria3d_tpu_torch.pctl.io.las import write_las_predictions
+from myria3d_tpu_torch.pctl.native import native_scatter_add_rows
 from myria3d_tpu_torch.utils import utils
 from myria3d_tpu_torch.utils.profiling import count, span
 
@@ -115,6 +116,9 @@ class Interpolator:
         self.entropy_channel = entropy_channel
 
         self.finalize_phases: Dict[str, float] = {}
+        # the finalize pass's seconds in its writes, averaged over its
+        # threads, and their count ("write_io_s", "write_threads")
+        self.write_stats: Dict[str, float] = {}
         # points merged since prepare() ("merge_points")
         self.merge_counts: Dict[str, int] = {}
         # the tile's merge state (see prepare())
@@ -208,10 +212,14 @@ class Interpolator:
         """Derive channels from merged logits and write the output LAS
         (reference ``reduce_predictions_and_save``, ``:123-186``).
 
-        Fills ``self.finalize_phases`` with the phase wall-times
-        (coverage closure, softmax/entropy, LAS write; the spans
-        ``predict.finalize.coverage``, ``.softmax`` and ``.write``) for the
-        predict phase table."""
+        Fills ``self.finalize_phases`` with the phase wall-times for the
+        predict phase table: the spans ``predict.finalize.coverage`` (the
+        coverage closure), ``.softmax`` (the new dims and the class map) and
+        ``.write`` (the one pass that computes the softmax, class and
+        entropy, packs the records and writes them, and the publish); and
+        ``self.write_stats`` with the pass's seconds in its writes, averaged
+        over its threads, and their count (``write_io_s``,
+        ``write_threads``)."""
         self._require_prepared()
         sums: Dict[str, float] = {}
         with span("predict.finalize.coverage", sums):
@@ -252,54 +260,40 @@ class Interpolator:
                 else:
                     uncov = np.flatnonzero(~covered)
 
-        # softmax + argmax-map + entropy in one native pass
         with span("predict.finalize.softmax", sums):
-            probas, preds, ent = native_logits_finalize(
-                logits,
-                self.reverse_mapper.astype(np.uint8),
-                want_preds=bool(self.predicted_classification_channel),
-                want_entropy=bool(self.entropy_channel),
-            )
-            if uncov is not None:
-                probas[uncov] = 0.0  # reference: null probabilities
+            # the new dims in write_las's order (a name given twice keeps its
+            # first place and its last kind): probabilities, class, entropy
+            class_names = list(self.classification_dict.values())
+            channels: Dict[str, Union[int, str]] = {
+                name: class_names.index(name) for name in self.probas_to_save}
+            if self.predicted_classification_channel:
+                channels[self.predicted_classification_channel] = "class"
+            if self.entropy_channel:
+                channels[self.entropy_channel] = "entropy"
+            class_map = self.reverse_mapper.astype(np.uint8)
 
-        extra_columns: Dict[str, np.ndarray] = {}
-        class_names = list(self.classification_dict.values())
-        for name in self.probas_to_save:
-            ci = class_names.index(name)
-            extra_columns[name] = probas[:, ci]
-        if preds is not None:
-            if uncov is not None and "Classification" in (
-                points.dtype.names or ()
-            ):
-                # reference: unpredicted points keep their original class
-                preds[uncov] = points["Classification"][uncov].astype(np.uint8)
-            extra_columns[self.predicted_classification_channel] = preds
-        if ent is not None:
-            if uncov is not None:
-                ent[uncov] = 0.0  # reference: null entropy
-            extra_columns[self.entropy_channel] = ent
-
+        # softmax, class code and entropy, packed with the points' records
+        # and written by the pass's threads (reference: null probabilities
+        # and entropy and the original class where no subtile predicted)
         with span("predict.finalize.write", sums):
             os.makedirs(output_dir, exist_ok=True)
             out_path = os.path.join(output_dir, os.path.basename(raw_path))
             # atomic publish: an existing output file is always complete, so
             # predict.resume can trust it (a preemption mid-write leaves only
             # the temp file, overwritten on the redo). The temp name keeps the
-            # original suffix — write_las picks LAZ compression by extension.
-            # The new dims ride as extra_columns so no intermediate widened
-            # record array is ever built (one less full-tile strided ferry).
+            # original suffix — the writer picks LAZ compression by extension.
             tmp_path = os.path.join(
                 output_dir, ".tmp." + os.path.basename(raw_path)
             )
-            write_las(
-                tmp_path, points, header=header, extra_dims="all",
-                extra_columns=extra_columns,
+            io_s, threads = write_las_predictions(
+                tmp_path, points, header, logits, covered if uncov is not None else None,
+                class_map, channels,
             )
             os.replace(tmp_path, out_path)
         self.finalize_phases = {
             name.rsplit(".", 1)[1] + "_s": round(t, 2) for name, t in sums.items()
         }
+        self.write_stats = {"write_io_s": round(io_s, 2), "write_threads": threads}
         log.info(f"Predictions written to {out_path}")
 
         # the next tile starts with its own prepare()

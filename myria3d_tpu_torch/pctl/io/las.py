@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -37,6 +37,7 @@ __all__ = [
     "read_las",
     "read_las_header",
     "write_las",
+    "write_las_predictions",
     "ExtraDim",
     "has_srs",
     "get_epsg_from_vlrs",
@@ -722,6 +723,199 @@ def _native_pack_table(
     return fields, keep
 
 
+@dataclasses.dataclass
+class _Layout:
+    """A LAS file's record layout, VLRs and version: everything of it but
+    what its points' values decide (bounds and return counts)."""
+
+    dt: np.dtype
+    new_extra: List[ExtraDim]
+    vlrs: List[LasVLR]
+    version: Tuple[int, int]
+    header_size: int
+    vlr_bytes: bytes
+    as_laz: bool
+
+    @property
+    def point_offset(self) -> int:
+        return self.header_size + len(self.vlr_bytes)
+
+
+def _layout(
+    path: str,
+    points: np.ndarray,
+    header: LasHeader,
+    extra_dims: str,
+    columns: Dict[str, np.dtype],
+) -> _Layout:
+    """The layout ``write_las`` gives ``points`` with extra-bytes dims of
+    ``columns`` (name -> dtype): the points' own non-standard fields first
+    (with ``extra_dims="all"``; a column of the same name replaces one),
+    then the columns in order. LAZ when ``path`` ends in ``.laz``."""
+    fmt = header.point_format
+    std_names = {n for n, _ in _FMT_FIELDS[fmt]} | {
+        "X", "Y", "Z", "ReturnNumber", "NumberOfReturns",
+        "ScanDirectionFlag", "EdgeOfFlightLine", "Classification",
+    }
+    std_names -= {"X_raw", "Y_raw", "Z_raw", "flags", "returns", "raw_classification"}
+
+    new_extra: List[ExtraDim] = []
+    if extra_dims == "all":
+        for name in points.dtype.names or ():
+            if name not in std_names and name not in columns:
+                d = points.dtype[name]
+                if d.kind == "V":
+                    continue
+                new_extra.append(ExtraDim(name, d))
+    new_extra += [ExtraDim(name, dtype) for name, dtype in columns.items()]
+
+    fields = list(_FMT_FIELDS[fmt]) + [(d.name, d.dtype.str) for d in new_extra]
+    dt = np.dtype(fields)
+
+    # VLRs: carry over source VLRs, replacing any existing extra-bytes VLR
+    # with one describing the dims actually written, and dropping any stale
+    # laszip VLR (re-added below when actually writing LAZ).
+    vlrs = [
+        v for v in header.vlrs
+        if not (v.user_id == "LASF_Spec" and v.record_id == 4)
+        and v.user_id != _LASZIP_USER_ID
+    ]
+    if new_extra:
+        vlrs.append(
+            LasVLR(
+                "LASF_Spec", 4, "Extra Bytes Records",
+                b"".join(d.descriptor() for d in new_extra),
+            )
+        )
+
+    as_laz = path.lower().endswith(".laz")
+    if as_laz:
+        if fmt not in _LAZ_ITEMS_BY_FORMAT:
+            raise NotImplementedError(
+                f"LAZ write supports point formats 0-3 and 6-8 (got {fmt})"
+            )
+        extra_len = dt.itemsize - _STANDARD_SIZES[fmt]
+        vlrs.append(_make_laszip_vlr(fmt, extra_len, LAZ_CHUNK_SIZE))
+
+    major, minor = header.version
+    if (major, minor) not in _HEADER_SIZES:
+        major, minor = (1, 4) if fmt >= 6 else (1, 2)
+    if fmt >= 6 and (major, minor) < (1, 4):
+        major, minor = 1, 4
+    return _Layout(dt=dt, new_extra=new_extra, vlrs=vlrs, version=(major, minor),
+                   header_size=_HEADER_SIZES[(major, minor)],
+                   vlr_bytes=b"".join(v.packed() for v in vlrs), as_laz=as_laz)
+
+
+def _pack_numpy(
+    points: np.ndarray,
+    header: LasHeader,
+    dt: np.dtype,
+    extra_sources: Dict[str, np.ndarray],
+) -> np.ndarray:
+    """The records of ``dt`` by numpy column assignments: the route for
+    dtypes the native pack table cannot express. Extra dims not in
+    ``extra_sources`` stay zero."""
+    fmt = header.point_format
+    n = len(points)
+
+    def col(name: str, default: int = 0) -> np.ndarray:
+        if name in (points.dtype.names or ()):
+            return points[name]
+        return np.full(n, default)
+
+    raw = np.zeros(n, dtype=dt)
+    sx, sy, sz = header.scales
+    ox, oy, oz = header.offsets
+    raw["X_raw"] = np.round((points["X"] - ox) / sx).astype(np.int64)
+    raw["Y_raw"] = np.round((points["Y"] - oy) / sy).astype(np.int64)
+    raw["Z_raw"] = np.round((points["Z"] - oz) / sz).astype(np.int64)
+
+    raw["Intensity"] = col("Intensity")
+    rn = np.asarray(col("ReturnNumber", 1)).astype(np.uint8)
+    nr = np.asarray(col("NumberOfReturns", 1)).astype(np.uint8)
+    sd = np.asarray(col("ScanDirectionFlag")).astype(np.uint8)
+    eo = np.asarray(col("EdgeOfFlightLine")).astype(np.uint8)
+    cls = np.asarray(col("Classification")).astype(np.uint8)
+    if fmt < 6:
+        raw["flags"] = (rn & 0x07) | ((nr & 0x07) << 3) | ((sd & 1) << 6) | ((eo & 1) << 7)
+        raw["raw_classification"] = cls & 0x1F
+        raw["ScanAngleRank"] = np.asarray(col("ScanAngleRank")).astype(np.int8)
+    else:
+        raw["returns"] = (rn & 0x0F) | ((nr & 0x0F) << 4)
+        raw["flags"] = ((sd & 1) << 6) | ((eo & 1) << 7)
+        raw["Classification"] = cls
+        raw["ScanAngle"] = np.asarray(col("ScanAngle")).astype(np.int16)
+    raw["UserData"] = col("UserData")
+    raw["PointSourceId"] = col("PointSourceId")
+    for name, _ in _FMT_FIELDS[fmt]:
+        if name in ("GpsTime", "Red", "Green", "Blue", "Infrared") and name in (
+            points.dtype.names or ()
+        ):
+            raw[name] = points[name]
+    for name, values in extra_sources.items():
+        raw[name] = np.asarray(values).astype(dt[name])
+    return raw
+
+
+def _laz_blob(raw: np.ndarray, n: int, fmt: int, lay: _Layout) -> bytes:
+    """The chunked LAZ point block of the packed records ``raw``."""
+    from myria3d_tpu_torch.pctl.native import laz_compress_points
+
+    layered = fmt in _LAYERED_FORMATS
+    items = list(_LAZ_ITEMS_BY_FORMAT[fmt])
+    extra_len = lay.dt.itemsize - _STANDARD_SIZES[fmt]
+    if extra_len > 0:
+        items.append((14 if layered else 0, extra_len))
+    return laz_compress_points(raw, n, lay.point_offset, LAZ_CHUNK_SIZE, items,
+                               layered=layered)
+
+
+def _header_bytes(
+    header: LasHeader,
+    lay: _Layout,
+    n: int,
+    mins: Sequence[float],
+    maxs: Sequence[float],
+    by_return: np.ndarray,
+) -> bytes:
+    """The public header block of a file of ``n`` points in ``lay``, with
+    its bounds and its 15 counts by return number."""
+    fmt = header.point_format
+    major, minor = lay.version
+    legacy_count = n if (n < 2**32 and fmt < 6) else (n if (major, minor) < (1, 4) else (n if n < 2**32 else 0))
+
+    buf = bytearray(lay.header_size)
+    struct.pack_into("<4s", buf, 0, b"LASF")
+    struct.pack_into("<HH", buf, 4, header.file_source_id, header.global_encoding)
+    buf[24] = major
+    buf[25] = minor
+    buf[26:58] = header.system_identifier.encode("ascii", "replace")[:32].ljust(32, b"\0")
+    buf[58:90] = header.generating_software.encode("ascii", "replace")[:32].ljust(32, b"\0")
+    struct.pack_into("<HH", buf, 90, header.creation_doy, header.creation_year)
+    struct.pack_into("<H", buf, 94, lay.header_size)
+    struct.pack_into("<I", buf, 96, lay.point_offset)
+    struct.pack_into("<I", buf, 100, len(lay.vlrs))
+    buf[104] = fmt | (0x80 if lay.as_laz else 0)
+    struct.pack_into("<H", buf, 105, lay.dt.itemsize)
+    struct.pack_into("<I", buf, 107, legacy_count if legacy_count < 2**32 else 0)
+    legacy_by_return = by_return[:5].astype(np.uint32)
+    struct.pack_into("<5I", buf, 111, *legacy_by_return.tolist())
+    struct.pack_into("<3d", buf, 131, *header.scales)
+    struct.pack_into("<3d", buf, 155, *header.offsets)
+    struct.pack_into(
+        "<6d", buf, 179, maxs[0], mins[0], maxs[1], mins[1], maxs[2], mins[2]
+    )
+    if (major, minor) >= (1, 3):
+        struct.pack_into("<Q", buf, 227, 0)  # waveform start
+    if (major, minor) >= (1, 4):
+        struct.pack_into("<Q", buf, 235, 0)  # first EVLR
+        struct.pack_into("<I", buf, 243, 0)  # n EVLRs
+        struct.pack_into("<Q", buf, 247, n)
+        struct.pack_into("<15Q", buf, 255, *by_return.tolist())
+    return bytes(buf)
+
+
 def write_las(
     path: str,
     points: np.ndarray,
@@ -743,131 +937,38 @@ def write_las(
             in insertion order. A name colliding with a points field
             overrides it — the column wins. Lets callers add derived
             channels (probas/classes/entropy) without first building a
-            widened record array (one less full-tile strided copy).
+            widened record array (one less full-tile strided ferry).
     """
     if header is None:
         header = LasHeader()
-    fmt = header.point_format
-    std_names = {n for n, _ in _FMT_FIELDS[fmt]} | {
-        "X", "Y", "Z", "ReturnNumber", "NumberOfReturns",
-        "ScanDirectionFlag", "EdgeOfFlightLine", "Classification",
-    }
-    std_names -= {"X_raw", "Y_raw", "Z_raw", "flags", "returns", "raw_classification"}
-
     extra_columns = extra_columns or {}
-    new_extra: List[ExtraDim] = []
-    if extra_dims == "all":
-        for name in points.dtype.names or ():
-            if name not in std_names and name not in extra_columns:
-                d = points.dtype[name]
-                if d.kind == "V":
-                    continue
-                new_extra.append(ExtraDim(name, d))
     for name, values in extra_columns.items():
-        values = np.asarray(values)
-        if len(values) != len(points):
+        if len(np.asarray(values)) != len(points):
             raise ValueError(
                 f"extra column {name!r} has {len(values)} values for "
                 f"{len(points)} points"
             )
-        new_extra.append(ExtraDim(name, values.dtype))
-
-    fields = list(_FMT_FIELDS[fmt]) + [(d.name, d.dtype.str) for d in new_extra]
-    dt = np.dtype(fields)
-
+    lay = _layout(path, points, header, extra_dims,
+                  {name: np.asarray(v).dtype for name, v in extra_columns.items()})
     n = len(points)
-
-    def col(name: str, default: int = 0) -> np.ndarray:
-        if name in (points.dtype.names or ()):
-            return points[name]
-        return np.full(n, default)
-
-    rn = np.asarray(col("ReturnNumber", 1)).astype(np.uint8)  # by_return too
+    names = points.dtype.names or ()
+    rn = np.asarray(points["ReturnNumber"] if "ReturnNumber" in names
+                    else np.full(n, 1)).astype(np.uint8)  # by_return
 
     extra_sources = {
         d.name: (extra_columns[d.name] if d.name in extra_columns
                  else points[d.name])
-        for d in new_extra
+        for d in lay.new_extra
     }
     raw = None
-    table = _native_pack_table(points, extra_sources, header, dt)
+    table = _native_pack_table(points, extra_sources, header, lay.dt)
     if table is not None:
         from myria3d_tpu_torch.pctl.native import native_las_pack_records
 
         fields_tbl, _keep = table
-        raw = native_las_pack_records(fields_tbl, n, dt)
+        raw = native_las_pack_records(fields_tbl, n, lay.dt)
     if raw is None:  # generic numpy path (dtypes the pack table cannot express)
-        raw = np.zeros(n, dtype=dt)
-        sx, sy, sz = header.scales
-        ox, oy, oz = header.offsets
-        raw["X_raw"] = np.round((points["X"] - ox) / sx).astype(np.int64)
-        raw["Y_raw"] = np.round((points["Y"] - oy) / sy).astype(np.int64)
-        raw["Z_raw"] = np.round((points["Z"] - oz) / sz).astype(np.int64)
-
-        raw["Intensity"] = col("Intensity")
-        nr = np.asarray(col("NumberOfReturns", 1)).astype(np.uint8)
-        sd = np.asarray(col("ScanDirectionFlag")).astype(np.uint8)
-        eo = np.asarray(col("EdgeOfFlightLine")).astype(np.uint8)
-        cls = np.asarray(col("Classification")).astype(np.uint8)
-        if fmt < 6:
-            raw["flags"] = (rn & 0x07) | ((nr & 0x07) << 3) | ((sd & 1) << 6) | ((eo & 1) << 7)
-            raw["raw_classification"] = cls & 0x1F
-            raw["ScanAngleRank"] = np.asarray(col("ScanAngleRank")).astype(np.int8)
-        else:
-            raw["returns"] = (rn & 0x0F) | ((nr & 0x0F) << 4)
-            raw["flags"] = ((sd & 1) << 6) | ((eo & 1) << 7)
-            raw["Classification"] = cls
-            raw["ScanAngle"] = np.asarray(col("ScanAngle")).astype(np.int16)
-        raw["UserData"] = col("UserData")
-        raw["PointSourceId"] = col("PointSourceId")
-        for name, _ in _FMT_FIELDS[fmt]:
-            if name in ("GpsTime", "Red", "Green", "Blue", "Infrared") and name in (
-                points.dtype.names or ()
-            ):
-                raw[name] = points[name]
-        for d in new_extra:
-            if d.name in extra_columns:
-                raw[d.name] = np.asarray(extra_columns[d.name]).astype(d.dtype)
-            else:
-                raw[d.name] = points[d.name].astype(d.dtype)
-
-    # VLRs: carry over source VLRs, replacing any existing extra-bytes VLR
-    # with one describing the dims actually written, and dropping any stale
-    # laszip VLR (re-added below when actually writing LAZ).
-    vlrs = [
-        v for v in header.vlrs
-        if not (v.user_id == "LASF_Spec" and v.record_id == 4)
-        and v.user_id != _LASZIP_USER_ID
-    ]
-    if new_extra:
-        vlrs.append(
-            LasVLR(
-                "LASF_Spec", 4, "Extra Bytes Records",
-                b"".join(d.descriptor() for d in new_extra),
-            )
-        )
-
-    as_laz = path.lower().endswith(".laz")
-    # -1 (VLR U32_MAX) selects variable-size chunking — mainly a test hook
-    # for the reader's variable chunk-table path; production stays at the
-    # laszip default of 50000-point chunks.
-    laz_chunk_size = LAZ_CHUNK_SIZE
-    if as_laz:
-        if fmt not in _LAZ_ITEMS_BY_FORMAT:
-            raise NotImplementedError(
-                f"LAZ write supports point formats 0-3 and 6-8 (got {fmt})"
-            )
-        extra_len = dt.itemsize - _STANDARD_SIZES[fmt]
-        vlrs.append(_make_laszip_vlr(fmt, extra_len, laz_chunk_size))
-
-    major, minor = header.version
-    if (major, minor) not in _HEADER_SIZES:
-        major, minor = (1, 4) if fmt >= 6 else (1, 2)
-    if fmt >= 6 and (major, minor) < (1, 4):
-        major, minor = 1, 4
-    header_size = _HEADER_SIZES[(major, minor)]
-    vlr_bytes = b"".join(v.packed() for v in vlrs)
-    point_offset = header_size + len(vlr_bytes)
+        raw = _pack_numpy(points, header, lay.dt, extra_sources)
 
     if n:
         mins = (points["X"].min(), points["Y"].min(), points["Z"].min())
@@ -881,58 +982,107 @@ def write_las(
         counts = np.bincount(rn_clip, minlength=16)[1:16]
         by_return[: len(counts)] = counts
 
-    legacy_count = n if (n < 2**32 and fmt < 6) else (n if (major, minor) < (1, 4) else (n if n < 2**32 else 0))
-
-    laz_blob: Optional[bytes] = None
-    if as_laz:
-        from myria3d_tpu_torch.pctl.native import laz_compress_points
-
-        layered = fmt in _LAYERED_FORMATS
-        items = list(_LAZ_ITEMS_BY_FORMAT[fmt])
-        extra_len = dt.itemsize - _STANDARD_SIZES[fmt]
-        if extra_len > 0:
-            items.append((14 if layered else 0, extra_len))
-        laz_blob = laz_compress_points(
-            raw, n, point_offset, laz_chunk_size, items, layered=layered
-        )
-
-    buf = bytearray(header_size)
-    struct.pack_into("<4s", buf, 0, b"LASF")
-    struct.pack_into("<HH", buf, 4, header.file_source_id, header.global_encoding)
-    buf[24] = major
-    buf[25] = minor
-    buf[26:58] = header.system_identifier.encode("ascii", "replace")[:32].ljust(32, b"\0")
-    buf[58:90] = header.generating_software.encode("ascii", "replace")[:32].ljust(32, b"\0")
-    struct.pack_into("<HH", buf, 90, header.creation_doy, header.creation_year)
-    struct.pack_into("<H", buf, 94, header_size)
-    struct.pack_into("<I", buf, 96, point_offset)
-    struct.pack_into("<I", buf, 100, len(vlrs))
-    buf[104] = fmt | (0x80 if as_laz else 0)
-    struct.pack_into("<H", buf, 105, dt.itemsize)
-    struct.pack_into("<I", buf, 107, legacy_count if legacy_count < 2**32 else 0)
-    legacy_by_return = by_return[:5].astype(np.uint32)
-    struct.pack_into("<5I", buf, 111, *legacy_by_return.tolist())
-    struct.pack_into("<3d", buf, 131, *header.scales)
-    struct.pack_into("<3d", buf, 155, *header.offsets)
-    struct.pack_into(
-        "<6d", buf, 179, maxs[0], mins[0], maxs[1], mins[1], maxs[2], mins[2]
-    )
-    if (major, minor) >= (1, 3):
-        struct.pack_into("<Q", buf, 227, 0)  # waveform start
-    if (major, minor) >= (1, 4):
-        struct.pack_into("<Q", buf, 235, 0)  # first EVLR
-        struct.pack_into("<I", buf, 243, 0)  # n EVLRs
-        struct.pack_into("<Q", buf, 247, n)
-        struct.pack_into("<15Q", buf, 255, *by_return.tolist())
+    laz_blob = _laz_blob(raw, n, header.point_format, lay) if lay.as_laz else None
+    head = _header_bytes(header, lay, n, mins, maxs, by_return)
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
-        f.write(bytes(buf))
-        f.write(vlr_bytes)
+        f.write(head)
+        f.write(lay.vlr_bytes)
         if laz_blob is not None:
             f.write(laz_blob)
         else:
             raw.tofile(f)
+
+
+# The dtype of each kind of channel write_las_predictions adds.
+_CHANNEL_DTYPES = {"class": np.dtype("u1"), "entropy": np.dtype("<f4")}
+
+
+def write_las_predictions(
+    path: str,
+    points: np.ndarray,
+    header: LasHeader,
+    logits: np.ndarray,
+    covered: Optional[np.ndarray],
+    class_map: np.ndarray,
+    channels: Dict[str, Union[int, str]],
+    n_threads: int = 0,
+) -> Tuple[float, int]:
+    """Write ``points`` with the channels of their merged ``logits`` ((n, C)
+    f32), byte for byte the file ``write_las(path, points, header,
+    extra_columns=...)`` writes from the logits' softmax, class code
+    (``class_map[argmax]``) and entropy, in one native pass whose threads
+    pack the records and write them (``native_las_write_predictions``);
+    the header, built from the bounds and return counts the pass gathers,
+    goes last. A ``.laz`` path takes the records in memory, then the LAZ
+    codec.
+
+    ``channels`` are the new extra-bytes dims in order, each a class index
+    (its probability, f32), ``"class"`` (the class code, u8) or
+    ``"entropy"`` (f32). A point whose ``covered`` is False (``covered``
+    None: every point is covered) gets probability 0 and entropy 0 and
+    keeps its ``Classification``. Returns the seconds the pass's threads
+    spent writing, averaged over them, and their count."""
+    from myria3d_tpu_torch.pctl.native import (
+        NATIVE_TYPE_ENUM, native_las_write_predictions,
+    )
+
+    n = len(points)
+    lay = _layout(path, points, header, "all", {
+        name: _CHANNEL_DTYPES.get(kind, np.dtype("<f4")) for name, kind in channels.items()})
+    own = {d.name: points[d.name] for d in lay.new_extra if d.name not in channels}
+    table = _native_pack_table(points, own, header, lay.dt)
+    if table is None:  # the numpy route packs what the table cannot express
+        fields, base = [], _pack_numpy(points, header, lay.dt, own).view(np.uint8).reshape(-1)
+    else:
+        fields, base = table[0], None
+    offs = {name: lay.dt.fields[name][1] for name in channels}
+    proba_offs = np.full(len(class_map), -1, np.int32)
+    for name, kind in channels.items():
+        if not isinstance(kind, str):
+            proba_offs[kind] = offs[name]
+    kinds = {kind: offs[name] for name, kind in channels.items() if isinstance(kind, str)}
+
+    names = points.dtype.names or ()
+
+    def column(name: str, cast: np.dtype):
+        """(values, stride, type) of the points' column, cast as numpy
+        would where the native enum has no type for it."""
+        v = points[name]
+        code = NATIVE_TYPE_ENUM.get(v.dtype.str.lstrip("<=|"))
+        if code is None:
+            v = np.ascontiguousarray(v, cast)
+            code = NATIVE_TYPE_ENUM[cast.str.lstrip("<=|")]
+        return v, v.strides[0], code
+
+    f64, u8 = np.dtype("<f8"), np.dtype("u1")
+    columns = [column("X", f64), column("Y", f64), column("Z", f64),
+               column("ReturnNumber", u8) if "ReturnNumber" in names
+               else (np.ones(1, np.int64), 0, NATIVE_TYPE_ENUM["i8"]),
+               column("Classification", u8) if "Classification" in names else None]
+    args = (lay.point_offset, fields, base, n, lay.dt.itemsize,
+            np.ascontiguousarray(logits, np.float32), covered, class_map, proba_offs,
+            kinds.get("class", -1), kinds.get("entropy", -1), columns, n_threads)
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if lay.as_laz:
+        raw = np.empty(n * lay.dt.itemsize, np.uint8)
+        mins, maxs, by_return, io_s, threads = native_las_write_predictions(raw, *args)
+        with open(path, "wb") as f:
+            f.write(_header_bytes(header, lay, n, mins, maxs, by_return))
+            f.write(lay.vlr_bytes)
+            f.write(_laz_blob(raw, n, header.point_format, lay))
+        return io_s, threads
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o666)
+    try:
+        mins, maxs, by_return, io_s, threads = native_las_write_predictions(fd, *args)
+        head = memoryview(_header_bytes(header, lay, n, mins, maxs, by_return) + lay.vlr_bytes)
+        while head:  # the header and VLRs, before the records
+            head = head[os.pwrite(fd, head, lay.point_offset - len(head)):]
+    finally:
+        os.close(fd)
+    return io_s, threads
 
 
 # ---------------------------------------------------------------------------

@@ -18,13 +18,17 @@ caller then takes its numpy route:
 
 Copied from ``myria3d_tpu/pctl/native/__init__.py``; the ``.cpp`` sources
 are copies, the code unchanged (one comment of ``laszip_native.cpp`` names
-its test file without a host path) but for the overlap merge and the subtile
-front end: the port's ``scatter_add_rows`` takes a whole batch of row lists
-in any index order, repeats included (``native_scatter_add_rows``); its
-window binning reads f32 or f64 X/Y from the records in place on several
-threads (``native_bin_windows_fields``; the staged (n, 2) f64 route is
-gone); and ``lidar_hd_rows`` builds a subtile's Lidar HD features from the
-tile's records (``native_lidar_hd_rows``). The libraries are built into
+its test file without a host path) but for the overlap merge, the subtile
+front end and the tile's output records: the port's ``scatter_add_rows``
+takes a whole batch of row lists in any index order, repeats included
+(``native_scatter_add_rows``); its window binning reads f32 or f64 X/Y from
+the records in place on several threads (``native_bin_windows_fields``; the
+staged (n, 2) f64 route is gone); ``lidar_hd_rows`` builds a subtile's
+Lidar HD features from the tile's records (``native_lidar_hd_rows``); and
+the softmax, class and entropy of the tile's merged logits go with the
+record pack, the bounds and the return counts into one pass whose threads
+write the output file (``native_las_write_predictions``; the JAX package's
+``logits_finalize`` is gone from the copy). The libraries are built into
 ``build/myria3d_tpu_torch/`` at the repository root instead of beside the
 sources: ``-march=native`` code is right only for the machine that built
 it, so the library name hashes the source, the flags and the host, and a
@@ -143,9 +147,14 @@ def get_lib() -> ctypes.CDLL:
         fp, u8p, ctypes.c_int64, ctypes.c_int32, vpp, vpp, i64p,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
-    lib.logits_finalize.restype = None
-    lib.logits_finalize.argtypes = [
-        fp, ctypes.c_int64, ctypes.c_int32, u8p, u8p, fp, fp, ctypes.c_int32,
+    lib.las_write_predictions.restype = ctypes.c_int32
+    lib.las_write_predictions.argtypes = [
+        ctypes.c_int32, ctypes.c_int64, u8p, u8p,
+        vpp, i64p, i32p, i32p, u64p, dp, dp, i32p, i32p, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_int32,
+        fp, ctypes.c_int32, u8p, u8p, i32p, ctypes.c_int32, ctypes.c_int32,
+        vpp, i64p, i32p, ctypes.c_int64, ctypes.c_int32,
+        dp, u64p, dp, i32p,
     ]
     _lib = lib
     return _lib
@@ -470,6 +479,44 @@ def native_las_unpack_records(
     return out
 
 
+class _PackTable:
+    """A pack table (see ``native_las_pack_records``) as the C arrays
+    ``las_pack_records`` and ``las_write_predictions`` take, checked against
+    the record length. The caller keeps the table's columns alive."""
+
+    def __init__(self, fields, rec_len: int):
+        n_fields = len(fields)
+        self.ptrs = (ctypes.c_void_p * max(n_fields, 1))()
+        for i, f in enumerate(fields):
+            arr = f[0]
+            if f[1] == 0 and arr.size < 1:
+                raise ValueError("broadcast field needs at least one element")
+            if f[7] + _TYPE_SIZE[f[8]] > rec_len:
+                raise ValueError("field table writes past the record length")
+            if f[4] != 0 and f[2] >= 8:
+                raise ValueError("bitfield insert requires an integral source")
+            self.ptrs[i] = arr.__array_interface__["data"][0]
+        self.n = n_fields
+        self.arrays = [
+            np.asarray([f[1] for f in fields], np.int64),    # src_stride
+            np.asarray([f[2] for f in fields], np.int32),    # src_type
+            np.asarray([f[3] for f in fields], np.int32),    # shift
+            np.asarray([f[4] for f in fields], np.uint64),   # mask
+            np.asarray([f[5] for f in fields], np.float64),  # scale
+            np.asarray([f[6] for f in fields], np.float64),  # offset
+            np.asarray([f[7] for f in fields], np.int32),    # dst_off
+            np.asarray([f[8] for f in fields], np.int32),    # dst_type
+        ]
+
+    def args(self) -> list:
+        """The table's arguments, from ``srcs`` to ``n_fields``."""
+        types = (ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64,
+                 ctypes.c_double, ctypes.c_double, ctypes.c_int32, ctypes.c_int32)
+        return [self.ptrs, *(a.ctypes.data_as(ctypes.POINTER(t))
+                             for a, t in zip(self.arrays, types)),
+                ctypes.c_int32(self.n)]
+
+
 def native_las_pack_records(
     fields: "list[tuple[np.ndarray, int, int, int, int, float, float, int, int]]",
     # per record field:
@@ -486,46 +533,11 @@ def native_las_pack_records(
     ``native_las_unpack_records``). Returns an (n,) structured array of
     ``rec_dtype`` (unlisted bytes zero)."""
     lib = get_lib()
-    n_fields = len(fields)
     rec_len = rec_dtype.itemsize
-    ptrs = (ctypes.c_void_p * n_fields)()
-    keep = []  # hold source buffers alive across the call
-    for i, f in enumerate(fields):
-        arr = f[0]
-        if f[1] == 0 and arr.size < 1:
-            raise ValueError("broadcast field needs at least one element")
-        if f[7] + _TYPE_SIZE[f[8]] > rec_len:
-            raise ValueError("field table writes past the record length")
-        if f[4] != 0 and f[2] >= 8:
-            raise ValueError("bitfield insert requires an integral source")
-        keep.append(arr)
-        ptrs[i] = arr.__array_interface__["data"][0]
-    src_stride = np.asarray([f[1] for f in fields], np.int64)
-    src_type = np.asarray([f[2] for f in fields], np.int32)
-    shift = np.asarray([f[3] for f in fields], np.int32)
-    mask = np.asarray([f[4] for f in fields], np.uint64)
-    scale = np.asarray([f[5] for f in fields], np.float64)
-    offset = np.asarray([f[6] for f in fields], np.float64)
-    dst_off = np.asarray([f[7] for f in fields], np.int32)
-    dst_type = np.asarray([f[8] for f in fields], np.int32)
+    table = _PackTable(fields, rec_len)
     out = np.zeros(n * rec_len, dtype=np.uint8)  # zeroed: OR targets + gaps
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    lib.las_pack_records(
-        ptrs,
-        src_stride.ctypes.data_as(i64p),
-        src_type.ctypes.data_as(i32p),
-        shift.ctypes.data_as(i32p),
-        mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        scale.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        offset.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        dst_off.ctypes.data_as(i32p),
-        dst_type.ctypes.data_as(i32p),
-        ctypes.c_int32(n_fields), ctypes.c_int64(n),
-        ctypes.c_int32(rec_len), ctypes.c_int32(n_threads),
-        _u8ptr(out),
-    )
-    del keep
+    lib.las_pack_records(*table.args(), ctypes.c_int64(n), ctypes.c_int32(rec_len),
+                         ctypes.c_int32(n_threads), _u8ptr(out))
     return out.view(rec_dtype)
 
 
@@ -577,31 +589,98 @@ def native_scatter_add_rows(
     )
 
 
-def native_logits_finalize(
-    logits: np.ndarray,       # (N, C) f32, C-contiguous
-    class_map: np.ndarray,    # (C,) u8 — consecutive index -> class code
-    want_preds: bool = True,
-    want_entropy: bool = True,
+# Points a chunk of ``native_las_write_predictions`` (~4.6 MB of the tile's
+# 71-byte records: a thread's buffer stays in its core's share of the cache).
+WRITE_CHUNK = 1 << 16
+
+
+def native_las_write_predictions(
+    sink,                       # an open file descriptor, or an (n * rec_len,) uint8 array
+    point_offset: int,          # the records' byte offset in the file (fd sink)
+    fields,                     # the pack table (see native_las_pack_records)
+    base: Optional[np.ndarray],  # (n * rec_len,) uint8 records packed over, or None (zeros)
+    n: int,
+    rec_len: int,
+    logits: np.ndarray,         # (n, C) f32, C-contiguous: the merged logits
+    covered: Optional[np.ndarray],  # (n,) bool, or None: every point covered
+    class_map: np.ndarray,      # (C,) u8: consecutive index -> class code
+    proba_offs: np.ndarray,     # (C,) int32: byte of class j's probability, or -1
+    class_off: int,             # byte of the class code, or -1
+    entropy_off: int,           # byte of the entropy, or -1
+    columns,                    # (array, stride, type) of X, Y, Z, ReturnNumber,
+                                # Classification; None for an absent Classification
     n_threads: int = 0,
 ):
-    """Fused softmax + argmax-map + entropy over merged logits.
-
-    Returns (probas (N, C) f32, preds (N,) u8 | None, entropy (N,) f32 |
-    None)."""
+    """Pack the n output records, with each point's probabilities, class
+    code and entropy from its logits row (softmax, argmax through the class
+    map, H = log Z + max - sum(p * logit) clipped at 0), and write them to
+    the sink, in one pass over chunks of ``WRITE_CHUNK`` points on up to
+    min(8, cores) threads (``n_threads``), never more than the chunks. An
+    uncovered point gets probability 0 and entropy 0 and keeps its
+    Classification. Releases the interpreter lock. Returns (mins (3,), maxs
+    (3,) of X, Y, Z as numpy's min and max give them, the (15,) uint64
+    counts of clip(ReturnNumber, 1, 15), the seconds the threads spent in
+    the sink averaged over them, the thread count); raises ``OSError`` when
+    a write fails."""
     lib = get_lib()
-    assert logits.flags.c_contiguous and logits.dtype == np.float32
-    n, c = logits.shape
-    class_map = np.ascontiguousarray(class_map, dtype=np.uint8)
-    assert len(class_map) == c
-    probas = np.empty((n, c), dtype=np.float32)
-    preds = np.empty(n, dtype=np.uint8) if want_preds else None
-    entropy = np.empty(n, dtype=np.float32) if want_entropy else None
-    fp = ctypes.POINTER(ctypes.c_float)
-    lib.logits_finalize(
-        logits.ctypes.data_as(fp), ctypes.c_int64(n), ctypes.c_int32(c),
-        _u8ptr(class_map),
-        _u8ptr(preds) if preds is not None else None,
-        entropy.ctypes.data_as(fp) if entropy is not None else None,
-        probas.ctypes.data_as(fp), ctypes.c_int32(n_threads),
+    c = len(class_map)
+    if not (logits.dtype == np.float32 and logits.flags.c_contiguous
+            and logits.shape == (n, c)):
+        raise ValueError(f"logits must be a C-contiguous ({n}, {c}) float32 array")
+    if covered is not None and not (covered.dtype == np.bool_ and covered.shape == (n,)
+                                    and covered.flags.c_contiguous):
+        raise ValueError(f"covered must be a contiguous ({n},) bool array")
+    class_map = np.ascontiguousarray(class_map, np.uint8)
+    proba_offs = np.ascontiguousarray(proba_offs, np.int32)
+    if proba_offs.shape != (c,):
+        raise ValueError(f"{len(proba_offs)} probability offsets for {c} classes")
+    for off, size in [(o, 4) for o in proba_offs] + [(class_off, 1), (entropy_off, 4)]:
+        if off >= 0 and off + size > rec_len:
+            raise ValueError("a channel written past the record length")
+    if base is not None and not (base.dtype == np.uint8 and base.flags.c_contiguous
+                                 and base.size == n * rec_len):
+        raise ValueError(f"base must be {n * rec_len} contiguous bytes")
+    if isinstance(sink, np.ndarray):
+        if not (sink.dtype == np.uint8 and sink.flags.c_contiguous
+                and sink.size == n * rec_len):
+            raise ValueError(f"the sink must be {n * rec_len} contiguous bytes")
+        fd, mem = -1, _u8ptr(sink)
+    else:
+        fd, mem = int(sink), None
+    col_ptrs = (ctypes.c_void_p * 5)()
+    col_strides = np.zeros(5, np.int64)
+    col_types = np.full(5, -1, np.int32)
+    for k, col in enumerate(columns):
+        if col is None:
+            continue
+        arr, stride, code = col
+        if stride and len(arr) != n:
+            raise ValueError(f"a column of {len(arr)} values for {n} points")
+        col_ptrs[k] = arr.__array_interface__["data"][0]
+        col_strides[k], col_types[k] = stride, code
+    if col_types[:4].min() < 0:
+        raise ValueError("X, Y, Z and ReturnNumber are required columns")
+    table = _PackTable(fields, rec_len)
+    bounds = np.zeros(6, np.float64)
+    by_return = np.zeros(15, np.uint64)
+    io_s = ctypes.c_double(0.0)
+    threads = ctypes.c_int32(0)
+    dp = ctypes.POINTER(ctypes.c_double)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    err = lib.las_write_predictions(
+        ctypes.c_int32(fd), ctypes.c_int64(point_offset), mem,
+        _u8ptr(base) if base is not None else None,
+        *table.args(), ctypes.c_int64(n), ctypes.c_int32(rec_len),
+        _fptr(logits), ctypes.c_int32(c),
+        _u8ptr(covered.view(np.uint8)) if covered is not None else None,
+        _u8ptr(class_map), proba_offs.ctypes.data_as(i32p),
+        ctypes.c_int32(class_off), ctypes.c_int32(entropy_off),
+        col_ptrs, col_strides.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        col_types.ctypes.data_as(i32p), ctypes.c_int64(WRITE_CHUNK),
+        ctypes.c_int32(n_threads), bounds.ctypes.data_as(dp),
+        by_return.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        ctypes.byref(io_s), ctypes.byref(threads),
     )
-    return probas, preds, entropy
+    if err:
+        raise OSError(err, os.strerror(err))
+    return bounds[:3], bounds[3:], by_return, io_s.value, threads.value

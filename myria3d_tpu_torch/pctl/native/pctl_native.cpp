@@ -18,6 +18,8 @@
 // Build: make -C myria3d_tpu/pctl/native  (or automatic on first import).
 
 #include <algorithm>
+#include <cerrno>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -25,6 +27,8 @@
 #include <thread>
 #include <type_traits>
 #include <vector>
+
+#include <unistd.h>
 
 extern "C" {
 
@@ -644,7 +648,7 @@ void las_unpack_records(const uint8_t* records, int64_t n, int32_t rec_len,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Predict-path host reductions: overlap scatter-merge + logits finalize.
+// Predict-path host reduction: the overlap scatter-merge.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -716,38 +720,6 @@ void scatter_add_rows_impl(float* plane, uint8_t* covered, int64_t n_plane,
   for (auto& w : workers) w.join();
 }
 
-// One pass over (n, c) f32 logits: softmax -> probas, argmax -> mapped
-// class code, entropy = log z + m - sum(p * logit) clipped at 0 (the
-// same stable formulation as the numpy path it replaces).
-void logits_finalize_range(const float* logits, int64_t lo, int64_t hi,
-                           int32_t c, const uint8_t* class_map,
-                           uint8_t* preds, float* entropy, float* probas) {
-  for (int64_t r = lo; r < hi; ++r) {
-    const float* l = logits + r * (int64_t)c;
-    float m = l[0];
-    int32_t am = 0;
-    for (int32_t j = 1; j < c; ++j)
-      if (l[j] > m) { m = l[j]; am = j; }
-    float z = 0.0f;
-    float* p = probas + r * (int64_t)c;
-    for (int32_t j = 0; j < c; ++j) {
-      p[j] = std::exp(l[j] - m);
-      z += p[j];
-    }
-    float dot = 0.0f;
-    const float inv_z = 1.0f / z;
-    for (int32_t j = 0; j < c; ++j) {
-      p[j] *= inv_z;
-      dot += p[j] * l[j];
-    }
-    if (preds) preds[r] = class_map[am];
-    if (entropy) {
-      const float h = std::log(z) + m - dot;
-      entropy[r] = h > 0.0f ? h : 0.0f;
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -774,31 +746,311 @@ void scatter_add_rows(float* plane, uint8_t* covered, int64_t n_plane,
   }
 }
 
-// Fused softmax/argmax/entropy over (n, c) f32 logits (thread-parallel).
-// `preds`/`entropy` may be null to skip those outputs; `probas` is required.
-void logits_finalize(const float* logits, int64_t n, int32_t c,
-                     const uint8_t* class_map, uint8_t* preds, float* entropy,
-                     float* probas, int32_t n_threads) {
-  if (n <= 0 || c <= 0) return;
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The tile's output LAS records from its merged logits, in one pass that
+// writes them itself (pctl/io/las.py::write_las_predictions).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// fn(T{}) with T the C type of a field of the unpack table's enum.
+template <typename Fn>
+void with_type(int32_t type, Fn fn) {
+  switch (type) {
+    case 0: fn(uint8_t{}); break;
+    case 1: fn(int8_t{}); break;
+    case 2: fn(uint16_t{}); break;
+    case 3: fn(int16_t{}); break;
+    case 4: fn(uint32_t{}); break;
+    case 5: fn(int32_t{}); break;
+    case 6: fn(uint64_t{}); break;
+    case 7: fn(int64_t{}); break;
+    case 8: fn(float{}); break;
+    case 9: fn(double{}); break;
+    default: break;
+  }
+}
+
+// One row of merged logits: softmax -> p, the argmax, and entropy = log z
+// + m - sum(p * logit) clipped at 0 (the stable formulation of the numpy
+// chain in myria3d_tpu/models/interpolation.py, and the arithmetic of the
+// JAX package's native logits_finalize, operation for operation).
+inline void finalize_row(const float* l, int32_t c, float* p, int32_t* argmax,
+                         float* entropy) {
+  float m = l[0];
+  int32_t am = 0;
+  for (int32_t j = 1; j < c; ++j)
+    if (l[j] > m) { m = l[j]; am = j; }
+  float z = 0.0f;
+  for (int32_t j = 0; j < c; ++j) {
+    p[j] = std::exp(l[j] - m);
+    z += p[j];
+  }
+  float dot = 0.0f;
+  const float inv_z = 1.0f / z;
+  for (int32_t j = 0; j < c; ++j) {
+    p[j] *= inv_z;
+    dot += p[j] * l[j];
+  }
+  *argmax = am;
+  const float h = std::log(z) + m - dot;
+  *entropy = h > 0.0f ? h : 0.0f;
+}
+
+// A column of the points (base pointer, byte stride, enum type; -1 absent).
+struct Column {
+  const uint8_t* p;
+  int64_t stride;
+  int32_t type;
+};
+
+// The columns the pass reads besides the pack table, in this order.
+enum { kX, kY, kZ, kReturnNumber, kClassification, kColumns };
+
+// Rows a block of the pack: ~55-71 KB of source rows and as much of
+// records, inside a core's L2 (one field at a time over a whole chunk
+// streams the chunk's source once a field).
+constexpr int64_t kPackRows = 1024;
+
+// What one thread gathers over its points: numpy's min and max of X, Y and
+// Z (NaN if any is NaN: the first NaN met), the clip(ReturnNumber, 1, 15)
+// counts, its seconds in the sink, and the errno of a failed write.
+struct ThreadTally {
+  double lo[3] = {INFINITY, INFINITY, INFINITY};
+  double hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  double nan[3] = {0.0, 0.0, 0.0};
+  bool has_nan[3] = {false, false, false};
+  uint64_t by_return[15] = {};
+  double io_s = 0.0;
+  int32_t err = 0;
+};
+
+struct PredictionPass {
+  // sink: fd >= 0 pwrites the records at point_offset; else copies to mem
+  int32_t fd;
+  int64_t point_offset;
+  uint8_t* mem;
+  // records the fields are packed over (null: zeros)
+  const uint8_t* base;
+  // the pack table (las_pack_records's)
+  const uint8_t* const* srcs;
+  const int64_t* src_strides;
+  const int32_t* src_types;
+  const int32_t* shifts;
+  const uint64_t* masks;
+  const double* scales;
+  const double* offsets;
+  const int32_t* dst_offs;
+  const int32_t* dst_types;
+  int32_t n_fields;
+  int64_t rec_len;
+  // the channels
+  const float* logits;
+  int32_t c;
+  const uint8_t* covered;
+  const uint8_t* class_map;
+  const int32_t* proba_offs;
+  int32_t class_off, entropy_off;
+  Column cols[kColumns];
+
+  // the records [lo, lo + cnt) packed into buf, kPackRows at a time: a
+  // block's source rows and records stay in the core's cache across the
+  // fields and the channels
+  void pack(int64_t lo, int64_t cnt, uint8_t* buf, float* p) const {
+    for (int64_t b = 0; b < cnt; b += kPackRows) {
+      const int64_t m = std::min(kPackRows, cnt - b);
+      uint8_t* blk = buf + b * rec_len;
+      if (base) std::memcpy(blk, base + (lo + b) * rec_len, m * rec_len);
+      else std::memset(blk, 0, m * rec_len);
+      for (int32_t f = 0; f < n_fields; ++f)
+        pack_dispatch(src_types[f], dst_types[f], srcs[f] + (lo + b) * src_strides[f],
+                      src_strides[f], m, shifts[f], masks[f], scales[f],
+                      offsets[f], blk + dst_offs[f], rec_len);
+      channels(lo + b, m, blk, p);
+    }
+  }
+
+  // the channels of the points [lo, lo + m) into their records at blk
+  void channels(int64_t lo, int64_t m, uint8_t* blk, float* p) const {
+    const Column& cls = cols[kClassification];
+    for (int64_t r = 0; r < m; ++r) {
+      const int64_t i = lo + r;
+      int32_t am;
+      float h;
+      finalize_row(logits + i * (int64_t)c, c, p, &am, &h);
+      uint8_t code = class_map[am];
+      if (covered && !covered[i]) {  // no subtile predicted the point
+        std::fill(p, p + c, 0.0f);
+        h = 0.0f;
+        if (cls.type >= 0)
+          with_type(cls.type, [&](auto tag) {
+            using T = decltype(tag);
+            T v;
+            std::memcpy(&v, cls.p + i * cls.stride, sizeof(T));
+            code = static_cast<uint8_t>(v);
+          });
+      }
+      uint8_t* rec = blk + r * rec_len;
+      for (int32_t j = 0; j < c; ++j)
+        if (proba_offs[j] >= 0) std::memcpy(rec + proba_offs[j], p + j, sizeof(float));
+      if (class_off >= 0) rec[class_off] = code;
+      if (entropy_off >= 0) std::memcpy(rec + entropy_off, &h, sizeof(float));
+    }
+  }
+
+  // the bounds and return counts of the points [lo, hi)
+  void tally(int64_t lo, int64_t hi, ThreadTally& t) const {
+    for (int a = 0; a < 3; ++a) {
+      const Column& col = cols[kX + a];
+      with_type(col.type, [&](auto tag) {
+        using T = decltype(tag);
+        double mn = t.lo[a], mx = t.hi[a];
+        for (int64_t i = lo; i < hi; ++i) {
+          T raw;
+          std::memcpy(&raw, col.p + i * col.stride, sizeof(T));
+          const double v = (double)raw;
+          if (v != v) {
+            if (!t.has_nan[a]) { t.has_nan[a] = true; t.nan[a] = v; }
+          } else {
+            mn = v < mn ? v : mn;
+            mx = v > mx ? v : mx;
+          }
+        }
+        t.lo[a] = mn;
+        t.hi[a] = mx;
+      });
+    }
+    const Column& rn = cols[kReturnNumber];
+    with_type(rn.type, [&](auto tag) {
+      using T = decltype(tag);
+      for (int64_t i = lo; i < hi; ++i) {
+        T raw;
+        std::memcpy(&raw, rn.p + i * rn.stride, sizeof(T));
+        const uint8_t r = static_cast<uint8_t>(raw);  // numpy's astype(uint8)
+        ++t.by_return[r < 1 ? 0 : (r > 15 ? 14 : r - 1)];
+      }
+    });
+  }
+
+  // the packed records [lo, lo + cnt) to the sink
+  void emit(const uint8_t* buf, int64_t lo, int64_t cnt, ThreadTally& t) const {
+    const auto t0 = std::chrono::steady_clock::now();
+    const int64_t len = cnt * rec_len, at = lo * rec_len;
+    if (fd < 0) {
+      std::memcpy(mem + at, buf, len);
+    } else {
+      for (int64_t done = 0; done < len && !t.err;) {
+        const ssize_t w = pwrite(fd, buf + done, len - done, point_offset + at + done);
+        if (w > 0) done += w;
+        else if (w < 0 && errno != EINTR) t.err = errno;
+        else if (w == 0) t.err = EIO;
+      }
+    }
+    t.io_s += std::chrono::duration<double>(std::chrono::steady_clock::now() - t0).count();
+  }
+
+  // chunks [c0, c1) of `chunk` points, in order, through one reused buffer
+  void run(int64_t c0, int64_t c1, int64_t chunk, int64_t n, ThreadTally& t) const {
+    std::vector<uint8_t> buf(std::min(chunk, n) * rec_len);
+    std::vector<float> p(c);
+    for (int64_t k = c0; k < c1 && !t.err; ++k) {
+      const int64_t lo = k * chunk, cnt = std::min(chunk, n - lo);
+      pack(lo, cnt, buf.data(), p.data());
+      tally(lo, lo + cnt, t);
+      emit(buf.data(), lo, cnt, t);
+    }
+  }
+};
+
+// At most this many threads a pass (the host's cook and read-ahead threads
+// share it with the next tile).
+constexpr int64_t kWriteMaxThreads = 8;
+
+}  // namespace
+
+extern "C" {
+
+// The n output records of a tile, packed from the points by the pack table
+// (las_pack_records's; over `base`'s records when given, else over zeros),
+// with each point's channels from its row of the (n, c) f32 merged logits:
+// the probability of class j at byte proba_offs[j] (-1: not written), the
+// class code class_map[argmax] at class_off and the entropy at entropy_off
+// (-1: not written). A point whose covered byte is 0 (covered null: every
+// point is covered) gets probability 0 and entropy 0, and keeps its
+// Classification column (type -1: the code of the argmax). The points go
+// in chunks of `chunk`, contiguous runs of chunks to up to n_threads
+// threads (<= 0: min(8, cores)), never more threads than chunks; each
+// thread packs a chunk into a buffer it reuses, then pwrites it to fd at
+// point_offset + lo * rec_len (fd < 0: copies it to mem at lo * rec_len).
+// cols: X, Y, Z, ReturnNumber (stride 0 broadcasts), Classification.
+// Writes bounds (min X, Y, Z, max X, Y, Z: numpy's min and max, NaN if any
+// is NaN), by_return (15 counts of clip(uint8(ReturnNumber), 1, 15)), the
+// seconds the threads spent in the sink, averaged over them, and the thread
+// count. Returns 0, or the errno of the first failed write.
+int32_t las_write_predictions(
+    int32_t fd, int64_t point_offset, uint8_t* mem, const uint8_t* base,
+    const uint8_t* const* srcs, const int64_t* src_strides,
+    const int32_t* src_types, const int32_t* shifts, const uint64_t* masks,
+    const double* scales, const double* offsets, const int32_t* dst_offs,
+    const int32_t* dst_types, int32_t n_fields, int64_t n, int32_t rec_len,
+    const float* logits, int32_t c, const uint8_t* covered,
+    const uint8_t* class_map, const int32_t* proba_offs, int32_t class_off,
+    int32_t entropy_off, const uint8_t* const* col_ptrs,
+    const int64_t* col_strides, const int32_t* col_types, int64_t chunk,
+    int32_t n_threads, double* bounds, uint64_t* by_return, double* io_s,
+    int32_t* threads_used) {
+  PredictionPass pass{fd, point_offset, mem, base, srcs, src_strides,
+                      src_types, shifts, masks, scales, offsets, dst_offs,
+                      dst_types, n_fields, (int64_t)rec_len, logits, c,
+                      covered, class_map, proba_offs, class_off, entropy_off,
+                      {}};
+  for (int k = 0; k < kColumns; ++k)
+    pass.cols[k] = Column{col_ptrs[k], col_strides[k], col_types[k]};
+  *io_s = 0.0;
+  *threads_used = 0;
+  if (n <= 0 || c <= 0 || chunk <= 0) return 0;
+  const int64_t n_chunks = (n + chunk - 1) / chunk;
   int64_t nt = n_threads > 0
                    ? n_threads
-                   : (int64_t)std::thread::hardware_concurrency();
-  if (nt < 1) nt = 1;
-  nt = std::min<int64_t>(nt, (n + (1 << 18) - 1) >> 18);
-  if (nt <= 1) {
-    logits_finalize_range(logits, 0, n, c, class_map, preds, entropy, probas);
-    return;
+                   : std::min<int64_t>(kWriteMaxThreads,
+                                       (int64_t)std::thread::hardware_concurrency());
+  nt = std::max<int64_t>(1, std::min(nt, n_chunks));
+  std::vector<ThreadTally> tallies(nt);
+  if (nt == 1) {
+    pass.run(0, n_chunks, chunk, n, tallies[0]);
+  } else {
+    std::vector<std::thread> workers;
+    for (int64_t t = 0; t < nt; ++t)
+      workers.emplace_back([&, t] {
+        pass.run(t * n_chunks / nt, (t + 1) * n_chunks / nt, chunk, n, tallies[t]);
+      });
+    for (auto& w : workers) w.join();
   }
-  std::vector<std::thread> workers;
-  const int64_t per = (n + nt - 1) / nt;
-  for (int64_t t = 0; t < nt; ++t) {
-    const int64_t lo = t * per;
-    const int64_t hi = std::min<int64_t>(lo + per, n);
-    if (lo >= hi) break;
-    workers.emplace_back(logits_finalize_range, logits, lo, hi, c, class_map,
-                         preds, entropy, probas);
+  for (int a = 0; a < 3; ++a) {
+    double mn = INFINITY, mx = -INFINITY;
+    bool has_nan = false;
+    double nan = 0.0;
+    for (const ThreadTally& t : tallies) {
+      if (t.has_nan[a] && !has_nan) { has_nan = true; nan = t.nan[a]; }
+      mn = t.lo[a] < mn ? t.lo[a] : mn;
+      mx = t.hi[a] > mx ? t.hi[a] : mx;
+    }
+    bounds[a] = has_nan ? nan : mn;
+    bounds[3 + a] = has_nan ? nan : mx;
   }
-  for (auto& w : workers) w.join();
+  std::fill(by_return, by_return + 15, 0);
+  double io = 0.0;
+  int32_t err = 0;
+  for (const ThreadTally& t : tallies) {
+    for (int r = 0; r < 15; ++r) by_return[r] += t.by_return[r];
+    io += t.io_s;
+    if (!err) err = t.err;
+  }
+  *io_s = io / nt;
+  *threads_used = (int32_t)nt;
+  return err;
 }
 
 }  // extern "C"

@@ -140,7 +140,9 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     and by the native rows-and-features call (``cook_points``,
     ``cook_points_native``), and the points merged (``merge_points``, and
     ``merge_points_native``, its equal: every merge is the native row
-    scatter). Each phase is a span
+    scatter), and the finalize pass's seconds in its writes, averaged over
+    its threads, and their count (``write_io_s``, ``write_threads``).
+    Each phase is a span
     (``utils.profiling.span``): under a recording ``torch.profiler`` the
     trace shows ``predict.setup``, ``predict.read``, ``predict.stream`` and
     in it ``predict.loader_wait``, ``predict.enqueue``,
@@ -265,6 +267,7 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         phases.update(tile_read_s=read, streaming_s=stream, fetch_blocked_s=fetch,
                       merge_s=merge, n_batches=n_batches)
         phases.update({"finalize_" + k: v for k, v in itp.finalize_phases.items()})
+        phases.update(itp.write_stats)
         phases.update(loader_wait_s=wait, enqueue_s=enqueue, cook_busy_s=cook, bin_s=binning,
                       cook_points=sums.get("cook_points", 0),
                       cook_points_native=sums.get("cook_points_native", 0),

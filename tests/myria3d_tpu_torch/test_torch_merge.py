@@ -7,8 +7,9 @@
   within a subtile or across the subtiles of a batch, f16 and f32 sources,
   one thread, two, and more threads than rows; the coverage bytes beside the
   plane.
-- The fused softmax, class and entropy (``native_logits_finalize``) is held
-  against the JAX package's numpy chain.
+- The softmax, class and entropy of the one pass that writes the tile's
+  file (``write_las_predictions``) are held against the JAX package's numpy
+  chain.
 - A tile starts with ``prepare``, and the host library builds or raises.
 """
 
@@ -21,7 +22,7 @@ from myria3d_tpu_torch.models.interpolation import Interpolator
 from myria3d_tpu_torch.pctl import native as native_mod
 from myria3d_tpu_torch.pctl.dataset.synthetic_tile import write_production_tile
 from myria3d_tpu_torch.pctl.dataset.utils import read_las_array
-from myria3d_tpu_torch.pctl.io.las import read_las
+from myria3d_tpu_torch.pctl.io.las import LasHeader, read_las, write_las_predictions
 
 N_POINTS, ROWS, C = 300, [90, 70, 50, 40], 7
 
@@ -130,31 +131,41 @@ def _numpy_finalize(logits, reverse_mapper, want_preds, want_entropy):
 
 
 @pytest.mark.parametrize("want_preds,want_entropy", [(True, True), (True, False), (False, True)])
-def test_the_fused_finalize_equals_the_numpy_chain(want_preds, want_entropy):
+def test_the_fused_finalize_equals_the_numpy_chain(want_preds, want_entropy, tmp_path):
     """Unit-scale random logits, a row of ties, and one-hot rows (whose
-    entropy can round below 0 before the clip): the probabilities and the
-    entropy within 1e-6, the classes equal, and only what was asked for.
-    Both sides round the entropy in f32, so their gap grows with the
-    logits' scale (about one ulp of the largest logit)."""
+    entropy can round below 0 before the clip), through the one pass that
+    writes the tile's file (``write_las_predictions``) and read back: the
+    probabilities and the entropy within 1e-6, the classes equal, and only
+    the dims asked for. Both sides round the entropy in f32, so their gap
+    grows with the logits' scale (about one ulp of the largest logit)."""
     rng = np.random.default_rng(2)
     logits = rng.normal(size=(5000, C)).astype(np.float32)
     logits[0] = 1.5
     logits[1:50] = -30.0
     logits[np.arange(1, 50), rng.integers(0, C, 49)] = 30.0
     reverse_mapper = np.array([1, 2, 3, 4, 5, 6, 64], np.int32)
-    got = native_mod.native_logits_finalize(logits, reverse_mapper.astype(np.uint8),
-                                            want_preds=want_preds, want_entropy=want_entropy)
-    want = _numpy_finalize(logits, reverse_mapper, want_preds, want_entropy)
-    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
+    points = np.zeros(len(logits), [("X", "<f8"), ("Y", "<f8"), ("Z", "<f8"),
+                                    ("Classification", "u1")])
+    points["X"] = np.arange(len(logits))
+    channels = {str(j): j for j in range(C)}
     if want_preds:
-        np.testing.assert_array_equal(got[1], want[1])
-    else:
-        assert got[1] is None
+        channels["PredictedClassification"] = "class"
     if want_entropy:
-        np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-6)
-        assert got[2].min() >= 0.0
-    else:
-        assert got[2] is None
+        channels["entropy"] = "entropy"
+    path = str(tmp_path / "finalized.las")
+    write_las_predictions(path, points, LasHeader(point_format=6, version=(1, 4)), logits,
+                          None, reverse_mapper.astype(np.uint8), channels)
+    got = read_las(path).points
+    want = _numpy_finalize(logits, reverse_mapper, want_preds, want_entropy)
+    probas = np.stack([got[str(j)] for j in range(C)], axis=1)
+    np.testing.assert_allclose(probas, want[0], rtol=0, atol=1e-6)
+    assert ("PredictedClassification" in got.dtype.names) == want_preds
+    assert ("entropy" in got.dtype.names) == want_entropy
+    if want_preds:
+        np.testing.assert_array_equal(got["PredictedClassification"], want[1])
+    if want_entropy:
+        np.testing.assert_allclose(got["entropy"], want[2], rtol=0, atol=1e-6)
+        assert got["entropy"].min() >= 0.0
 
 
 @pytest.mark.parametrize("call", ["store_predictions", "reduce_predictions_and_save"])

@@ -1,10 +1,12 @@
 """The port's spans and counters (``utils/profiling.py``): a span sums its
 wall time and, only under a profiler recording its thread, shows on the
 profiler's timeline; sums and counts from many threads add up exactly; the
-merge counts its points; and a profiled ``train_step`` is the
+merge counts its points; ``predict(phases=)`` carries the finalize's
+spans and the write pass's counter; and a profiled ``train_step`` is the
 root span ``model.train_step`` with ``model.forward``, ``model.backward``
 and ``model.optimizer`` in it."""
 
+import os
 import sys
 import threading
 import time
@@ -14,12 +16,17 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from myria3d_tpu_torch import predict as predict_mod
+from myria3d_tpu_torch import run
 from myria3d_tpu_torch.models.interpolation import Interpolator
+from myria3d_tpu_torch.pctl.dataset.toy_dataset import write_synthetic_toy_las
 from myria3d_tpu_torch.utils import profiling
 from myria3d_tpu_torch.utils.profiling import count, span
 from tests.myria3d_tpu_torch.test_torch_trainer import _batch, _model, _tensors
 
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _regions(prof, *names):
@@ -128,6 +135,25 @@ def test_the_merge_counts_its_points_by_route(order, native):
     np.testing.assert_allclose(itp.reduce_predicted_logits(n_points), want, rtol=1e-6, atol=1e-6)
     itp.prepare(n_points)
     assert itp.merge_counts == {}
+
+
+def test_predict_reports_the_finalize_spans_and_the_write_counter(tmp_path):
+    """The finalize's three spans stay (the one pass from the logits to the
+    file runs in ``finalize_write_s``), beside the pass's seconds in its
+    writes, averaged over its threads, and their count: one thread for a
+    tile of fewer points than a chunk."""
+    tile = write_synthetic_toy_las(str(tmp_path / "tile.las"), n_points=6000)
+    ckpt = os.path.join(REPO, "trained_model_assets", "randlanet_toy_V0.5.0_torch")
+    cfg = run.compose_config(run.CONFIG_DIR, "config.yaml", [
+        "task.task_name=predict", f"predict.src_las={tile}", f"predict.ckpt_path={ckpt}",
+        f"predict.output_dir={tmp_path / 'out'}", "datamodule.batch_size=2",
+        "trainer.accelerator=cpu"])
+    phases = {}
+    predict_mod.predict(cfg, phases=phases)
+    finalize = {"finalize_coverage_s", "finalize_softmax_s", "finalize_write_s"}
+    assert finalize | {"write_io_s", "write_threads"} <= set(phases)
+    assert phases["write_threads"] == 1
+    assert 0.0 <= phases["write_io_s"] <= phases["finalize_write_s"] + 0.01
 
 
 def test_a_profiled_train_step_is_the_root_span_and_its_three_children():

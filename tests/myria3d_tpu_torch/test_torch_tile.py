@@ -57,9 +57,10 @@ PROBA_ATOL = 2e-3
 AGREEMENT = 0.999
 PHASE_KEYS = {"tile_read_s", "streaming_s", "fetch_blocked_s", "merge_s", "n_batches",
               "finalize_write_s", "finalize_coverage_s", "finalize_softmax_s"}
-# the port's spans and its cook and merge counters, beside the JAX package's keys
+# the port's spans and its cook, merge and write counters, beside the JAX package's keys
 PORT_PHASE_KEYS = {"loader_wait_s", "enqueue_s", "cook_busy_s", "bin_s", "cook_points",
-                   "cook_points_native", "merge_points", "merge_points_native"}
+                   "cook_points_native", "merge_points", "merge_points_native", "write_io_s",
+                   "write_threads"}
 
 
 @pytest.fixture(scope="module")
