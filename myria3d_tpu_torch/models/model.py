@@ -61,7 +61,8 @@ def chunk_generator(generator: torch.Generator | None, i: int) -> torch.Generato
 
 
 def build_net(neural_net_class_name: str, neural_net_hparams: Dict[str, Any]) -> nn.Module:
-    """The zoo's net (``models.modules.MODEL_ZOO``: RandLA-Net, PointNet++)
+    """The zoo's net (``models.modules.MODEL_ZOO``: RandLA-Net, PointNet++,
+    Point Transformer)
     from the JAX hparams: ``dtype`` is a compute dtype's name
     (``nn.as_dtype``), an hparam the net lacks raises ``TypeError`` as the
     flax dataclass does (``remat`` or ``exact_knn`` on PointNet++)."""

@@ -80,7 +80,9 @@ def _port_net(params, stats):
 
 
 def test_zoo_builds_both_families():
-    assert [c.__name__ for c in MODEL_ZOO] == [c.__name__ for c in JAX_ZOO]
+    # the JAX package's families first, then the port's own Point Transformer
+    assert [c.__name__ for c in MODEL_ZOO] == ([c.__name__ for c in JAX_ZOO]
+                                               + ["PointTransformerSeg"])
     assert get_neural_net_class("PointNet2") is PointNet2
     assert get_neural_net_class("RandLA") is RandLANet
     with pytest.raises(KeyError):
