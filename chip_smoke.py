@@ -5,6 +5,7 @@ harness (one NVIDIA GPU).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22     # phases 1, 2 and 22 alone
+    python3 chip_smoke.py --phase 23     # phases 1, 2 and 23 alone
 
 Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA. Phases, one line each:
@@ -22,7 +23,9 @@ PyTorch built for CUDA. Phases, one line each:
    shared memory and blocks per SM at each width; K8's routes at phase
    16a's shapes (threads, points a thread, cluster size, skip) with the
    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``),
-   which must be at least the case's batch;
+   which must be at least the case's batch; K9's five instantiations, with
+   no stack frame, local memory or spills but C = 32's stated 64 bytes
+   (``K9_SPILL``);
 3. each kernel against its plain PyTorch version at the predict step's
    stage shapes (B=48 subtiles, N=12288 sampled, M=32768 full points):
    K1 (kNN) bit-equal on indices and d2, K2 (fused LFA) within 1e-4 and K3
@@ -238,7 +241,16 @@ PyTorch built for CUDA. Phases, one line each:
    to a full bucket past 131072 (the overflow quantum), held as in (b) and
    predicted through the CLI with (a)'s checks; (d) the crop predicted
    again with ``predict.subtile_overlap=25``, (a)'s checks, its wall clock
-   beside the overlap-0 run's.
+   beside the overlap-0 run's;
+23. K9, Point Transformer's vector attention at eval (the published net,
+   ``perfbench/configs/point_transformer.json``, random weights): (a) at
+   the predict step's five stages (B=48, N = 16384 -> 64, each cloud's
+   first 85-100 % of the slots real, the stage's K1 self graph, BatchNorm
+   statistics away from the identity) K9 bit-equal to its plain version
+   (``vector_attention_plain``) with pad queries 0, each timed beside the
+   plain version, with the byte bound of the attention reader; (b) the
+   net's eval forward at B=48, N=16384: 18 K9 launches a step, ms a step
+   beside K9's plain version in its place, and the logits bit-equal.
 
 Phases 11-22 each set the launch counts to 0 before their path and read
 them after it (phases 21-22 in their subprocesses, whose counts start at
@@ -266,6 +278,10 @@ launches of phase 16's predict and train steps; ``K1``'s entry is as
 before.
 K2_16 has its own entry in the kernels line (phase 18a's times at bf16,
 the bound with 2-byte x rows); K2's stays its f32 instantiation.
+K9's entry sums phase 23a's stages, each counted once a layer (blocks
+2/3/4/6/3), so that its ms and its ``bound_ms`` (bytes only: q, k, v, y,
+the int32 index and the positions once at real points) are one step's 18
+layers; its launches are phase 23b's.
 Any failure, a missing CUDA device, or a module of JAX or of the JAX
 package loaded during the run exits nonzero without a result.
 """
@@ -446,7 +462,7 @@ def bench_subtiles(seed: int = 0):
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions."""
-    from myria3d_tpu_torch.models.modules import pointnet2, randla_net
+    from myria3d_tpu_torch.models.modules import point_transformer, pointnet2, randla_net
     from myria3d_tpu_torch.ops import (
         cuda_fps,
         cuda_gather,
@@ -454,6 +470,7 @@ def plain_versions():
         cuda_knn,
         cuda_lfa,
         cuda_lfa_train,
+        cuda_vector_attention,
         fps,
         interpolate,
         knn,
@@ -474,6 +491,9 @@ def plain_versions():
     def rel_stats_plain(pos, idx, nv, idx_marked=None):
         return cuda_lfa_train.rel_stats_plain(pos, idx, nv)
 
+    def vector_attention_plain(*args, packed=None):
+        return cuda_vector_attention.vector_attention_plain(*args[:7])
+
     patches = [(knn, "knn_topk", cuda_knn.knn_topk_plain),
                (nn1, "knn_topk", cuda_knn.knn_topk_plain),
                (interpolate, "knn_interp", cuda_interp.knn_interp_plain),
@@ -487,7 +507,8 @@ def plain_versions():
                (cuda_lfa_train, "inverse_map", cuda_gather.inverse_map_plain),
                (cuda_lfa_train, "lfa_attention", lfa_attention_plain),
                (cuda_lfa_train, "rel_stats", rel_stats_plain),
-               (cuda_lfa_train, "lfa_train_bwd", lfa_train_bwd_plain)]
+               (cuda_lfa_train, "lfa_train_bwd", lfa_train_bwd_plain),
+               (point_transformer, "vector_attention", vector_attention_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -522,6 +543,15 @@ CLEAN_KERNELS = {"knn_topk_kernel<": 4, "knn_ball_kernel<": 1, "knn_interp_kerne
                  "relstats_kernel<": 2, "fps_kernel<": 8}
 
 
+# K9's five instantiations (C, K, N = C / s, P) and the bytes of stack frame,
+# local memory and spills each may have: none, but at C = 32, whose four
+# blocks an SM leave 64 registers a thread (a 32-byte stack frame, 64 bytes
+# of spill stores and 32 of loads on the H100, CUDA 12.8)
+K9_SPILL = {"vector_attention_kernel<32,8,4,32>": 64, "vector_attention_kernel<64,16,8,8>": 0,
+            "vector_attention_kernel<128,16,16,4>": 0, "vector_attention_kernel<256,16,32,2>": 0,
+            "vector_attention_kernel<512,16,64,1>": 0}
+
+
 def phase_build():
     from myria3d_tpu_torch import _ext
 
@@ -541,6 +571,11 @@ def phase_build():
     bad = [n for n, u in clean.items()
            if any(u.get(key) != 0 for key in ("stack", "local", "spill_stores", "spill_loads"))]
     need(not bad, f"K1-K8 instantiations with a stack frame, local memory or spills: {bad}")
+    k9 = sorted(n for n in usage if n.startswith("vector_attention_kernel<"))
+    need(k9 == sorted(K9_SPILL), f"expected K9's instantiations {sorted(K9_SPILL)}, found {k9}")
+    bad = [n for n in k9 if any(usage[n].get(key) > K9_SPILL[n]
+                                for key in ("stack", "local", "spill_stores", "spill_loads"))]
+    need(not bad, f"K9 instantiations past their stated spill ({K9_SPILL}): {bad}")
     from myria3d_tpu_torch.ops.cuda_lfa import WIDTHS, launch_info
     from myria3d_tpu_torch.ops.cuda_lfa_train import bwd_launch_info
 
@@ -685,6 +720,7 @@ def launch_counters():
     from myria3d_tpu_torch.ops.cuda_knn import ball_route, knn_topk, knn_topk_mxu, small_list
     from myria3d_tpu_torch.ops.cuda_lfa import lfa_attention, lfa_attention_x16
     from myria3d_tpu_torch.ops.cuda_lfa_train import lfa_train_bwd, rel_stats
+    from myria3d_tpu_torch.ops.cuda_vector_attention import vector_attention
 
     # K4 counts its kernel's every launch: the gathers' VJP and K6's dx
     # scatter; inverse_map is K4's map, built by the kernels beside it; K2
@@ -694,7 +730,7 @@ def launch_counters():
     return {"K1": knn_topk, "K1_ball": ball_route, "K1_small": small_list, "K2": lfa_attention,
             "K2_16": lfa_attention_x16, "K3": knn_interp,
             "K4": gather_bwd, "K5": rel_stats, "K6": lfa_train_bwd, "K7": knn_topk_mxu, "K8": fps,
-            "inverse_map": inverse_map}
+            "K9": vector_attention, "inverse_map": inverse_map}
 
 
 def check_predicted_las(res, n_points: int, cfg: dict) -> float:
@@ -3457,6 +3493,172 @@ def phase_tile(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: K9, Point Transformer's vector attention at eval
+# ---------------------------------------------------------------------------
+
+# the published net (perfbench/configs/point_transformer.json) and the
+# predict step's sampled points a subtile (perfbench/traffic/subtile_predict.json)
+PT_HPARAMS = {"num_features": 9, "num_classes": 7, "planes": [32, 64, 128, 256, 512],
+              "blocks": [2, 3, 4, 6, 3], "nsample": [8, 16, 16, 16, 16],
+              "stride": [1, 4, 4, 4, 4], "share_planes": 8}
+PT_N = 16_384
+
+
+def pt_clouds(dev, n: int, real, seed: int):
+    """(pos, mask): B clouds of ``n`` slots, positions uniform in the net's
+    normalized units (x, y in [-1, 1], z in [-0.2, 0.2]), the first
+    ``real[b]`` slots of cloud b real."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pos = (torch.rand((B, n, 3), generator=g) * 2 - 1) * torch.tensor([1.0, 1.0, 0.2])
+    mask = torch.arange(n)[None, :] < torch.as_tensor(real)[:, None]
+    return pos.to(dev), mask.to(dev)
+
+
+def pt_layer(c: int, dev, seed: int):
+    """A ``VectorAttention(c, 8)`` at eval, random weights and BatchNorm
+    statistics away from the identity."""
+    import torch
+
+    from myria3d_tpu_torch.models.modules.point_transformer import VectorAttention
+
+    torch.manual_seed(seed)
+    layer = VectorAttention(c, PT_HPARAMS["share_planes"])
+    with torch.no_grad():
+        for bn in layer.norms:
+            bn.weight.uniform_(0.5, 1.5)
+            bn.bias.normal_(0.0, 0.2)
+            bn.running_mean.normal_(0.0, 0.5)
+            bn.running_var.uniform_(0.5, 2.0)
+    return layer.to(dev).eval()
+
+
+def phase_k9(dev):
+    """23: (a) K9 against its plain version at the predict step's stages
+    (B=48, N = 16384 -> 4096 -> 1024 -> 256 -> 64, each cloud's first 85-100 %
+    of the slots real, the stage's K1 self graph): bit-equal, pad queries 0,
+    timed beside the plain version; each stage's row counts its layers
+    (blocks 2/3/4/6/3), so that the kernels line's K9 entry sums one step's
+    18 layers, with the bytes of the attention reader's floor (q, k, v, y,
+    the int32 index and the positions once at real points) as ``bound_ms``;
+    (b) the net's eval forward at B=48, N=16384: K9's launches a step (18),
+    ms a step, and its logits bit-equal to the same net's with K9's plain
+    version in its place. The layers and the net are built outside
+    inference mode, as predict builds them, so that K9's parameters are
+    prepared once per layer."""
+    import torch
+
+    from myria3d_tpu_torch.models.model import build_model
+    from myria3d_tpu_torch.models.modules import point_transformer
+    from myria3d_tpu_torch.models.modules.point_transformer import stage_graph
+    from myria3d_tpu_torch.ops.cuda_vector_attention import (
+        vector_attention,
+        vector_attention_plain,
+    )
+
+    rng = np.random.default_rng(23)
+    real = rng.integers(int(0.85 * PT_N), PT_N + 1, B)
+    stats, n = [], PT_N
+    for i, (c, k, blocks) in enumerate(zip(PT_HPARAMS["planes"], PT_HPARAMS["nsample"],
+                                           PT_HPARAMS["blocks"])):
+        layer = pt_layer(c, dev, seed=c)
+        p, packed = layer.kernel_params()
+        pos, mask = pt_clouds(dev, n, real // 4 ** i, seed=i)
+        x = torch.randn((B, n, c), generator=torch.Generator().manual_seed(c)).to(dev)
+        with torch.inference_mode():
+            g = stage_graph(pos, mask, k)
+            args = (layer.linear_q(x), layer.linear_k(x), layer.linear_v(x), g.idx, g.valid,
+                    g.rel)
+            got = vector_attention(*args, p, packed)
+            want = vector_attention_plain(*args, p)
+        need(bool(torch.equal(got, want)), f"K9 C={c} K={k} N={n}: max |kernel - plain| "
+             f"{float((got - want).abs().max()):.3g}, not bit-equal")
+        need(not bool(got[~mask].any()), f"K9 C={c} N={n}: a pad query's output is not 0")
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: vector_attention(*args, p, packed), 5)
+            plain_ms = cuda_ms(lambda: vector_attention_plain(*args, p), 2)
+        m = float(mask.sum())
+        bnd = bound(0.0, m * (4 * c * 4 + k * 4 + 3 * 4))
+        stats.append((0.0, blocks * ms, blocks * plain_ms, (blocks * bnd[0], bnd[1]), None))
+        print(f"phase 23a K9 C={c} K={k} B={B} N={n} ({int(m)} real): bit-equal, {ms:.3f} ms a "
+              f"layer, plain {plain_ms:.3f} ms, bound_ms {bnd[0]:.4f} (bytes); x{blocks} layers "
+              f"[{CARD}]")
+        del g, x, args, got, want
+        n //= 4
+
+    torch.manual_seed(0)
+    model = build_model("PointTransformerSeg", dict(PT_HPARAMS)).to(dev).eval()
+    pos, mask = pt_clouds(dev, PT_N, real, seed=5)
+    x = torch.rand((B, PT_N, 9), generator=torch.Generator().manual_seed(5)).to(dev)
+    before = vector_attention.launches
+    with torch.inference_mode():
+        logits = model.net(x, pos, mask)
+        ms = cuda_ms(lambda: model.net(x, pos, mask), 3)
+    launches = vector_attention.launches - before
+    need(launches == 18 * 5, f"K9 launched {launches} times in 5 eval forwards, not 18 each")
+
+    def plain(*a, packed=None):
+        return vector_attention_plain(*a[:7])
+
+    point_transformer.vector_attention = plain
+    try:
+        with torch.inference_mode():
+            want = model.net(x, pos, mask)
+            plain_ms = cuda_ms(lambda: model.net(x, pos, mask), 1)
+    finally:
+        point_transformer.vector_attention = vector_attention
+    need(vector_attention.launches - before == launches, "the plain route launched K9")
+    need(bool(torch.equal(logits, want)), f"PointTransformerSeg eval logits with K9: max |diff| "
+         f"{float((logits - want).abs().max()):.3g} from K9's plain version in its place")
+    print(f"phase 23b PointTransformerSeg eval forward B={B} N={PT_N}: {ms:.1f} ms a step with "
+          f"K9 (18 launches a step), {plain_ms:.1f} ms with its plain version, logits bit-equal "
+          f"[{CARD}]")
+    return stats, launches
+
+
+# each kernel's source and the TPU kernel it replaces
+SOURCES = {"K1": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:238"),
+           "K1_full": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
+           "K1_ball": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
+           "K1_small": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
+           "K2": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
+           "K2_16": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
+           "K3": ("myria3d_tpu_torch/csrc/interp.cu", "myria3d_tpu/ops/pallas_knn.py:475"),
+           "K4": ("myria3d_tpu_torch/csrc/gather_bwd.cu", "myria3d_tpu/ops/pallas_gather.py:65"),
+           "K5": ("myria3d_tpu_torch/csrc/lfa_train.cu",
+                  "myria3d_tpu/ops/pallas_lfa_train.py:162"),
+           "K6": ("myria3d_tpu_torch/csrc/lfa_train.cu",
+                  "myria3d_tpu/ops/pallas_lfa_train.py:192"),
+           "K7": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:115"),
+           "K8": ("myria3d_tpu_torch/csrc/fps.cu", "myria3d_tpu/ops/fps.py:25"),
+           # no TPU kernel: the JAX package has no Point Transformer
+           "K9": ("myria3d_tpu_torch/csrc/vector_attention.cu", None)}
+
+
+def kernel_entries(stats: dict, launches: dict, sources: dict) -> list:
+    """The kernels line: each kernel's launches, its largest error against
+    its plain version, and its rows' ms, plain ms and bounds summed."""
+    kernels = []
+    for name, (src, rep) in sources.items():
+        rows = stats[name]
+        bounds = [s[3] for s in rows]
+        libs = [s[4] for s in rows]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name],
+            "max_abs_err": max(s[0] for s in rows),
+            "ms": sum(s[1] for s in rows),
+            "plain_ms": sum(s[2] for s in rows),
+            "bound_ms": sum(b[0] for b in bounds),
+            # what bounds the largest share of the summed bound
+            "bound_by": max(bounds, key=lambda b: b[0])[1],
+            "library_ms": sum(libs) if all(v is not None for v in libs) else None,
+        })
+    return kernels
+
+
 def foreign_modules() -> list:
     """Modules of JAX, flax or the JAX package loaded in this process."""
     return sorted(m for m in sys.modules
@@ -3497,6 +3699,20 @@ def main() -> int:
             traceback.print_exc()
             print("FAIL")
             return 1
+        return 0
+    if sys.argv[1:] == ["--phase", "23"]:
+        # phase 23 alone, after the card and the build: the kernels line
+        # holds K9 alone; no device line
+        try:
+            CARD = phase_device()
+            phase_build()
+            k9_stats, k9_launches = phase_k9(dev)
+        except Exception:  # noqa: BLE001
+            traceback.print_exc()
+            print("FAIL")
+            return 1
+        print(json.dumps({"kernels": kernel_entries({"K9": k9_stats}, {"K9": k9_launches},
+                                                    {"K9": SOURCES["K9"]})}))
         return 0
     try:
         CARD = phase_device()
@@ -3545,6 +3761,7 @@ def main() -> int:
         phase_cli(main_acc)
         for name, count in phase_tile(dev).items():
             launches[name] += count
+        stats["K9"], launches["K9"] = phase_k9(dev)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")
@@ -3553,37 +3770,7 @@ def main() -> int:
     if foreign:
         print(f"FAIL: modules of JAX or of the JAX package were loaded: {foreign}")
         return 1
-    sources = {"K1": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:238"),
-               "K1_full": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
-               "K1_ball": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
-               "K1_small": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:150"),
-               "K2": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
-               "K2_16": ("myria3d_tpu_torch/csrc/lfa.cu", "myria3d_tpu/ops/pallas_lfa.py:106"),
-               "K3": ("myria3d_tpu_torch/csrc/interp.cu", "myria3d_tpu/ops/pallas_knn.py:475"),
-               "K4": ("myria3d_tpu_torch/csrc/gather_bwd.cu", "myria3d_tpu/ops/pallas_gather.py:65"),
-               "K5": ("myria3d_tpu_torch/csrc/lfa_train.cu",
-                      "myria3d_tpu/ops/pallas_lfa_train.py:162"),
-               "K6": ("myria3d_tpu_torch/csrc/lfa_train.cu",
-                      "myria3d_tpu/ops/pallas_lfa_train.py:192"),
-               "K7": ("myria3d_tpu_torch/csrc/knn.cu", "myria3d_tpu/ops/pallas_knn.py:115"),
-               "K8": ("myria3d_tpu_torch/csrc/fps.cu", "myria3d_tpu/ops/fps.py:25")}
-    kernels = []
-    for name, (src, rep) in sources.items():
-        rows = stats[name]
-        bounds = [s[3] for s in rows]
-        libs = [s[4] for s in rows]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name],
-            "max_abs_err": max(s[0] for s in rows),
-            "ms": sum(s[1] for s in rows),
-            "plain_ms": sum(s[2] for s in rows),
-            "bound_ms": sum(b[0] for b in bounds),
-            # what bounds the largest share of the summed bound
-            "bound_by": max(bounds, key=lambda b: b[0])[1],
-            "library_ms": sum(libs) if all(v is not None for v in libs) else None,
-        })
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_entries(stats, launches, SOURCES)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

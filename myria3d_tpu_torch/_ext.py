@@ -57,6 +57,7 @@ _SIGNATURES = {
     "m3d_lfa_bwd_info": [_I, _P],
     "m3d_fps": [_P, _P] + [_I] * 7 + [_P, _P, _P],
     "m3d_fps_max_clusters": [_I, _I, _I, _P],
+    "m3d_vector_attention": [_P] * 7 + [_I] * 5 + [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -41,9 +41,24 @@ zoo's 1e-6. Every search is a full scan (the net has no ``knn_window``, so
 ``Model.set_sorted_window`` windows only the full-cloud interpolation).
 
 Every BatchNorm sits under a ``norms`` list, as ``nn.SharedMLP`` names
-them. At eval the neighbour gathers are plain row gathers (an invalid slot
-reads row 0 and weighs 0); in training they go through K4
-(``pointnet2.neighbour_rows``), so the backward is deterministic. Spans
+them. A vector-attention layer at eval with float32 ``x`` on a CUDA device
+is K9 (``ops.cuda_vector_attention``): one kernel gathers the k and v rows
+by the graph's index, builds the position encoding and the weight MLP on
+chip, takes the masked softmax and writes only ``y``, in the torch
+composition's float32 operations and order. K9 is instantiated at the
+published widths alone (``M3D_K9_WIDTHS``): an eval float32 layer on the
+card at another (C, C/s) or a larger K raises rather than run slowly
+unseen. Its parameters are prepared once per state of the module (the
+three BatchNorms' ``rsqrt(running_var + eps)`` beside their mean, weight
+and bias, none folded into a Linear; keyed by each source tensor's
+device, storage and version, so a load, a move, an optimizer step or a
+training forward's running statistics prepare them again; a module built
+under ``torch.inference_mode`` prepares them on every call). In training,
+on the CPU and under a 16-bit compute dtype (K9 has no 16-bit
+instantiation) the layer is the torch composition: at eval its neighbour
+gathers are plain row gathers (an invalid slot reads row 0 and weighs 0);
+in training they go through K4 (``pointnet2.neighbour_rows``), so the
+backward is deterministic. Spans
 (``utils.profiling.span``): ``pt.knn`` a stage's graph, ``pt.down``,
 ``pt.attention`` a layer, ``pt.up``.
 """
@@ -59,6 +74,7 @@ from torch import nn
 from myria3d_tpu_torch.models.modules.nn import MaskedBatchNorm
 from myria3d_tpu_torch.models.modules.pointnet2 import neighbour_rows
 from myria3d_tpu_torch.ops.cuda_interp import idw_combine
+from myria3d_tpu_torch.ops.cuda_vector_attention import layer_params, pack, vector_attention
 from myria3d_tpu_torch.ops.fps import farthest_point_sampling
 from myria3d_tpu_torch.ops.knn import gather_rows, knn, knn_graph
 from myria3d_tpu_torch.utils.profiling import span
@@ -143,23 +159,49 @@ class VectorAttention(nn.Module):
         self.linear_w = nn.ModuleList([nn.Linear(c, c // share_planes),
                                        nn.Linear(c // share_planes, c // share_planes)])
         self.norms = nn.ModuleList(MaskedBatchNorm(w) for w in (3, c, c // share_planes))
+        self._params = None   # (key, LayerParams, packed): K9's parameters
+
+    def kernel_params(self):
+        """K9's parameters and their packed form, computed once per state:
+        the key holds each source tensor's device, storage and version, so
+        a load, a move or an in-place update prepares them again. Inference
+        tensors (a module built under ``torch.inference_mode``) keep no
+        version: theirs are prepared on every call."""
+        sources = [*self.linear_p.parameters(), *self.linear_w.parameters(),
+                   *(t for bn in self.norms for t in (bn.weight, bn.bias, bn.running_mean,
+                                                       bn.running_var))]
+        key = None if any(t.is_inference() for t in sources) else tuple(
+            (t.device, t.data_ptr(), t._version) for t in sources)
+        if key is None or self._params is None or self._params[0] != key:
+            with torch.no_grad():
+                p = layer_params(self.linear_p, self.linear_w, self.norms)
+                self._params = (key, p, pack(p))
+        return self._params[1], self._params[2]
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
         with span("pt.attention"):
-            valid = g.valid
-            q = self.linear_q(x)
-            k_j = rows(self, self.linear_k(x), g.idx, valid)
-            v_j = rows(self, self.linear_v(x), g.idx, valid)
-            r = self.linear_p[1](F.relu(self.norms[0](self.linear_p[0](g.rel), valid)))
-            w = F.relu(self.norms[1](k_j - q[:, :, None, :] + r, valid))
-            w = F.relu(self.norms[2](self.linear_w[0](w), valid))
-            w = self.linear_w[1](w)
-            w = torch.where(valid[..., None], w, NEG).softmax(dim=2)
-            w = torch.where(valid[..., None], w, 0.0)   # a pad query has no valid slot
-            b, n, kk, c = v_j.shape
-            s = self.share_planes
-            y = ((v_j + r).view(b, n, kk, s, c // s) * w.unsqueeze(3)).sum(dim=2)
-            return y.reshape(b, n, c)
+            q, k, v = self.linear_q(x), self.linear_k(x), self.linear_v(x)
+            if not self.training and x.is_cuda and x.dtype == torch.float32:
+                return vector_attention(q, k, v, g.idx, g.valid, g.rel, *self.kernel_params())
+            return self.composed(q, k, v, g)
+
+    def composed(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 g: Graph) -> torch.Tensor:
+        """The layer on torch operations, from its ``q``, ``k`` and ``v``:
+        the route in training, on the CPU and in 16 bits."""
+        valid = g.valid
+        k_j = rows(self, k, g.idx, valid)
+        v_j = rows(self, v, g.idx, valid)
+        r = self.linear_p[1](F.relu(self.norms[0](self.linear_p[0](g.rel), valid)))
+        w = F.relu(self.norms[1](k_j - q[:, :, None, :] + r, valid))
+        w = F.relu(self.norms[2](self.linear_w[0](w), valid))
+        w = self.linear_w[1](w)
+        w = torch.where(valid[..., None], w, NEG).softmax(dim=2)
+        w = torch.where(valid[..., None], w, 0.0)   # a pad query has no valid slot
+        b, n, kk, c = v_j.shape
+        s = self.share_planes
+        y = ((v_j + r).view(b, n, kk, s, c // s) * w.unsqueeze(3)).sum(dim=2)
+        return y.reshape(b, n, c)
 
 
 class Block(nn.Module):

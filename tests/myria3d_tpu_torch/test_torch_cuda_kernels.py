@@ -30,11 +30,27 @@ version on the same 16-bit values widened to f32: the same arithmetic
 cotangents at an f32 boundary: the sums equal the f32 kernel's on the
 widened values, cast back. A 16-bit train step of both families takes the
 unfused route and launches no K5/K6; a 16-bit predict step launches K2_16.
+
+K9 (Point Transformer's vector attention at eval) is held to the layer's
+torch composition (``VectorAttention.composed``) at the five published
+widths, with invalid slots, pad queries, a real query with no valid slot
+and clouds that fill no whole number of tiles, within 1e-5 of the
+output's scale; at the predict step's shapes (B=48 and each stage's N) it
+is bit-equal. It repeats the composition's float32 operations in the
+orders cuBLAS and torch's reductions take at those shapes, and a test
+holds each of those orders on its own (a Linear's FMAs from 0 in input
+order with the bias last, ``sum(dim=2)``'s four partial sums, the
+softmax's sum in slot order and its division), so that a library whose
+order moves names the step K9 no longer repeats. An eval ``interp_step``
+launches it once a layer (18), within 1e-4 of the torch route's logits
+over the whole net; a train step launches none; an eval float32 layer at
+a width K9 has no instantiation for raises.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from myria3d_tpu_torch.models.model import Model, build_model, build_net
 from myria3d_tpu_torch.ops.cuda_fps import MAX_N, farthest_point_sampling_plain, fps
@@ -58,7 +74,8 @@ from myria3d_tpu_torch.ops.cuda_lfa_train import (
     rel_stats,
     rel_stats_plain,
 )
-from myria3d_tpu_torch.ops.knn import centred_clouds, knn_graph
+from myria3d_tpu_torch.ops.cuda_vector_attention import vector_attention
+from myria3d_tpu_torch.ops.knn import centred_clouds, gather_rows, knn_graph
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -886,3 +903,179 @@ def test_randla_net_steps_take_none_of_the_pointnet2_routes(cuda_device, monkeyp
     assert calls == want
     assert (cuda_knn.ball_route.launches, cuda_knn.small_list.launches) == before[:2]
     assert knn_topk.launches == before[2] + 16
+
+
+# (C, K) of Point Transformer's five stages (share_planes 8)
+K9_WIDTHS = [(32, 8), (64, 16), (128, 16), (256, 16), (512, 16)]
+PT_HP = {"num_features": 9, "num_classes": 7, "planes": [32, 64, 128, 256, 512],
+         "blocks": [2, 3, 4, 6, 3], "nsample": [8, 16, 16, 16, 16], "stride": [1, 4, 4, 4, 4],
+         "share_planes": 8}
+
+
+def _k9_layer(c, dev, seed):
+    """A ``VectorAttention(c, 8)`` at eval on ``dev``, its BatchNorm
+    statistics away from the identity."""
+    from myria3d_tpu_torch.models.modules.point_transformer import VectorAttention
+
+    torch.manual_seed(seed)
+    layer = VectorAttention(c, 8)
+    with torch.no_grad():
+        for bn in layer.norms:
+            bn.weight.uniform_(0.5, 1.5)
+            bn.bias.normal_(0.0, 0.2)
+            bn.running_mean.normal_(0.0, 0.5)
+            bn.running_var.uniform_(0.5, 2.0)
+    return layer.to(dev).eval()
+
+
+def _k9_edges(b, n, k, c, dev, seed):
+    """x and a Graph: random neighbours, a fifth of the slots invalid
+    (index 0, as ``knn`` leaves them), the last seventh of cloud 1 pad
+    queries and real query 3 of cloud 0 without a valid slot."""
+    from myria3d_tpu_torch.models.modules.point_transformer import Graph
+
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(b, n, 3, generator=g) * 2 - 1
+    x = torch.randn(b, n, c, generator=g)
+    idx = torch.randint(0, n, (b, n, k), generator=g, dtype=torch.int32)
+    valid = torch.rand(b, n, k, generator=g) < 0.8
+    valid[..., 0] = True
+    valid[1, n - n // 7:] = False
+    valid[0, 3] = False
+    idx = torch.where(valid, idx, 0)
+    pos, x, idx, valid = (t.to(dev) for t in (pos, x, idx, valid))
+    return x, Graph(idx, valid, gather_rows(pos, idx) - pos[:, :, None, :])
+
+
+@pytest.mark.parametrize("n", [1037, 9001])
+@pytest.mark.parametrize("c,k", K9_WIDTHS)
+def test_k9_matches_the_torch_route(cuda_device, c, k, n):
+    layer = _k9_layer(c, cuda_device, seed=c)
+    x, g = _k9_edges(3, n, k, c, cuda_device, seed=n + c)
+    with torch.inference_mode():
+        before = vector_attention.launches
+        got = layer(x, g)
+        assert vector_attention.launches == before + 1
+        want = layer.composed(layer.linear_q(x), layer.linear_k(x), layer.linear_v(x), g)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert scale > 0 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert not got[1, n - n // 7:].any() and not got[0, 3].any()
+
+
+def test_k9_runs_the_eval_interp_step_and_not_the_train_step(cuda_device, monkeypatch):
+    from myria3d_tpu_torch.models.modules import point_transformer as pt
+
+    torch.manual_seed(0)
+    model = build_model("PointTransformerSeg", dict(PT_HP), interpolation_k=10).to(cuda_device)
+    pos, mask = _sorted_cloud(2, 2048, cuda_device, 13)
+    full, fmask = _sorted_cloud(2, 4096, cuda_device, 14)
+    x = torch.rand((2, 2048, 9), device=cuda_device)
+    before = vector_attention.launches
+    out = model.interp_step(x, pos, mask, pos, full, fmask)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 4096, 7) and torch.isfinite(out).all()
+    assert vector_attention.launches == before + 18
+    with torch.inference_mode():
+        fused = model.net(x, pos, mask)
+        monkeypatch.setattr(pt.VectorAttention, "forward", lambda self, x, g: self.composed(
+            self.linear_q(x), self.linear_k(x), self.linear_v(x), g))
+        plain = model.net(x, pos, mask)
+    assert vector_attention.launches == before + 36
+    scale = float(plain[mask].abs().max())
+    assert float((fused - plain)[mask].abs().max()) <= 1e-4 * scale
+    monkeypatch.undo()
+    y = torch.randint(0, 7, (2, 2048), device=cuda_device).masked_fill(~mask, 65)
+    model.init_train_state()
+    loss, _ = model.train_step(x, pos, y, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and vector_attention.launches == before + 36
+
+
+def test_k9_raises_at_a_width_it_has_no_instantiation_for(cuda_device):
+    from myria3d_tpu_torch.models.modules.point_transformer import VectorAttention
+
+    layer = VectorAttention(48, 8).to(cuda_device).eval()
+    x, g = _k9_edges(2, 100, 16, 48, cuda_device, seed=5)
+    with torch.inference_mode(), pytest.raises(ValueError, match="M3D_K9_WIDTHS"):
+        layer(x, g)
+    layer = _k9_layer(32, cuda_device, seed=6)
+    x, g = _k9_edges(2, 100, 16, 32, cuda_device, seed=6)   # C=32 is instantiated for K <= 8
+    with torch.inference_mode(), pytest.raises(ValueError, match="M3D_K9_WIDTHS"):
+        layer(x, g)
+
+
+def test_k9_runs_a_layer_built_under_inference_mode(cuda_device):
+    with torch.inference_mode():
+        layer = _k9_layer(64, cuda_device, seed=7)
+        x, g = _k9_edges(2, 300, 16, 64, cuda_device, seed=7)
+        before = vector_attention.launches
+        got = layer(x, g)
+        want = layer.composed(layer.linear_q(x), layer.linear_k(x), layer.linear_v(x), g)
+    torch.cuda.synchronize()
+    assert vector_attention.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# the predict step's stages (B=48): (C, K, N)
+K9_CELL = [(32, 8, 16384), (64, 16, 4096), (128, 16, 1024), (256, 16, 256), (512, 16, 64)]
+
+
+@pytest.mark.parametrize("c,k,n", K9_CELL)
+def test_k9_is_bit_equal_to_the_torch_route_at_the_predict_steps_shapes(cuda_device, c, k, n):
+    layer = _k9_layer(c, cuda_device, seed=c + 1)
+    x, g = _k9_edges(48, n, k, c, cuda_device, seed=n + k)
+    with torch.inference_mode():
+        got = layer(x, g)
+        want = layer.composed(layer.linear_q(x), layer.linear_k(x), layer.linear_v(x), g)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def _fma_chain(x, w, b):
+    """x @ w.T + b as FMAs from 0 in input order, the bias added last (each
+    FMA's exact result rounded once: a float32 product is exact in float64)."""
+    acc = torch.zeros(x.shape[0], w.shape[0], dtype=torch.float64, device=x.device)
+    for i in range(x.shape[1]):
+        acc = (acc + x[:, i:i + 1].double() * w[:, i].double()[None]).float().double()
+    return acc.float() + b
+
+
+# the layer's Linears at the predict step's shapes: (rows = B N K, in, out)
+K9_LINEARS = [(48 * 16384 * 8, 3, 3), (48 * 16384 * 8, 3, 32), (48 * 16384 * 8, 32, 4),
+              (48 * 16384 * 8, 4, 4), (48 * 4096 * 16, 3, 64), (48 * 4096 * 16, 64, 8),
+              (48 * 4096 * 16, 8, 8), (48 * 1024 * 16, 128, 16), (48 * 1024 * 16, 16, 16),
+              (48 * 256 * 16, 256, 32), (48 * 256 * 16, 32, 32), (48 * 64 * 16, 512, 64),
+              (48 * 64 * 16, 64, 64), (48 * 64 * 16, 3, 512)]
+
+
+@pytest.mark.parametrize("rows,kd,nout", K9_LINEARS)
+def test_torch_linear_sums_in_the_order_k9_repeats(cuda_device, rows, kd, nout):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + kd + nout)
+    x = torch.randn(rows, kd, generator=g, device=cuda_device)
+    w = torch.randn(nout, kd, generator=g, device=cuda_device)
+    b = torch.randn(nout, generator=g, device=cuda_device)
+    got = F.linear(x, w, b)[:200_000]
+    assert torch.equal(got, _fma_chain(x[:200_000], w, b))
+
+
+@pytest.mark.parametrize("n,k,c", [(16384, 8, 32), (4096, 16, 64), (64, 16, 512)])
+def test_torch_slot_sum_and_softmax_take_the_orders_k9_repeats(cuda_device, n, k, c):
+    g = torch.Generator(device=cuda_device).manual_seed(n + k)
+    z = torch.randn(48, n, k, 8, c // 8, generator=g, device=cuda_device)
+    part = [z[:, :, j] for j in range(4)]
+    for j in range(4, k):
+        part[j % 4] = part[j % 4] + z[:, :, j]
+    assert torch.equal(z.sum(dim=2), ((part[0] + part[1]) + part[2]) + part[3])
+    del z, part
+    w = torch.randn(48, n, k, c // 8, generator=g, device=cuda_device) * 3
+    valid = torch.rand(48, n, k, generator=g, device=cuda_device) < 0.8
+    valid[..., 0] = True
+    w = torch.where(valid[..., None], w, -1e30)
+    e = torch.exp(w - w.amax(dim=2, keepdim=True))
+    total = e[:, :, 0]
+    for j in range(1, k):
+        total = total + e[:, :, j]
+    assert torch.equal(w.softmax(dim=2), e / total[:, :, None])

@@ -31,7 +31,12 @@ from myria3d_tpu_torch import run
 from myria3d_tpu_torch.models.criterion import CrossEntropyLoss
 from myria3d_tpu_torch.models.model import build_model
 from myria3d_tpu_torch.models.modules import get_neural_net_class
-from myria3d_tpu_torch.models.modules.point_transformer import PointTransformerSeg, VectorAttention
+from myria3d_tpu_torch.models.modules.point_transformer import (
+    Graph,
+    PointTransformerSeg,
+    VectorAttention,
+)
+from myria3d_tpu_torch.ops.knn import gather_rows
 from myria3d_tpu_torch.pctl.dataset.toy_dataset import write_synthetic_toy_las
 from myria3d_tpu_torch.pctl.io.las import read_las
 from perfbench import weights
@@ -198,3 +203,130 @@ def test_predict_writes_a_tile_with_a_point_transformer_checkpoint(seeded, tmp_p
     covered = np.abs(sums - 1.0) < 1e-3
     assert np.isfinite(probas).all() and (covered | (sums == 0)).all() and covered.mean() > 0.9
     assert set(np.unique(res["PredictedClassification"][covered])) <= {1, 2, 5, 6, 9, 17, 64}
+
+
+# K9's parameters on the CPU: the layer rebuilt on them
+# (``ops.cuda_vector_attention.vector_attention_plain``, the route a CPU
+# tensor takes, whose operations the kernel repeats in order) against
+# ``VectorAttention.forward``'s torch composition at eval, at the five
+# published (C, K) widths with share_planes 8: the same operations on the
+# same values, so the outputs are equal.
+K9_WIDTHS = [(32, 8), (64, 16), (128, 16), (256, 16), (512, 16)]
+
+
+def _eval_layer(c, seed):
+    """A ``VectorAttention(c, 8)`` at eval with seeded weights and
+    BatchNorm statistics away from the identity."""
+    torch.manual_seed(seed)
+    layer = VectorAttention(c, 8)
+    with torch.no_grad():
+        for bn in layer.norms:
+            bn.weight.uniform_(0.5, 1.5)
+            bn.bias.normal_(0.0, 0.2)
+            bn.running_mean.normal_(0.0, 0.5)
+            bn.running_var.uniform_(0.5, 2.0)
+    return layer.eval()
+
+
+def _edges(b, n, k, c, seed):
+    """x (B, N, C) and a Graph with invalid slots (index 0, as ``knn``
+    leaves them), pad queries (the last rows of cloud 1, no valid slot) and
+    one real query whose slots are all invalid."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(b, n, 3, generator=g) * 2 - 1
+    x = torch.randn(b, n, c, generator=g)
+    idx = torch.randint(0, n, (b, n, k), generator=g, dtype=torch.int32)
+    valid = torch.rand(b, n, k, generator=g) < 0.8
+    valid[..., 0] = True
+    valid[1, n - n // 7:] = False
+    valid[0, 3] = False
+    idx = torch.where(valid, idx, 0)
+    return x, Graph(idx, valid, gather_rows(pos, idx) - pos[:, :, None, :])
+
+
+@pytest.mark.parametrize("c,k", K9_WIDTHS)
+def test_kernel_params_rebuild_the_torch_route(c, k):
+    from myria3d_tpu_torch.ops.cuda_vector_attention import vector_attention
+
+    layer = _eval_layer(c, seed=c)
+    x, g = _edges(2, 45, k, c, seed=k + c)
+    with torch.no_grad():
+        want = layer(x, g)
+        q, kx, v = layer.linear_q(x), layer.linear_k(x), layer.linear_v(x)
+        got = vector_attention(q, kx, v, g.idx, g.valid, g.rel, *layer.kernel_params())
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+    # pad queries and the query with no valid slot give 0
+    assert not got[1, 45 - 45 // 7:].any() and not got[0, 3].any()
+
+
+def test_kernel_params_are_prepared_once_and_again_after_a_load_or_a_train_round_trip(
+        monkeypatch):
+    from myria3d_tpu_torch.models.modules import point_transformer as pt
+    from myria3d_tpu_torch.ops.cuda_vector_attention import layer_params
+
+    calls = []
+
+    def counted(*a):
+        calls.append(1)
+        return layer_params(*a)
+
+    monkeypatch.setattr(pt, "layer_params", counted)
+    layer = _eval_layer(64, seed=1)
+    first = layer.kernel_params()
+    assert layer.kernel_params()[1] is first[1] and len(calls) == 1
+    # a load of other weights prepares them again, from the new values
+    other = _eval_layer(64, seed=2)
+    layer.load_state_dict(other.state_dict())
+    after_load = layer.kernel_params()
+    assert len(calls) == 2
+    for a, b in zip(after_load[0], layer_params(other.linear_p, other.linear_w, other.norms)):
+        assert torch.equal(a, b)
+    assert not torch.equal(after_load[1], first[1])
+    # a train()/eval() round trip whose training forward moves the running
+    # statistics prepares them again, from the new statistics; a round trip
+    # that changes nothing keeps them, and an in-place update prepares them
+    layer.train()
+    x, g = _edges(2, 30, 16, 64, seed=7)
+    layer(x, g)
+    layer.eval()
+    trained = layer.kernel_params()
+    assert len(calls) == 3 and not torch.equal(trained[0].bn1[0], after_load[0].bn1[0])
+    for a, b in zip(trained[0], layer_params(layer.linear_p, layer.linear_w, layer.norms)):
+        assert torch.equal(a, b)
+    layer.train()
+    layer.eval()
+    assert layer.kernel_params()[1] is trained[1] and len(calls) == 3
+    with torch.no_grad():
+        layer.norms[1].running_var.mul_(2.0)
+    again = layer.kernel_params()
+    assert len(calls) == 4 and not torch.equal(again[0].bn1[1], trained[0].bn1[1])
+
+
+def test_kernel_params_of_a_layer_built_under_inference_mode_are_prepared_every_call():
+    from myria3d_tpu_torch.ops.cuda_vector_attention import layer_params
+
+    with torch.inference_mode():
+        layer = _eval_layer(32, seed=5)
+        first = layer.kernel_params()
+        for a, b in zip(first[0], layer_params(layer.linear_p, layer.linear_w, layer.norms)):
+            assert torch.equal(a, b)
+        layer.norms[1].running_mean.add_(1.0)   # an in-place update keeps no version here
+        again = layer.kernel_params()
+    assert again[1] is not first[1] and torch.equal(again[0].bn1[0], first[0].bn1[0] + 1.0)
+
+
+def test_cpu_and_training_keep_the_torch_route(monkeypatch):
+    from myria3d_tpu_torch.models.modules import point_transformer as pt
+
+    def refused(*a, **k):
+        raise AssertionError("K9 on the CPU")
+
+    monkeypatch.setattr(pt, "vector_attention", refused)
+    layer = _eval_layer(32, seed=3)
+    x, g = _edges(2, 30, 8, 32, seed=4)
+    with torch.no_grad():
+        want = layer.composed(layer.linear_q(x), layer.linear_k(x), layer.linear_v(x), g)
+        assert torch.equal(layer(x, g), want)
+    layer.train()
+    assert layer(x, g).shape == (2, 30, 32)
