@@ -6,6 +6,7 @@ harness (one NVIDIA GPU).
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22     # phases 1, 2 and 22 alone
     python3 chip_smoke.py --phase 23     # phases 1, 2 and 23 alone
+    python3 chip_smoke.py --phase 24     # phases 1, 2 and 24 alone
 
 Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA. Phases, one line each:
@@ -250,7 +251,11 @@ PyTorch built for CUDA. Phases, one line each:
    (``vector_attention_plain``) with pad queries 0, each timed beside the
    plain version, with the byte bound of the attention reader; (b) the
    net's eval forward at B=48, N=16384: 18 K9 launches a step, ms a step
-   beside K9's plain version in its place, and the logits bit-equal.
+   beside K9's plain version in its place, and the logits bit-equal;
+24. Point Transformer V3 (``model=point_transformer_v3_model``, default
+   initialisation seeded with the predict config's seed) predicts phase
+   22's 17.18 M-point tile through the CLI, with (a)'s checks and its
+   prints, and the net's ``pt3_*`` counters among the phases.
 
 Phases 11-22 each set the launch counts to 0 before their path and read
 them after it (phases 21-22 in their subprocesses, whose counts start at
@@ -3211,11 +3216,13 @@ finally:
 CLI_ACCURACY_MARGIN = 0.005    # the CLI's GT accuracy against phase 4's
 
 
-def run_cli(argv: list, cwd: str, env: dict, timeout: int = 600) -> dict:
+def run_cli(argv: list, cwd: str, env: dict, timeout: int = 600,
+            launched=("K1", "K2", "K3")) -> dict:
     """``python -m myria3d_tpu_torch.run <argv>`` through ``CLI_WRAPPER`` in
     a subprocess: it must exit 0 with no FAIL line, print one ``phases``
-    dict per tile, and launch K1, K2 and K3. Returns its wall seconds,
-    output lines, launch counts, phases dicts and peak device GiB."""
+    dict per tile, and launch the kernels ``launched`` (RandLA-Net's K1, K2
+    and K3 by default). Returns its wall seconds, output lines, launch
+    counts, phases dicts and peak device GiB."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", CLI_WRAPPER, *argv], cwd=cwd, env=env,
                          capture_output=True, text=True, timeout=timeout)
@@ -3228,7 +3235,7 @@ def run_cli(argv: list, cwd: str, env: dict, timeout: int = 600) -> dict:
         return [line[len(tag):] for line in lines if line.startswith(tag)]
 
     counts = [json.loads(v) for v in tagged("CLI launches ")]
-    need(len(counts) == 1 and all(v > 0 for v in counts[0].values()),
+    need(len(counts) == 1 and all(counts[0][k] > 0 for k in launched),
          f"the CLI's launches: {counts}")
     phases = [json.loads(v) for v in tagged("CLI phases ")]
     need(len(phases) >= 1, "the CLI's predict printed no phases")
@@ -3309,7 +3316,8 @@ def tile_overrides(tile: str, extent: int, *extra: str) -> list:
             f"datamodule.tile_width={extent}", *extra]
 
 
-def predict_tile(tile: str, extent: int, label: str, *extra: str) -> dict:
+def predict_tile(tile: str, extent: int, label: str, *extra: str, phase: str = "22",
+                 launched=("K1", "K2", "K3")) -> dict:
     """The CLI predicts ``tile`` (one subprocess, experiment=predict, batch
     48); its output LAS passes ``check_predicted_las``. Prints the wall
     clock, predict()'s line and phases, Mpts/s, the launches, the peak
@@ -3321,7 +3329,7 @@ def predict_tile(tile: str, extent: int, label: str, *extra: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="m3d_tile_") as cwd:
         argv = tile_overrides(tile, extent, f"predict.output_dir={cwd}/out",
                               f"hydra.run.dir={cwd}/run", *extra)
-        run = run_cli(argv, cwd, cli_env(cwd), timeout=900)
+        run = run_cli(argv, cwd, cli_env(cwd), timeout=900, launched=launched)
         need(len(run["phases"]) == 1, f"{len(run['phases'])} phases dicts for one tile")
         out = os.path.join(cwd, "out", os.path.basename(tile))
         t0 = time.perf_counter()
@@ -3331,13 +3339,13 @@ def predict_tile(tile: str, extent: int, label: str, *extra: str) -> dict:
     phases = run["phases"][0]
     line = [v for v in run["lines"] if v.startswith("predict phases:")]
     need(len(line) == 1, "predict() logged no line of phases")
-    print(f"phase 22{label} CLI predict of {n_points} points ({' '.join(extra) or 'overlap 0'}): "
+    print(f"phase {phase}{label} CLI predict of {n_points} points ({' '.join(extra) or 'overlap 0'}): "
           f"{run['s']:.2f} s wall, {n_points / run['s'] / 1e6:.3f} Mpts/s, "
           f"{phases['n_batches']} batches [{CARD}]")
-    print(f"phase 22{label} {line[0]}")
-    print(f"phase 22{label} phases {json.dumps(phases)}; finalize+write "
+    print(f"phase {phase}{label} {line[0]}")
+    print(f"phase {phase}{label} phases {json.dumps(phases)}; finalize+write "
           f"{run['finalize_s'][0]:.3f} s on the wrapper's clock")
-    print(f"phase 22{label} launches {run['launches']}, peak device memory "
+    print(f"phase {phase}{label} launches {run['launches']}, peak device memory "
           f"{run['peak_gib']:.3f} GiB, host cores {os.cpu_count()}; output LAS checked in "
           f"{dt_check:.1f} s, covered {covered:.4f}")
     return {"s": run["s"], "phases": phases, "launches": run["launches"]}
@@ -3491,6 +3499,32 @@ def phase_tile(dev) -> dict:
         for k, v in run["launches"].items():
             launches[k] += v
     return launches
+
+
+def phase_pt3_tile(dev) -> None:
+    """Phase 24: Point Transformer V3 predicts phase 22's tile through the
+    CLI, from a checkpoint of its published net (default initialisation,
+    seeded)."""
+    import torch
+
+    from myria3d_tpu_torch.models.model import build_model
+    from myria3d_tpu_torch.run import CONFIG_DIR, compose_config
+
+    tile = production_tile(TILE_POINTS, TILE_EXTENT)
+    mcfg = compose_config(CONFIG_DIR, "config.yaml", ["model=point_transformer_v3_model"])["model"]
+    torch.manual_seed(TILE_SEED)
+    model = build_model(mcfg["neural_net_class_name"], mcfg["neural_net_hparams"],
+                        interpolation_k=mcfg["interpolation_k"], d_in=mcfg["d_in"],
+                        num_classes=mcfg["num_classes"],
+                        classification_dict=mcfg["classification_dict"])
+    with tempfile.TemporaryDirectory(prefix="m3d_pt3_") as ckpt:
+        model.save_checkpoint(ckpt)
+        # the net runs no K1 or K2: K3 interpolates its logits
+        run = predict_tile(tile, TILE_EXTENT, "", f"predict.ckpt_path={ckpt}", phase="24",
+                           launched=("K3",))
+    counts = {k: v for k, v in run["phases"].items() if k.startswith("pt3_")}
+    need(counts.get("pt3_points.0", 0) > 0, "the CLI's phases hold no pt3_* counters")
+    print(f"phase 24 counters {json.dumps(counts)} [{CARD}]")
 
 
 # ---------------------------------------------------------------------------
@@ -3700,6 +3734,17 @@ def main() -> int:
             print("FAIL")
             return 1
         return 0
+    if sys.argv[1:] == ["--phase", "24"]:
+        # phase 24 alone, after the card and the build
+        try:
+            CARD = phase_device()
+            phase_build()
+            phase_pt3_tile(dev)
+        except Exception:  # noqa: BLE001
+            traceback.print_exc()
+            print("FAIL")
+            return 1
+        return 0
     if sys.argv[1:] == ["--phase", "23"]:
         # phase 23 alone, after the card and the build: the kernels line
         # holds K9 alone; no device line
@@ -3762,6 +3807,7 @@ def main() -> int:
         for name, count in phase_tile(dev).items():
             launches[name] += count
         stats["K9"], launches["K9"] = phase_k9(dev)
+        phase_pt3_tile(dev)
     except Exception:  # noqa: BLE001 - every phase failure ends the run
         traceback.print_exc()
         print("FAIL")

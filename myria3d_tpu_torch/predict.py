@@ -141,7 +141,9 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
     ``cook_points_native``), and the points merged (``merge_points``, and
     ``merge_points_native``, its equal: every merge is the native row
     scatter), and the finalize pass's seconds in its writes, averaged over
-    its threads, and their count (``write_io_s``, ``write_threads``).
+    its threads, and their count (``write_io_s``, ``write_threads``), and
+    the counters of a net that keeps them (``counters``: Point Transformer
+    V3's ``pt3_*``, summed over the batches).
     Each phase is a span
     (``utils.profiling.span``): under a recording ``torch.profiler`` the
     trace shows ``predict.setup``, ``predict.read``, ``predict.stream`` and
@@ -188,6 +190,14 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
         par = auto_parallel(model, dm["batch_size"], devices) if devices is not None else None
         if par is not None:
             log.info(f"Predicting data-parallel over {len(par.devices)} replicas")
+
+        # a net that counts its work (Point Transformer V3) counts into
+        # phases, in every replica
+        net_counts: dict = {}
+        if phases is not None:
+            for replica in (par.replicas if par is not None else [model]):
+                if hasattr(replica.net, "counters"):
+                    replica.net.counters = net_counts
 
         itp = instantiate(port_targets(pcfg["interpolator"]))
         if not isinstance(itp, Interpolator):
@@ -272,4 +282,5 @@ def predict(config: dict, phases: Optional[dict] = None, preread=None,
                       cook_points=sums.get("cook_points", 0),
                       cook_points_native=sums.get("cook_points_native", 0),
                       merge_points=merged, merge_points_native=merged)
+        phases.update(net_counts)
     return out_path

@@ -1,0 +1,16 @@
+"""Host milliseconds a traced predict step spends in Point Transformer V3's
+``pt3.serialize`` and ``pt3.pool`` spans (codes, sorts and inverses; the
+poolings, where the host waits for the parents' count): the spans' total in
+the trace's host events over the traced steps. None where the program has no such spans."""
+
+SPANS = ("pt3.serialize", "pt3.pool")
+
+
+def read(record):
+    trace = record.get("trace")
+    if trace is None or not record.get("trace_batches"):
+        return None
+    spans = [t1 - t0 for t0, t1, name in trace.host if name in SPANS]
+    if not spans:
+        return None
+    return sum(spans) / 1e3 / len(record["trace_batches"])
